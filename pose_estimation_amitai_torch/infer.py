@@ -4,9 +4,11 @@ Counterpart of ``pose_estimation_amitai_tpu/infer.py`` for the flagship
 per-wing slice:
 
 * ``Predictor`` — chunked forward (tail zero-padded, padded rows dropped)
-  and peak decode on the device, over one of two routes: ``"fused"``, the
-  hand-written Hopper kernels (models/fast_infer.py), or ``"module"``, the
+  and peak decode on the device, over one of four routes: ``"fused"``, the
+  hand-written Hopper kernels (models/fast_infer.py); ``"module"``, the
   ``nn.Module`` forward (the port's counterpart of JAX's ``"flax"`` route);
+  ``"int8_resident"`` and ``"int8_fused"``, the calibrated int8 forwards
+  (models/quantized.py), the second through the int8 stage kernel;
 * ``predict_movie`` — keeps up to ``prefetch`` chunks in flight;
 * ``lift_to_3d`` — decoded per-camera peaks + cropZone + DLT cameras ->
   multi-view triangulated 3D points.
@@ -25,6 +27,9 @@ from .config import Config
 from .models import build_model
 from .models.cnn import BasicNet
 from .models.fast_infer import basicnet_apply_fused, kernel_params
+from .models.quantized import (
+    calibrate, make_quantized_fused_forward, make_quantized_resident_forward,
+)
 from .ops import geometry, peaks
 
 DECODES = ("argmax", "soft", "refined")
@@ -45,6 +50,7 @@ class Predictor:
         return_heatmaps: bool = False,
         use_fused: bool = False,
         use_quantized: bool = False,
+        calibration_frames=None,
         decode: str = "argmax",
         mesh=None,
         batch_stats=None,
@@ -55,12 +61,14 @@ class Predictor:
         is no default. ``use_fused``: serve the torch-flavour ``BasicNet``
         with 3x3 kernels at dilation 2 through the fused kernels
         (``serving_path == "fused"``; ``model`` stays None); otherwise,
-        and for other models, the ``nn.Module`` forward (``"module"``). ``decode``: 'argmax' (tf_find_peaks
-        parity), 'soft' (soft-argmax, vals from the map max) or 'refined'
-        (sub-pixel log-parabola)."""
-        if use_quantized:
-            raise NotImplementedError(
-                "int8 serving (use_quantized) is ROADMAP Queue A item 5")
+        and for other models, the ``nn.Module`` forward (``"module"``).
+        ``use_quantized``: calibrated int8 serving of the same flagship
+        geometry, scales from float32 forwards of ``calibration_frames``
+        (required): ``"int8_resident"`` (int8 stored between layers, bf16
+        maps rounded out), or with ``use_fused`` too ``"int8_fused"``
+        (encoder stages through the int8 stage kernel). ``decode``: 'argmax'
+        (tf_find_peaks parity), 'soft' (soft-argmax, vals from the map max)
+        or 'refined' (sub-pixel log-parabola)."""
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is ROADMAP Queue A item 14")
@@ -83,16 +91,39 @@ class Predictor:
         self.num_output_channels = num_output_channels
         with torch.device("meta"):  # the geometry only; no weights yet
             model = build_model(cfg, image_shape, num_output_channels)
-        # the fused kernels serve the flagship geometry (kernel 3, dilation
-        # 2), as JAX's fused route does; other BasicNet configs use the module
-        fused_ok = (
-            use_fused and type(model) is BasicNet and model.flavor == "torch"
+        # the fused kernels and the int8 forwards serve the flagship
+        # geometry (kernel 3, dilation 2), as JAX's do; other BasicNet
+        # configs use the module
+        is_basic = (
+            type(model) is BasicNet and model.flavor == "torch"
             and model.kernel_size == 3 and model.dilation == 2
         )
-        self.serving_path = "fused" if fused_ok else "module"
+        fused_ok = use_fused and is_basic
+        if use_quantized:
+            if not is_basic:
+                raise NotImplementedError(
+                    "int8 serving of other models than the flagship BasicNet "
+                    "(int8_generic) is ROADMAP Queue A item 11")
+            if calibration_frames is None:
+                raise ValueError("use_quantized needs calibration_frames")
+            self.serving_path = "int8_fused" if use_fused else "int8_resident"
+        else:
+            self.serving_path = "fused" if fused_ok else "module"
         self.model: BasicNet | None = None  # the module route's nn.Module
         self._kparams = None
-        if fused_ok:
+        self._quantized = None  # the int8 routes' forward
+        if use_quantized:
+            scales = calibrate(params, np.asarray(calibration_frames),
+                               device=self.device)
+            if use_fused:
+                self._quantized = make_quantized_fused_forward(
+                    params, scales, device=self.device)
+            else:
+                # bf16 maps out, as JAX serves this route
+                self._quantized = make_quantized_resident_forward(
+                    params, scales, device=self.device,
+                    out_dtype=torch.bfloat16)
+        elif fused_ok:
             self._kparams = kernel_params(params, model.dtype, self.device)
         else:
             self.model = model.to_empty(device=self.device).eval()
@@ -125,6 +156,8 @@ class Predictor:
         """(B, H, W, C) frames on the device -> (B, H, W, K) float32 maps
         over this predictor's serving route."""
         with torch.inference_mode():
+            if self._quantized is not None:
+                return self._quantized(frames).float()
             if self._kparams is not None:
                 return basicnet_apply_fused(self._kparams, frames)
             return self.model(frames)

@@ -1,11 +1,14 @@
 """Where the serving time goes on the card: one traced ``Predictor`` call
 per route, at the flagship configuration.
 
-    python -m pose_estimation_amitai_torch.profile_routes [--frames 512] [--out FILE]
+    python -m pose_estimation_amitai_torch.profile_routes [--frames 512]
+        [--routes fused module int8_fused int8_resident] [--out FILE]
 
 For each route (``"fused"``, the hand-written kernels; ``"module"``, the
-``nn.Module`` forward) at ``Config()`` defaults (filters 64, bf16,
-192x192x4 frames -> 18 maps, chunk 256, seeded random weights): one warm-up
+``nn.Module`` forward; ``"int8_fused"`` and ``"int8_resident"``, the
+calibrated int8 forwards, the first through the int8 stage kernel) at
+``Config()`` defaults (filters 64, bf16, 192x192x4 frames -> 18 maps, chunk
+256, seeded random weights, int8 scales from the first 128 frames): one warm-up
 call, one call on ``--frames`` frames timed on the host clock, then the
 same call under ``torch.profiler``. Prints one JSON object (and writes it to
 ``--out`` if given): the card's ``nvidia-smi`` name and power limit, and
@@ -34,6 +37,14 @@ from .infer import Predictor
 SEED = 0
 SHAPE = (192, 192, 4)
 K = 18
+CALIB_FRAMES = 128  # int8 calibration set: 4 batches of 32
+# Predictor options of each route
+ROUTES = {
+    "fused": dict(use_fused=True),
+    "module": dict(),
+    "int8_fused": dict(use_quantized=True, use_fused=True),
+    "int8_resident": dict(use_quantized=True),
+}
 TOP = 12  # kernel names listed per route
 NAME_CHARS = 160  # of a kernel name: templated names run to 1,000 and more
 _OVERHEAD = {"Activity Buffer Request"}  # profiler bookkeeping, not work
@@ -48,8 +59,13 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile_route(cfg: Config, params, frames: np.ndarray, use_fused: bool) -> dict:
-    pred = Predictor(cfg, params, SHAPE, K, device="cuda", use_fused=use_fused)
+def profile_route(cfg: Config, params, frames: np.ndarray, route: str) -> dict:
+    opts = dict(ROUTES[route])
+    if opts.get("use_quantized"):
+        opts["calibration_frames"] = frames[:CALIB_FRAMES]
+    pred = Predictor(cfg, params, SHAPE, K, device="cuda", **opts)
+    if pred.serving_path != route:
+        raise RuntimeError(f"asked for {route!r}, got {pred.serving_path!r}")
     pred(frames[: pred.chunk_size])  # warm-up: kernel load, allocator
     t0 = time.perf_counter()
     pred(frames)
@@ -84,6 +100,7 @@ def profile_route(cfg: Config, params, frames: np.ndarray, use_fused: bool) -> d
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=512)
+    ap.add_argument("--routes", nargs="+", choices=list(ROUTES), default=list(ROUTES))
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -97,8 +114,8 @@ def main(argv: list[str] | None = None) -> None:
         np.random.default_rng(SEED), SHAPE[-1], K, filters=cfg.num_base_filters)
     frames = np.random.default_rng(SEED).random((args.frames, *SHAPE), dtype=np.float32)
     out = {"nvidia_smi": smi}
-    for route, use_fused in (("fused", True), ("module", False)):
-        out[route] = profile_route(cfg, params, frames, use_fused)
+    for route in args.routes:
+        out[route] = profile_route(cfg, params, frames, route)
     text = json.dumps(out, indent=1)
     if args.out:
         with open(args.out, "w") as f:

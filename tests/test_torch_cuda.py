@@ -8,7 +8,9 @@ machine without the JAX package, from the repository root:
 
 Shapes here are deliberately ragged (sizes off the kernels' 8 x 16 x 64
 tiles, channel counts off the 8-channel staging chunk) to reach every
-masked edge; chip_smoke.py covers the flagship shapes.
+masked edge; chip_smoke.py covers the flagship shapes. The int8 kernels
+round every float step where their plain versions do, so they are held to
+equality.
 """
 
 import numpy as np
@@ -18,7 +20,9 @@ import torch
 from pose_estimation_amitai_torch.config import Config
 from pose_estimation_amitai_torch.infer import Predictor
 from pose_estimation_amitai_torch.ops import hopper_conv as hc
+from pose_estimation_amitai_torch.models import quantized
 from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+from pose_estimation_amitai_torch.ops import hopper_qconv as hq
 from pose_estimation_amitai_torch.weights import init_basicnet_params
 
 pytestmark = pytest.mark.cuda
@@ -113,3 +117,136 @@ def test_predictor_fused_matches_module_on_card(cuda):
                      return_heatmaps=True, use_fused=f)(frames) for f in (False, True)]
     np.testing.assert_allclose(out[1][0], out[0][0], atol=1e-4)
     np.testing.assert_allclose(out[1][1], out[0][1], atol=1e-4)
+
+
+def _int8(rng, *shape, lim=127):
+    return torch.from_numpy(rng.integers(-lim, lim + 1, shape).astype(np.int8)).cuda()
+
+
+def _dequant_args(rng, cin, cout):
+    """int8 weights with a multiplier that brings the conv to unit scale."""
+    mult = (rng.uniform(0.5, 1.5, cout) / (np.sqrt(9 * cin) * 5329)).astype(np.float32)
+    bias = (rng.standard_normal(cout) * 0.05).astype(np.float32)
+    return [_int8(rng, 3, 3, cin, cout), torch.from_numpy(mult).cuda(),
+            torch.from_numpy(bias).cuda()]
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout, dil, pool", [
+    (2, 20, 36, 4, 24, 2, True),     # one dp4a word per pixel
+    (1, 13, 17, 5, 7, 1, False),     # channels off the 4-byte word, odd H x W
+    (3, 24, 24, 33, 130, 3, True),   # more than one 64-channel tile and chunk
+    (2, 9, 50, 64, 64, 8, False),    # the widest halo
+])
+def test_quantized_stage_kernel_equals_plain(cuda, b, h, w, cin, cout, dil, pool):
+    rng = np.random.default_rng(cin * cout + dil)
+    args = [_int8(rng, b, h, w, cin)]
+    for c in (cin, cout, cout):
+        args += _dequant_args(rng, c, cout)
+    invs = [float(v) for v in rng.uniform(20, 40, 3)]
+    before = hq.fused_quantized_stage.launches
+    got = hq.fused_quantized_stage(*args, *invs, dilation=dil, pool=pool)
+    torch.cuda.synchronize()
+    assert hq.fused_quantized_stage.launches == before + 1
+    want = hq.fused_quantized_stage_plain(*args, *invs, dilation=dil, pool=pool)
+    assert got.shape == (b, h, w, cout) and got.dtype == torch.int8
+    assert 5 < want.float().abs().mean() < 64  # the int8 range is used, unsaturated
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout, dil", [
+    (2, 24, 40, 64, 64, 2),
+    (1, 17, 19, 5, 7, 1),
+    (2, 16, 16, 12, 70, 3),
+    (1, 11, 33, 130, 9, 8),
+])
+def test_quantized_conv3x3_kernel_equals_plain(cuda, b, h, w, cin, cout, dil):
+    rng = np.random.default_rng(h + cin)
+    mult = (rng.uniform(5e-4, 2e-3, cout) * 64 / cin).astype(np.float32)
+    bias = rng.uniform(-0.1, 0.1, cout).astype(np.float32)
+    args = [_int8(rng, b, h, w, cin, lim=80), _int8(rng, 3, 3, cin, cout, lim=90),
+            torch.from_numpy(mult).cuda(), torch.from_numpy(bias).cuda()]
+    before = hq.quantized_conv3x3.launches
+    got = hq.quantized_conv3x3(*args, dilation=dil)
+    torch.cuda.synchronize()
+    assert hq.quantized_conv3x3.launches == before + 1
+    want = hq.quantized_conv3x3_plain(*args, dilation=dil)
+    assert got.shape == (b, h, w, cout) and got.dtype == torch.int8
+    assert want.float().abs().mean() > 10
+    assert torch.equal(got, want)
+
+
+def test_qconv_wrappers_check_operands(cuda):
+    rng = np.random.default_rng(0)
+    x = _int8(rng, 1, 8, 8, 4)
+    l1, l2 = _dequant_args(rng, 4, 8), _dequant_args(rng, 8, 8)
+    with pytest.raises(TypeError, match="int8"):
+        hq.fused_quantized_stage(x.float(), *l1, *l2, *l2, 1.0, 1.0, 1.0)
+    with pytest.raises(TypeError):  # float weights
+        hq.quantized_conv3x3(x, l1[0].float(), l1[1], l1[2])
+    with pytest.raises(ValueError, match="shape"):
+        hq.fused_quantized_stage(x, *l2, *l2, *l2, 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        hq.quantized_conv3x3(x.transpose(1, 2), *l1)
+    with pytest.raises(ValueError, match="dilation"):
+        hq.quantized_conv3x3(x, *l1, dilation=9)
+    with pytest.raises(ValueError):  # multipliers left on the CPU
+        hq.quantized_conv3x3(x, l1[0], l1[1].cpu(), l1[2])
+
+
+@pytest.mark.parametrize("route", ["fused", "resident", "bf16"])
+def test_int8_forward_on_card_equals_cpu(cuda, route):
+    """Same scales on both devices: the int8 products are exact, every float
+    step rounds on its own, and the stage kernel equals its plain version,
+    so the card's maps equal the CPU's."""
+    params = init_basicnet_params(np.random.default_rng(0), 4, 6, filters=8)
+    frames = np.random.default_rng(1).random((3, 48, 48, 4)).astype(np.float32)
+    scales = quantized.calibrate(params, frames, device="cpu")
+    make = {"fused": quantized.make_quantized_fused_forward,
+            "resident": quantized.make_quantized_resident_forward,
+            "bf16": quantized.make_quantized_forward}[route]
+    before = hq.fused_quantized_stage.launches
+    got = make(params, scales, device="cuda", out_dtype=torch.float32)(
+        torch.from_numpy(frames).cuda()).cpu()
+    assert hq.fused_quantized_stage.launches == before + (3 if route == "fused" else 0)
+    want = make(params, scales, device="cpu", out_dtype=torch.float32)(
+        torch.from_numpy(frames))
+    assert torch.equal(got, want)
+
+
+def test_calibrate_repeats_on_card(cuda):
+    """Calibration asks for deterministic conv algorithms, so the same
+    frames give the same scales every time (also with most of the card's
+    memory held, which changes the workspace the library may use), and two
+    predictors built alike decode the same peaks."""
+    cfg = Config(num_base_filters=16, compute_dtype="float32")
+    params = init_basicnet_params(np.random.default_rng(0), 4, 6, filters=16)
+    frames = np.random.default_rng(1).random((12, 96, 96, 4)).astype(np.float32)
+    first = quantized.calibrate(params, frames, batch=4, device="cuda")
+    assert quantized.calibrate(params, frames, batch=4, device="cuda") == first
+    free, _ = torch.cuda.mem_get_info()
+    held = torch.empty(int(free * 0.8), dtype=torch.uint8, device="cuda")
+    again = quantized.calibrate(params, frames, batch=4, device="cuda")
+    del held
+    assert again == first
+    peaks = [Predictor(cfg, params, (96, 96, 4), 6, device="cuda", chunk_size=8,
+                       use_quantized=True, use_fused=True,
+                       calibration_frames=frames)(frames) for _ in range(2)]
+    np.testing.assert_array_equal(peaks[0], peaks[1])
+
+
+def test_predictor_int8_routes_on_card(cuda):
+    """Both int8 routes through Predictor on the card: calibration runs in
+    float32 with TF32 off, so the scales track the CPU's to summation order
+    and the maps agree within a few int8 quanta (5% of the max)."""
+    cfg = Config(num_base_filters=8, compute_dtype="float32")
+    params = init_basicnet_params(np.random.default_rng(0), 4, 6, filters=8)
+    frames = np.random.default_rng(1).random((5, 48, 48, 4)).astype(np.float32)
+    for use_fused, path in ((False, "int8_resident"), (True, "int8_fused")):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            pred = Predictor(cfg, params, (48, 48, 4), 6, device=dev, chunk_size=2,
+                             return_heatmaps=True, use_quantized=True,
+                             use_fused=use_fused, calibration_frames=frames)
+            assert pred.serving_path == path
+            out[dev] = pred(frames)[0]
+        assert np.abs(out["cuda"] - out["cpu"]).max() <= 5e-2 * np.abs(out["cpu"]).max()

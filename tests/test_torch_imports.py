@@ -32,6 +32,9 @@ def test_every_port_module_imports_without_jax():
     assert {"pose_estimation_amitai_torch.infer",
             "pose_estimation_amitai_torch.ops.hopper_conv",
             "pose_estimation_amitai_torch.ops.hopper_deconv",
+            "pose_estimation_amitai_torch.ops.hopper_qconv",
+            "pose_estimation_amitai_torch.ops.int8_conv",
+            "pose_estimation_amitai_torch.models.quantized",
             "pose_estimation_amitai_torch.weights"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -51,12 +54,18 @@ def test_kernel_modules_import_and_refuse_without_nvcc_or_cuda():
     env.update(PATH="/usr/bin:/bin", CUDA_VISIBLE_DEVICES="")
     code = (
         "import torch\n"
-        "from pose_estimation_amitai_torch.ops import _build, hopper_conv, hopper_deconv\n"
+        "from pose_estimation_amitai_torch.ops import _build, hopper_conv, hopper_deconv, hopper_qconv\n"
+        "from pose_estimation_amitai_torch.models import quantized\n"
         "assert not torch.cuda.is_available()\n"
         "x = torch.rand(1, 8, 8, 4); w = torch.rand(3, 3, 4, 8); b = torch.rand(8)\n"
         "w2 = torch.rand(3, 3, 8, 8)\n"
         "assert hopper_conv.fused_encoder_stage(x, w, b, w2, b, w2, b).shape == (1, 4, 4, 8)\n"
-        "for name in ('encoder_stage', 'decoder'):\n"
+        "xq = torch.ones(1, 8, 8, 4, dtype=torch.int8); wq = torch.ones(3, 3, 4, 8, dtype=torch.int8)\n"
+        "wq2 = torch.ones(3, 3, 8, 8, dtype=torch.int8)\n"
+        "out = hopper_qconv.fused_quantized_stage(xq, wq, b, b, wq2, b, b, wq2, b, b, 1.0, 1.0, 1.0)\n"
+        "assert out.shape == (1, 8, 8, 8) and out.dtype == torch.int8\n"
+        "assert hopper_qconv.quantized_conv3x3(xq, wq, b, b).shape == (1, 8, 8, 8)\n"
+        "for name in ('encoder_stage', 'decoder', 'qconv_stage'):\n"
         "    try:\n"
         "        _build.load(name)\n"
         "    except RuntimeError as e:\n"
@@ -80,7 +89,7 @@ def test_find_nvcc_raises_without_toolkit(monkeypatch, tmp_path):
 
 def test_build_sources_and_hash():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["decoder.cu", "encoder_stage.cu"]
+    assert names == ["decoder.cu", "encoder_stage.cu", "qconv_stage.cu"]
     assert _build._source_hash() == _build._source_hash()
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

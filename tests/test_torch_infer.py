@@ -1,6 +1,7 @@
 """The port's Predictor vs the JAX Predictor on its default flax route
 (compute_dtype float32), for all three decodes on both port routes, plus
-the flax-checkpoint reader and the options this slice refuses.
+the flax-checkpoint reader and the options the port refuses so far (the int8
+routes are in tests/test_torch_quantized.py).
 
 Chunk 2 over 5 frames, so the last chunk is zero-padded and its padded row
 dropped. The JAX fused route has no interpret switch, so it cannot run on
@@ -141,15 +142,19 @@ def test_load_flax_checkpoint_round_trip(tmp_path, setup, kind):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"use_quantized": True}, "item 5"),
+    # int8 serving is ported for the flagship geometry only
+    ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),
+      "cfg": CFG.replace(dilation_rate=1)}, "item 11"),
     ({"mesh": object()}, "item 14"),
     ({"cameras": (np.zeros((1, 4, 3, 4)), np.zeros((1, 4, 4, 3)))}, "item 10"),
     ({"batch_stats": {"bn": {"mean": np.zeros(3)}}}, "item 10"),
 ])
 def test_unported_options_raise(setup, kw, item):
     _, params = setup
+    kw = dict(kw)
+    cfg = kw.pop("cfg", CFG)
     with pytest.raises(NotImplementedError, match=item):
-        tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", **kw)
+        tinfer.Predictor(cfg, params, SHAPE, K, device="cpu", **kw)
 
 
 def test_device_is_required_and_decode_checked(setup):

@@ -22,3 +22,27 @@ def test_refuses_without_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="CUDA"):
         profile_routes.main([])
+
+
+@pytest.mark.parametrize("route", list(profile_routes.ROUTES))
+def test_route_options_give_the_route(route):
+    """Each named route's Predictor options serve that route (tiny net, CPU)."""
+    import numpy as np
+
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.config import Config
+    from pose_estimation_amitai_torch.infer import Predictor
+
+    rng = np.random.default_rng(0)
+    opts = dict(profile_routes.ROUTES[route])
+    if opts.get("use_quantized"):
+        opts["calibration_frames"] = rng.random((2, 16, 16, 4), dtype=np.float32)
+    pred = Predictor(Config(num_base_filters=8),
+                     weights.init_basicnet_params(rng, 4, 3, filters=8),
+                     (16, 16, 4), 3, device="cpu", **opts)
+    assert pred.serving_path == route
+
+
+def test_unknown_route_is_refused():
+    with pytest.raises(SystemExit):
+        profile_routes.main(["--routes", "int8_generic"])
