@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship serving paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -16,6 +16,10 @@ Phases, each printing one JSON line ({"phase": ...}):
              bfloat16, and times both with CUDA events; the int8 stage at
              its three flagship shapes and the single int8 conv at 192x192x64
              (batch 8 and 256) must equal their plain versions, every element;
+             the attention kernel on the views the ViT gives it (batch 256 x
+             8 heads x 144 tokens x 256, and the 4-camera fusion block's 4
+             heads), timed beside ``scaled_dot_product_attention`` on the
+             same tensors (a yardstick; nothing in the port calls it);
 4. slice   - Predictor(Config(), use_fused=True) at full width (filters 64,
              192x192x4 frames -> 18 maps, bf16) on seeded random weights made
              by the weight bridge: three requests (256, 256, 100 frames) and
@@ -34,14 +38,29 @@ Phases, each printing one JSON line ({"phase": ...}):
              scripts/exp_im2col_pallas.py: exactness, then microseconds per
              frame and effective TOP/s of the kernel and of its plain version;
 7. lift    - lift_to_3d on peaks projected from known 3D points through
-             four synthetic DLT cameras.
+             four synthetic DLT cameras;
+8. vit     - Predictor(Config(model_type=MODEL_18_POINTS_PER_WING_VIT)) at
+             full width (patch 16, dim 256, depth 8, heads 8, dim_head 256,
+             MLP 1024, bf16) on seeded weights: the same requests and movie
+             on the "fused" route (every attention core on the attention
+             kernel, its counter zeroed just before and read just after: 8
+             launches a chunk), then on the "module" route with the bf16
+             softmax chain (the default) and with the exact softmax; then
+             fused vs module on one chunk in float32 and in bf16;
+9. vit4cam - ALL_CAMS_18_POINTS_VIT (192x192x16 -> 72 maps), full width, 64
+             frames folded (chunk 64) and unfolded (chunk 128), fused vs
+             module, the attention launches counted (12 and 48);
+10. probes - the probe kernels as the two experiment scripts' mains run
+             them, and the bisect script's other cases, each equal to its
+             plain version.
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
 could take for the same call: the larger of its operations over the
 published peak of their type and its bytes (each operand read once, the
-output written once) over the published memory rate. ``library_ms`` is null
-throughout: no single PyTorch call computes any of the four functions. Last
+output written once) over the published memory rate. ``library_ms`` is the time of the one PyTorch call
+that computes the same function, where there is one (the attention kernel:
+``scaled_dot_product_attention``), else null. Last
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 nonzero without the ok line.
 """
@@ -74,7 +93,10 @@ INT8_FUSED_CORR = 0.999
 # about twice what an H100 run of this script showed (0.070 and 0.088)
 INT8_VS_BF16_RTOL = 0.18
 # published dense peaks of the H100 SXM, for bound_ms
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+VIT_F32_ATOL = 1e-4  # fused vs module normalised maps, float32, TF32 off
+VIT4_FRAMES = 64  # one chunk of the 4-camera model each way
+VIT4_FOLD_RTOL = 2e-2  # folded vs unfolded bf16 maps, of their range
 PEAK_BYTES = 3.35e12
 
 
@@ -101,13 +123,16 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_timed(torch, kernel, plain, reps: int) -> tuple[float, float]:
-    """(kernel_ms, plain_ms), timed in turns: plain, kernel, kernel, plain."""
+def compare_timed(torch, kernel, plain, reps: int, library=None):
+    """(kernel_ms, plain_ms, library_ms or None), timed in turns: [library,]
+    plain, kernel, kernel, plain[, library]."""
+    l1 = time_ms(torch, library, reps) if library else None
     p1 = time_ms(torch, plain, reps)
     k1 = time_ms(torch, kernel, reps)
     k2 = time_ms(torch, kernel, reps)
     p2 = time_ms(torch, plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    l_ms = (l1 + time_ms(torch, library, reps)) / 2 if library else None
+    return (k1 + k2) / 2, (p1 + p2) / 2, l_ms
 
 
 def nbytes(*tensors) -> int:
@@ -164,6 +189,7 @@ def phase_kernels(torch, params) -> list[dict]:
     """Each kernel vs its plain version at the main path's shapes."""
     from pose_estimation_amitai_torch.models import quantized
     from pose_estimation_amitai_torch.models.fast_infer import kernel_params
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
     from pose_estimation_amitai_torch.ops import hopper_conv as hc
     from pose_estimation_amitai_torch.ops import hopper_deconv as hd
     from pose_estimation_amitai_torch.ops import hopper_qconv as hq
@@ -172,7 +198,8 @@ def phase_kernels(torch, params) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     frames = torch.rand((CHUNK, 192, 192, 4), generator=gen, device="cuda")
     cases = {"fused_encoder_stage": [], "fused_decoder": [],
-             "fused_quantized_stage": [], "quantized_conv3x3": []}
+             "fused_quantized_stage": [], "quantized_conv3x3": [],
+             "fused_attention": []}
     for dt in (torch.float32, torch.bfloat16):
         kp = kernel_params(params, dt, "cuda")
         x = frames.to(dt)
@@ -240,6 +267,33 @@ def phase_kernels(torch, params) -> list[dict]:
         ))
         del got, want
 
+    # the attention kernel on the ViT's own views: q, k, v sliced from one
+    # (B, N, 3, H, D) tensor, the result written through a permuted view;
+    # the encoder's 8 heads in float32 and bf16, the fusion block's 4 in bf16
+    import torch.nn.functional as F
+
+    for dt, heads in ((torch.float32, 8), (torch.bfloat16, 8), (torch.bfloat16, 4)):
+        qkv = torch.randn((CHUNK, VIT_TOKENS, 3, heads, VIT_DIM_HEAD), generator=gen,
+                          device="cuda").to(dt)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (B, H, N, D)
+        out = torch.empty((CHUNK, VIT_TOKENS, heads, VIT_DIM_HEAD), dtype=dt,
+                          device="cuda")
+        got = ha.fused_attention(q, k, v, out=out.permute(0, 2, 1, 3))
+        want = ha.fused_attention_plain(q, k, v)
+        g = CHUNK * heads
+        cases["fused_attention"].append(_case(
+            torch, f"{tuple(q.shape)} heads {heads}", dt, got, want,
+            lambda: ha.fused_attention(q, k, v, out=out.permute(0, 2, 1, 3)),
+            lambda: ha.fused_attention_plain(q, k, v),
+            bound(4.0 * g * VIT_TOKENS ** 2 * VIT_DIM_HEAD,
+                  "f32" if dt == torch.float32 else "bf16", nbytes(q, k, v, want)),
+            library_fn=lambda: F.scaled_dot_product_attention(q, k, v),
+        ))
+        lib = F.scaled_dot_product_attention(q, k, v)
+        cases["fused_attention"][-1]["library_max_abs_err"] = (
+            lib.float() - want.float()).abs().max().item()
+        del qkv, out, got, want, lib
+
     csrc = "pose_estimation_amitai_torch/csrc/"
     tpu = "pose_estimation_amitai_tpu/ops/"
     rows = []
@@ -248,11 +302,20 @@ def phase_kernels(torch, params) -> list[dict]:
         ("fused_decoder", csrc + "decoder.cu", tpu + "pallas_deconv.py:190"),
         ("fused_quantized_stage", csrc + "qconv_stage.cu", tpu + "pallas_qconv.py:227"),
         ("quantized_conv3x3", csrc + "qconv_stage.cu", "scripts/exp_im2col_pallas.py:100"),
+        ("fused_attention", csrc + "attention.cu", "scripts/exp_fused_attention.py:63"),
     ):
         cs = cases[name]
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": 0}  # set from the run of the path that drives it
-        if name == "quantized_conv3x3":
+        library_ms = None  # no single PyTorch call computes it
+        if name == "fused_attention":
+            served = cs[1:2]  # one launch of the encoder's, bf16, as served
+            library_ms = served[0]["library_ms"]
+            row.update(
+                max_abs_err=cs[0]["max_abs_err"],
+                max_abs_err_bf16=max(c["max_abs_err"] for c in cs[1:]),
+                tolerance={"float32_atol": F32_ATOL, "bf16_rtol_of_max": BF16_RTOL})
+        elif name == "quantized_conv3x3":
             served = cs[-1:]  # batch 256; batch 8 is in the cases
             row.update(max_abs_err=max(c["max_abs_err"] for c in cs),
                        tolerance="int8 outputs equal")
@@ -271,8 +334,7 @@ def phase_kernels(torch, params) -> list[dict]:
                    plain_ms=sum(c["plain_ms"] for c in served),
                    bound_ms=sum(c["bound_ms"] for c in served),
                    bound_by=max(served, key=lambda c: c["bound_ms"])["bound_by"],
-                   library_ms=None,  # no single PyTorch call computes it
-                   cases=cs)
+                   library_ms=library_ms, cases=cs)
         rows.append(row)
     emit({"phase": "kernels", "batch": CHUNK, "tf32": False,
           "cases": {r["name"]: r["cases"] for r in rows}})
@@ -280,6 +342,8 @@ def phase_kernels(torch, params) -> list[dict]:
 
 
 IM2COL_BATCH = 8  # the experiment's batch
+VIT_TOKENS = 144  # (192 / 16) ** 2
+VIT_DIM_HEAD = 256  # Config(): dim_head = projection_dim
 
 
 def im2col_inputs(torch, batch: int):
@@ -303,13 +367,13 @@ def _case_int8(torch, shape, got, want, kernel_fn, plain_fn, bnd) -> dict:
     check(differ == 0, f"{shape} int8: {differ} outputs differ, by up to {err}")
     mean = want.float().abs().mean().item()
     check(mean > 4, f"{shape} int8: plain outputs average {mean}: range unused")
-    k_ms, p_ms = compare_timed(torch, kernel_fn, plain_fn, reps=3)
+    k_ms, p_ms, _ = compare_timed(torch, kernel_fn, plain_fn, reps=3)
     return {"shape": shape, "dtype": "int8", "max_abs_err": err,
             "mean_abs_plain": mean, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1]}
 
 
-def _case(torch, shape, dt, got, want, kernel_fn, plain_fn, bnd) -> dict:
+def _case(torch, shape, dt, got, want, kernel_fn, plain_fn, bnd, library_fn=None) -> dict:
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{shape}: kernel gave {tuple(got.shape)} {got.dtype}")
@@ -321,10 +385,10 @@ def _case(torch, shape, dt, got, want, kernel_fn, plain_fn, bnd) -> dict:
     else:
         check(err <= BF16_RTOL * scale,
               f"{shape} bf16: max err {err} > {BF16_RTOL} * {scale}")
-    k_ms, p_ms = compare_timed(torch, kernel_fn, plain_fn, reps=5)
+    k_ms, p_ms, l_ms = compare_timed(torch, kernel_fn, plain_fn, 5, library_fn)
     return {"shape": shape, "dtype": str(dt).removeprefix("torch."),
             "max_abs_err": err, "max_abs_plain": scale, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1]}
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": l_ms}
 
 
 def serve(pred, frames) -> tuple[list, np.ndarray, float, float]:
@@ -601,6 +665,251 @@ def phase_lift(torch) -> None:
           "max_abs_err": err, "spread": spread, "rtol": LIFT_RTOL})
 
 
+def vit_params(cfg, in_channels: int, out_channels: int, four: bool) -> dict:
+    """Seeded flax-layout params of the ViT ``cfg`` builds, at its widths."""
+    from pose_estimation_amitai_torch import weights
+
+    return weights.init_vit_params(
+        np.random.default_rng(SEED), in_channels, out_channels, 192,
+        patch_size=cfg.patch_size, dim=cfg.projection_dim,
+        depth=cfg.transformer_layers, heads=cfg.num_heads,
+        dim_head=cfg.projection_dim if cfg.dim_head else 64,
+        mlp_expand=cfg.fully_connected_expand, kernel_size=cfg.kernel_size,
+        four_cameras=four)
+
+
+def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
+    """ViT serving through Predictor at full width: the fused route (the
+    attention kernel) and the module route."""
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+
+    n = sum(REQUESTS)
+    k = 18
+    cfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+    check((cfg.projection_dim, cfg.transformer_layers, cfg.num_heads, cfg.patch_size,
+           cfg.fully_connected_expand, bool(cfg.dim_head), cfg.compute_dtype)
+          == (256, 8, 8, 16, 4, True, "bfloat16"), "Config() ViT defaults changed")
+    params = vit_params(cfg, 4, k, four=False)
+
+    def predictor(c, **kw):
+        return Predictor(c, params, (192, 192, 4), k, device="cuda", chunk_size=CHUNK, **kw)
+
+    fused = predictor(cfg, use_fused=True)
+    check(fused.serving_path == "fused" and fused.model.fused_attention
+          and not fused.model.fast_softmax, f"serving_path {fused.serving_path}")
+    fused(frames[:1])  # warm-up: allocator, library load
+
+    # ---- the ViT path: counter zeroed just before, read just after ----
+    ha.fused_attention.launches = 0
+    answers, movie, t_req, t_movie = serve(fused, frames)
+    launches = ha.fused_attention.launches
+    # --------------------------------------------------------------------
+    chunks = sum(-(-r // CHUNK) for r in REQUESTS) + -(-n // CHUNK)
+    depth = cfg.transformer_layers
+    check(launches == depth * chunks,
+          f"fused_attention launched {launches} times, expected {depth * chunks}")
+    check_peaks(answers, movie, n, k)
+
+    rates = {}
+    for name, kw in (("module", {}), ("module_exact_softmax", {"fast_softmax": False})):
+        pred = predictor(cfg, **kw)
+        check(pred.serving_path == "module"
+              and pred.model.fast_softmax is (name == "module"), name)
+        pred(frames[:1])
+        ans, mov, t, _ = serve(pred, frames)
+        check_peaks(ans, mov, n, k)
+        rates[name + "_frames_per_s"] = n / t
+    check(ha.fused_attention.launches == launches,
+          "the module route launched the attention kernel")
+
+    # one chunk's normalised maps and peaks, fused vs module (exact softmax
+    # on both: maps are returned): float32 with TF32 off, where the routes
+    # differ by summation order, then bf16 as served
+    routes = {}
+    for dt, c in (("float32", cfg.replace(compute_dtype="float32")), ("bfloat16", cfg)):
+        fm, fp = predictor(c, use_fused=True, return_heatmaps=True)(frames[:CHUNK])
+        mm, mp = predictor(c, return_heatmaps=True)(frames[:CHUNK])
+        if dt == "bfloat16":
+            # peaks-only serving decoded the raw maps and rescaled the vals
+            check(np.array_equal(fp, answers[0]),
+                  "fused peaks with maps differ from the ViT path's answer")
+            tol = ROUTE_RTOL * float(np.abs(mm).max())
+        else:
+            tol = VIT_F32_ATOL
+        routes[dt] = compare_routes(torch, (fm, fp), (mm, mp), tol, dt)
+        del fm, mm
+    result = {
+        "phase": "vit", "device": device_name, "nvidia_smi": smi,
+        "model": "ViTPoseNet MODEL_18_POINTS_PER_WING_VIT patch 16 dim 256 depth 8 "
+                 "heads 8 dim_head 256 mlp 1024 bf16, 192x192x4 -> 18",
+        "requests": list(REQUESTS), "chunk_size": CHUNK,
+        "launches": {"fused_attention": launches},
+        "fused_frames_per_s": n / t_req, "fused_movie_frames_per_s": n / t_movie,
+        **rates, "routes": routes,
+    }
+    emit(result)
+    return result
+
+
+def phase_vit4cam(torch, device_name: str, smi: str) -> None:
+    """The 4-camera ViT at full width: one chunk of 64 frames with the views
+    folded into the batch (chunk 64) and one by one (chunk 128), fused vs
+    module. Frames are 4 views x 4 channels on the channel axis, as the
+    preprocessor lays this model type out."""
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+
+    k, shape = 72, (192, 192, 16)
+    cfg = Config(model_type=C.ALL_CAMS_18_POINTS_VIT)
+    params = vit_params(cfg, shape[-1], k, four=True)
+    frames = np.random.default_rng(SEED + 2).random((VIT4_FRAMES, *shape), dtype=np.float32)
+    depth, fuse = cfg.transformer_layers, 4
+    result = {"phase": "vit4cam", "device": device_name, "nvidia_smi": smi,
+              "model": "ViT4Cameras ALL_CAMS_18_POINTS_VIT dim 256 depth 8 heads 8 "
+                       "dim_head 256, 4 fusion blocks (dim 1280, heads 4), bf16, "
+                       "192x192x16 -> 72", "frames": VIT4_FRAMES}
+    fused_maps = {}
+    for name, chunk, want in (("folded", VIT4_FRAMES, depth + fuse),
+                              ("unfolded", 128, 4 * (depth + fuse))):
+        def predictor(**kw):
+            return Predictor(cfg, params, shape, k, device="cuda", chunk_size=chunk, **kw)
+
+        fused = predictor(use_fused=True)
+        check(fused.serving_path == "fused"
+              and fused.model.fold_views is (name == "folded"), name)
+        fused(frames[:1])
+        ha.fused_attention.launches = 0
+        t0 = time.perf_counter()
+        pts = fused(frames)
+        t_fused = time.perf_counter() - t0
+        launches = ha.fused_attention.launches
+        check(launches == want, f"{name}: {launches} attention launches, expected {want}")
+        check(pts.shape == (VIT4_FRAMES, 3, k) and bool(np.isfinite(pts).all()),
+              f"{name}: peaks {pts.shape}")
+        module = predictor()
+        module(frames[:1])
+        t0 = time.perf_counter()
+        module(frames)
+        t_module = time.perf_counter() - t0
+        fm, fp = predictor(use_fused=True, return_heatmaps=True)(frames)
+        mm, mp = predictor(return_heatmaps=True)(frames)
+        check(np.array_equal(fp, pts), f"{name}: peaks with maps differ from peaks-only")
+        cmp = compare_routes(torch, (fm, fp), (mm, mp),
+                             ROUTE_RTOL * float(np.abs(mm).max()), f"{name} bfloat16")
+        fused_maps[name] = fm
+        result[name] = {"chunk_size": chunk, "launches": launches,
+                        "fused_frames_per_s": VIT4_FRAMES / t_fused,
+                        "module_frames_per_s": VIT4_FRAMES / t_module,
+                        "fused_vs_module": cmp}
+        del mm
+    diff = float(np.abs(fused_maps["folded"] - fused_maps["unfolded"]).max())
+    check(diff <= VIT4_FOLD_RTOL, f"folded vs unfolded maps differ by {diff}")
+    result["folded_vs_unfolded_max_abs"] = diff
+    emit(result)
+
+
+def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
+    """The probe kernels on the two experiment scripts' inputs, each equal to
+    its plain version: the bisect script's five cases and its two full-conv
+    sizes, and the six probes of the Mosaic script's main. Returns the two
+    rows of the kernels line."""
+    from pose_estimation_amitai_torch.ops import hopper_probes as hp
+    from pose_estimation_amitai_torch.ops import hopper_qconv as hq
+
+    x = hp.run_case_input("cuda")
+    full = {g: hp.run_full_inputs(g, "cuda") for g in (1, 4)}
+    a = torch.arange(8 * 128, device="cuda").to(torch.int8).reshape(8, 128)
+    b = torch.ones((8, 128), dtype=torch.int8, device="cuda")
+    ones = {n: torch.ones((n, 8, 128), device="cuda") for n in (8, 16, 32, 64)}
+    xi = torch.ones((16, 8, 128), dtype=torch.int8, device="cuda")
+    # (name, kernel, plain, the one PyTorch call of the same function or None)
+    bisect_specs = [
+        ("k_copy", lambda: hp.k_copy(x), lambda: hp.k_copy_plain(x), x.clone),
+        ("k_stage", lambda: hp.k_stage(x), lambda: hp.k_stage_plain(x), x.clone),
+        ("k_dyn_read", lambda: hp.k_dyn_read(x), lambda: hp.k_dyn_read_plain(x), x.clone),
+        ("k_reshape", lambda: hp.k_reshape(x), lambda: hp.k_reshape_plain(x), x.clone),
+        ("k_concat_dot", lambda: hp.k_concat_dot(x), lambda: hp.k_concat_dot_plain(x), None),
+    ] + [
+        (f"full_epilogue_grid{g}", lambda g=g: hp.full_epilogue(*full[g]),
+         lambda g=g: hp.full_epilogue_plain(*full[g]), None) for g in full
+    ]
+    mosaic_specs = [
+        ("int8_vector_arith", lambda: hp.int8_vector_arith(a, b),
+         lambda: hp.int8_vector_arith_plain(a, b), None),
+    ] + [
+        (f"grid_{n}", lambda n=n: hp.grid_scale(ones[n]),
+         lambda n=n: hp.grid_scale_plain(ones[n]), lambda n=n: torch.mul(ones[n], 2.0))
+        for n in ones
+    ] + [
+        ("int8_int32_grid_16", lambda: hp.int8_vector_in_grid(xi),
+         lambda: hp.int8_vector_in_grid_plain(xi), None),
+    ]
+
+    # ---- the probes, once each as the scripts run them: counters zeroed
+    # just before, read just after ----
+    for fn in hp.PROBES:
+        fn.launches = 0
+    full_before = hq.quantized_conv3x3.launches
+    outs = {name: kernel() for name, kernel, _, _ in bisect_specs + mosaic_specs}
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in hp.PROBES}
+    launches["full_epilogue"] = hq.quantized_conv3x3.launches - full_before
+    # -------------------------------------------------------------------
+    check(launches == {"k_copy": 1, "k_stage": 1, "k_dyn_read": 1, "k_reshape": 1,
+                       "k_concat_dot": 1, "full_epilogue": 2, "int8_vector_arith": 1,
+                       "grid_scale": 4, "int8_vector_in_grid": 1},
+          f"probe launch counts {launches}")
+    # the scripts' own expectations
+    check(bool(torch.equal(outs["int8_vector_arith"], (a.int() * 2 + 1).to(torch.int8))),
+          "int8 a * 2 + b did not wrap")
+    check(all(bool((outs[f"grid_{n}"] == 2.0).all()) for n in ones), "a grid probe is not 2.0")
+    check(bool((outs["int8_int32_grid_16"] == 2).all()), "int8_int32_grid_16 is not 2")
+
+    def compare(name, kernel_fn, plain_fn, library_fn) -> dict:
+        got, want = outs[name], plain_fn()
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.equal(got, want)), f"probe {name} differs from plain")
+        conv = "dot" in name or "full" in name
+        ops = 2.0 * 9 * want.numel() * want.shape[-1] if conv else 0.0
+        reads = 2 if name == "int8_vector_arith" else 1  # inputs of the output's size
+        bnd = bound(ops, "int8", (reads + 1) * nbytes(want))
+        k_ms, p_ms, l_ms = compare_timed(torch, kernel_fn, plain_fn, 20, library_fn)
+        return {"probe": name, "shape": list(want.shape),
+                "dtype": str(want.dtype).removeprefix("torch."), "max_abs_err": 0.0,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": l_ms}
+
+    bisect = [compare(*spec) for spec in bisect_specs]
+    mosaic = [compare(*spec) for spec in mosaic_specs]
+    csrc = "pose_estimation_amitai_torch/csrc/probes.cu"
+    rows = []
+    for name, cases, replaces, names in (
+        ("bisect_probes", bisect, "scripts/exp_im2col_bisect.py:21",
+         ("k_copy", "k_stage", "k_dyn_read", "k_reshape", "k_concat_dot", "full_epilogue")),
+        ("mosaic_probes", mosaic, "scripts/exp_mosaic_probe.py:37",
+         ("int8_vector_arith", "grid_scale", "int8_vector_in_grid")),
+    ):
+        rows.append({
+            "name": name, "route": "cuda", "source": csrc, "replaces": replaces,
+            "launches": sum(launches[k] for k in names),
+            "max_abs_err": 0.0, "tolerance": "outputs equal",
+            # summed over the probes, one launch each
+            "ms": sum(c["ms"] for c in cases),
+            "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": sum(c["bound_ms"] for c in cases),
+            "bound_by": max(cases, key=lambda c: c["bound_ms"])["bound_by"],
+            "library_ms": None,  # several functions: no single PyTorch call
+        })
+    emit({"phase": "probes", "device": device_name, "nvidia_smi": smi,
+          "launches": launches, "bisect": bisect, "mosaic": mosaic})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -622,10 +931,15 @@ def main() -> int:
     q8 = phase_int8(torch, cfg, params, frames, name, smi)
     im = phase_im2col(torch, name, smi)
     phase_lift(torch)
-    launches = {**sl["launches"], **q8["launches"],
+    vt = phase_vit(torch, frames, name, smi)
+    phase_vit4cam(torch, name, smi)
+    probe_rows = phase_probes(torch, name, smi)
+    launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+    rows += probe_rows
+    for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")
     emit({"kernels": [{k: v for k, v in r.items() if k != "cases"} for r in rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,14 +1,19 @@
 """Batched inference: frames -> heatmaps -> keypoints -> 3D (PyTorch port).
 
-Counterpart of ``pose_estimation_amitai_tpu/infer.py`` for the flagship
-per-wing slice:
+Counterpart of ``pose_estimation_amitai_tpu/infer.py`` for the families
+ported so far: the flagship per-wing ``BasicNet``, and the ViT families
+(``ViTPoseNet``, ``ViT4Cameras``):
 
 * ``Predictor`` — chunked forward (tail zero-padded, padded rows dropped)
-  and peak decode on the device, over one of four routes: ``"fused"``, the
-  hand-written Hopper kernels (models/fast_infer.py); ``"module"``, the
-  ``nn.Module`` forward (the port's counterpart of JAX's ``"flax"`` route);
-  ``"int8_resident"`` and ``"int8_fused"``, the calibrated int8 forwards
-  (models/quantized.py), the second through the int8 stage kernel;
+  and peak decode on the device. Routes (``serving_path``): ``"module"``,
+  the ``nn.Module`` forward (the port's counterpart of JAX's ``"flax"``
+  route), for every family; ``"fused"``, the hand-written Hopper kernels:
+  for the flagship ``BasicNet`` the encoder-stage and decoder kernels
+  (models/fast_infer.py), for a ViT the same module with every attention
+  core on the attention kernel (ops/hopper_attention.py);
+  ``"int8_resident"`` and ``"int8_fused"``, the calibrated int8 forwards of
+  the flagship (models/quantized.py), the second through the int8 stage
+  kernel;
 * ``predict_movie`` — keeps up to ``prefetch`` chunks in flight;
 * ``lift_to_3d`` — decoded per-camera peaks + cropZone + DLT cameras ->
   multi-view triangulated 3D points.
@@ -21,12 +26,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import weights
 from .config import Config
 from .models import build_model
 from .models.cnn import BasicNet
 from .models.fast_infer import basicnet_apply_fused, kernel_params
+from .models.vit import ViT4Cameras, ViTPoseNet
 from .models.quantized import (
     calibrate, make_quantized_fused_forward, make_quantized_resident_forward,
 )
@@ -55,20 +62,36 @@ class Predictor:
         mesh=None,
         batch_stats=None,
         cameras=None,
+        fast_softmax: bool | None = None,
     ):
         """``params``: a flax-layout params tree (nested dicts of arrays),
         bridged by :mod:`..weights`. ``device``: where the model runs; there
-        is no default. ``use_fused``: serve the torch-flavour ``BasicNet``
-        with 3x3 kernels at dilation 2 through the fused kernels
-        (``serving_path == "fused"``; ``model`` stays None); otherwise,
-        and for other models, the ``nn.Module`` forward (``"module"``).
-        ``use_quantized``: calibrated int8 serving of the same flagship
+        is no default. ``use_fused``: serve through the hand-written kernels
+        (``serving_path == "fused"``): the torch-flavour ``BasicNet`` with
+        3x3 kernels at dilation 2 through the stage and decoder kernels
+        (``model`` stays None), a ViT with every attention core on the
+        attention kernel; otherwise, and for other ``BasicNet`` geometries,
+        the ``nn.Module`` forward (``"module"``).
+        ``use_quantized``: calibrated int8 serving of the flagship
         geometry, scales from float32 forwards of ``calibration_frames``
         (required): ``"int8_resident"`` (int8 stored between layers, bf16
         maps rounded out), or with ``use_fused`` too ``"int8_fused"``
         (encoder stages through the int8 stage kernel). ``decode``: 'argmax'
         (tf_find_peaks parity), 'soft' (soft-argmax, vals from the map max)
-        or 'refined' (sub-pixel log-parabola)."""
+        or 'refined' (sub-pixel log-parabola).
+
+        ViT families only. A 4-camera ViT folds its views into the batch
+        below ``chunk_size`` 128 and runs them one by one from there on.
+        Argmax peaks-only serving skips the decoder's min-max normalisation
+        (monotone, so the argmax is unchanged) and recovers the val channel
+        from the per-sample (per-view for four cameras) min and max of the
+        raw maps, the same float32 expression. ``fast_softmax``: ``None``
+        engages the bf16 softmax chain (models/vit.py) for argmax
+        peaks-only serving on the module route, ``False`` forces the exact
+        float32 softmax, ``True`` forces the bf16 chain. The attention
+        kernel computes the exact softmax, so the ``fused`` route keeps the
+        chain off, and ``use_fused`` with ``fast_softmax=True`` raises
+        ``ValueError``."""
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is ROADMAP Queue A item 14")
@@ -98,7 +121,14 @@ class Predictor:
             type(model) is BasicNet and model.flavor == "torch"
             and model.kernel_size == 3 and model.dilation == 2
         )
-        fused_ok = use_fused and is_basic
+        is_vit = isinstance(model, (ViTPoseNet, ViT4Cameras))
+        fused_ok = use_fused and (is_basic or is_vit)
+        # ViT argmax peaks-only serving: views whose raw maps' min and max
+        # rescale the decoded vals (0: the maps come out as the model's)
+        self._val_renorm_views = 0
+        if is_vit:
+            model = self._vit_for_serving(
+                model, image_shape, use_fused, fast_softmax)
         if use_quantized:
             if not is_basic:
                 raise NotImplementedError(
@@ -109,7 +139,8 @@ class Predictor:
             self.serving_path = "int8_fused" if use_fused else "int8_resident"
         else:
             self.serving_path = "fused" if fused_ok else "module"
-        self.model: BasicNet | None = None  # the module route's nn.Module
+        # the nn.Module of the module route and of a ViT's fused route
+        self.model: nn.Module | None = None
         self._kparams = None
         self._quantized = None  # the int8 routes' forward
         if use_quantized:
@@ -123,15 +154,45 @@ class Predictor:
                 self._quantized = make_quantized_resident_forward(
                     params, scales, device=self.device,
                     out_dtype=torch.bfloat16)
-        elif fused_ok:
+        elif fused_ok and is_basic:
             self._kparams = kernel_params(params, model.dtype, self.device)
         else:
             self.model = model.to_empty(device=self.device).eval()
-            self.model.load_state_dict(weights.basicnet_state_dict(params))
-            if self.device.type == "cuda":
+            self.model.load_state_dict(
+                weights.vit_state_dict(params) if is_vit
+                else weights.basicnet_state_dict(params))
+            if self.device.type == "cuda" and not is_vit:
                 # NHWC frames permute to channels-last NCHW views; keep the
                 # weights in the same format so cuDNN needs no transposes
                 self.model.to(memory_format=torch.channels_last)
+
+    def _vit_for_serving(
+        self, model: nn.Module, image_shape, use_fused: bool,
+        fast_softmax: bool | None,
+    ) -> nn.Module:
+        """The ViT module as this predictor serves it (on the meta device):
+        ``model`` rebuilt with its serving switches set, where flax would
+        ``clone``; sets ``_val_renorm_views``."""
+        peaks_only = self.decode == "argmax" and not self.return_heatmaps
+        switches: dict = {}
+        four = isinstance(model, ViT4Cameras)
+        if four and self.chunk_size >= 128:
+            # folded, the decoder's activations are 4x the chunk's
+            switches["fold_views"] = False
+        if peaks_only and (four or model.flavor == "torch"):
+            self._val_renorm_views = 4 if four else 1
+            switches["normalize_output"] = False
+        if use_fused:
+            if fast_softmax:
+                raise ValueError(
+                    "use_fused serves a ViT's exact float32 softmax through "
+                    "the attention kernel; fast_softmax=True excludes it")
+            switches["fused_attention"] = True
+        elif fast_softmax if fast_softmax is not None else peaks_only:
+            switches["fast_softmax"] = True
+        with torch.device("meta"):
+            return build_model(
+                self.cfg, image_shape, self.num_output_channels, **switches)
 
     @classmethod
     def from_checkpoint(
@@ -153,8 +214,9 @@ class Predictor:
 
     # ------------------------------------------------------------------
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) frames on the device -> (B, H, W, K) float32 maps
-        over this predictor's serving route."""
+        """(B, H, W, C) frames on the device -> (B, H, W, K) maps over this
+        predictor's serving route: float32, except a ViT's raw maps in
+        argmax peaks-only serving, which stay in the compute dtype."""
         with torch.inference_mode():
             if self._quantized is not None:
                 return self._quantized(frames).float()
@@ -173,6 +235,8 @@ class Predictor:
                 pts = peaks.find_peaks_refined(maps)
             else:
                 pts = peaks.find_peaks_with_vals(maps)
+                if self._val_renorm_views:
+                    pts = _renorm_vals(pts, maps, self._val_renorm_views)
         if self.return_heatmaps:
             return maps, pts
         return pts
@@ -235,6 +299,21 @@ class Predictor:
         if not out:
             return np.zeros((0, 3, self.num_output_channels), np.float32)
         return np.concatenate(out)
+
+
+def _renorm_vals(pts: torch.Tensor, maps: torch.Tensor, views: int) -> torch.Tensor:
+    """Peaks decoded from raw ViT maps with the val channel of the
+    normalised model: ``(val - lo) / (hi - lo + 1e-12)`` with the float32
+    min and max of each sample's (each view's) raw maps, the expression the
+    decoder's min-max normalisation evaluates on the same values."""
+    b, h, w, c = maps.shape
+    m32 = maps.float().reshape(b, h, w, views, c // views)
+    lo = m32.amin(dim=(1, 2, 4))  # (B, V)
+    hi = m32.amax(dim=(1, 2, 4))
+    lo_c = lo.repeat_interleave(c // views, dim=1)  # (B, C)
+    rng_c = (hi - lo).repeat_interleave(c // views, dim=1)
+    vals = (pts[:, 2, :] - lo_c) / (rng_c + 1e-12)
+    return torch.cat([pts[:, :2, :], vals[:, None, :]], dim=1)
 
 
 # ---------------------------------------------------------------------------

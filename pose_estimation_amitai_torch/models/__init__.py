@@ -2,14 +2,18 @@
 ``nn.Module``.
 
 Counterpart of ``pose_estimation_amitai_tpu/models/__init__.py``
-``build_model``. This slice ports the BasicNet family only: the types the
-JAX registry sends to ``BasicNet`` (its default branch,
-tensorflow/Network.py:59-60) build the port's ``BasicNet``; every type the
-JAX registry maps to another architecture raises ``NotImplementedError``
-naming its ROADMAP item, never falling through to ``BasicNet``.
+``build_model``. Three families build so far: the types the JAX registry
+sends to ``BasicNet`` (its default branch, tensorflow/Network.py:59-60)
+build the port's ``BasicNet``; the four single-view ViT types build
+``ViTPoseNet`` and the three 4-camera ViT types ``ViT4Cameras``
+(models/vit.py). Every type the JAX registry maps to another architecture
+raises ``NotImplementedError`` naming its ROADMAP item, never falling
+through to ``BasicNet``.
 """
 
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 from torch import nn
@@ -17,10 +21,20 @@ from torch import nn
 from .. import constants as C
 from ..config import Config
 from .cnn import BasicNet
+from .vit import ViT4Cameras, ViTPoseNet
 
-__all__ = ["BasicNet", "build_model"]
+__all__ = ["BasicNet", "ViTPoseNet", "ViT4Cameras", "build_model",
+           "vit_single_kwargs"]
 
-# model types the JAX registry maps to other architectures (JAX
+_VIT_SINGLE = {
+    C.MODEL_18_POINTS_PER_WING_VIT,
+    C.ALL_POINTS_MODEL_VIT,
+    C.MODEL_18_POINTS_3_GOOD_CAMERAS_VIT,
+    C.MODEL_18_POINTS_PER_WING_VIT_TO_POINTS,
+}
+_VIT_4CAM = {C.ALL_CAMS_18_POINTS_VIT, C.ALL_CAMS_VIT, C.VIT_4_CAMERAS}
+
+# model types the JAX registry maps to architectures not ported yet (JAX
 # models/__init__.py build_model), with the architecture and ROADMAP item
 _NOT_PORTED: dict[str, str] = {
     **{mt: "MultiCamNet (ROADMAP Queue A item 10)" for mt in (
@@ -29,12 +43,6 @@ _NOT_PORTED: dict[str, str] = {
     C.TWO_WINGS_TOGATHER: "TwoWingsNet (ROADMAP Queue A item 10)",
     C.C2F_PER_WING: "C2FPerWing (ROADMAP Queue A item 10)",
     C.COARSE_PER_WING: "CoarsePerWing (ROADMAP Queue A item 10)",
-    **{mt: "ViTPoseNet (ROADMAP Queue A item 10)" for mt in (
-        C.MODEL_18_POINTS_PER_WING_VIT, C.ALL_POINTS_MODEL_VIT,
-        C.MODEL_18_POINTS_3_GOOD_CAMERAS_VIT,
-        C.MODEL_18_POINTS_PER_WING_VIT_TO_POINTS)},
-    **{mt: "ViT4Cameras (ROADMAP Queue A item 10)" for mt in (
-        C.ALL_CAMS_18_POINTS_VIT, C.ALL_CAMS_VIT, C.VIT_4_CAMERAS)},
     **{mt: "FourCamDisentangled (ROADMAP Queue A item 10)" for mt in (
         C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
         C.ALL_CAMS_DISENTANGLED_PER_WING_VIT)},
@@ -43,8 +51,44 @@ _NOT_PORTED: dict[str, str] = {
 }
 
 
+def _dtype(cfg: Config) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _vit_arch_kwargs(cfg: Config, num_output_channels: int) -> dict[str, Any]:
+    """Shared ViT architecture kwargs (single-view + 4-camera families).
+    Dropout is not threaded: the reference ViT paths run with dropout 0.0
+    (pytorch/VITs.py:197-229)."""
+    # pytorch/VITs.py:212: dim_head = projection_dim if config["dim head"] else 64
+    dim_head = cfg.projection_dim if cfg.dim_head else 64
+    return dict(
+        out_channels=num_output_channels,
+        patch_size=cfg.patch_size,
+        dim=cfg.projection_dim,
+        depth=cfg.transformer_layers,
+        heads=cfg.num_heads,
+        dim_head=dim_head,
+        mlp_expand=cfg.fully_connected_expand,
+        kernel_size=cfg.kernel_size,
+        dtype=_dtype(cfg),
+    )
+
+
+def vit_single_kwargs(cfg: Config, num_output_channels: int) -> dict[str, Any]:
+    """ViT architecture kwargs for ``cfg`` (single-view heatmap family);
+    raises for other model types, as the JAX function does."""
+    if cfg.model_type not in _VIT_SINGLE:
+        raise ValueError(
+            f"pipeline_stages requires a single-view ViT model type, got "
+            f"{cfg.model_type!r} (supported: {sorted(_VIT_SINGLE)})"
+        )
+    return dict(_vit_arch_kwargs(cfg, num_output_channels),
+                flavor=cfg.arch_flavor)
+
+
 def build_model(
-    cfg: Config, image_size: tuple[int, ...], num_output_channels: int
+    cfg: Config, image_size: tuple[int, ...], num_output_channels: int,
+    **serving: Any,
 ) -> nn.Module:
     """Construct the model for ``cfg.model_type``.
 
@@ -52,12 +96,27 @@ def build_model(
       cfg: typed config.
       image_size: (H, W, C) of the preprocessed input.
       num_output_channels: confmap channel count.
+      serving: serving-only switches of the ViT families, set at
+        construction where flax would ``clone``: ``normalize_output``,
+        ``fast_softmax``, ``fused_serving``, ``fused_attention``,
+        ``ref_token_grid`` (single-view), ``fold_views`` (4-camera). Any
+        for a ``BasicNet`` type raises ``TypeError``.
     """
-    if cfg.model_type in _NOT_PORTED:
+    mt = cfg.model_type
+    if mt in _NOT_PORTED:
         raise NotImplementedError(
-            f"model type {cfg.model_type!r} builds "
-            f"{_NOT_PORTED[cfg.model_type]}, not ported yet"
+            f"model type {mt!r} builds {_NOT_PORTED[mt]}, not ported yet"
         )
+    if mt in _VIT_SINGLE:
+        return ViTPoseNet(
+            image_size[-1], image_size[0],
+            **vit_single_kwargs(cfg, num_output_channels), **serving)
+    if mt in _VIT_4CAM:
+        return ViT4Cameras(
+            image_size[-1], image_size[0],
+            **_vit_arch_kwargs(cfg, num_output_channels), **serving)
+    if serving:
+        raise TypeError(f"BasicNet takes no serving switches, got {sorted(serving)}")
     return BasicNet(
         in_channels=image_size[-1],
         out_channels=num_output_channels,
@@ -65,5 +124,5 @@ def build_model(
         kernel_size=cfg.kernel_size,
         dilation=cfg.dilation_rate,
         flavor=cfg.arch_flavor,
-        dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32,
+        dtype=_dtype(cfg),
     )

@@ -6,8 +6,9 @@ to any source or header rebuilds everything and an unchanged tree reuses the
 libraries. All sources compile together, one ``nvcc`` process each, for
 ``sm_90a`` (Hopper: the ``a`` keeps ``wgmma`` and ``setmaxnreg`` available).
 The libraries export plain C functions; the wrappers in ``hopper_conv.py``,
-``hopper_deconv.py`` and ``hopper_qconv.py`` pass device pointers and the
-current stream as Python ints.
+``hopper_deconv.py``, ``hopper_qconv.py``, ``hopper_attention.py`` and
+``hopper_probes.py`` pass device pointers and the current stream as Python
+ints.
 
 Nothing here runs at import. Without ``nvcc`` or without a CUDA device,
 :func:`load` raises; there is no fallback.

@@ -1,14 +1,19 @@
 """Where the serving time goes on the card: one traced ``Predictor`` call
-per route, at the flagship configuration.
+per route, at the flagship configuration or at the default ViT's.
 
-    python -m pose_estimation_amitai_torch.profile_routes [--frames 512]
-        [--routes fused module int8_fused int8_resident] [--out FILE]
+    python -m pose_estimation_amitai_torch.profile_routes [--model basicnet|vit]
+        [--frames 512] [--routes fused module ...] [--out FILE]
 
-For each route (``"fused"``, the hand-written kernels; ``"module"``, the
-``nn.Module`` forward; ``"int8_fused"`` and ``"int8_resident"``, the
-calibrated int8 forwards, the first through the int8 stage kernel) at
-``Config()`` defaults (filters 64, bf16, 192x192x4 frames -> 18 maps, chunk
-256, seeded random weights, int8 scales from the first 128 frames): one warm-up
+``--model basicnet`` (the default): each route (``"fused"``, the
+hand-written kernels; ``"module"``, the ``nn.Module`` forward;
+``"int8_fused"`` and ``"int8_resident"``, the calibrated int8 forwards, the
+first through the int8 stage kernel) at ``Config()`` defaults (filters 64,
+bf16, 192x192x4 frames -> 18 maps, chunk 256, seeded random weights, int8
+scales from the first 128 frames). ``--model vit``: ``"fused"`` (every
+attention core on the attention kernel) and ``"module"`` (argmax peaks-only
+serving, so the bf16 softmax chain) at ``Config(model_type=
+MODEL_18_POINTS_PER_WING_VIT)`` (patch 16, dim 256, depth 8, heads 8,
+dim_head 256, bf16, chunk 256, seeded random weights). Per route: one warm-up
 call, one call on ``--frames`` frames timed on the host clock, then the
 same call under ``torch.profiler``. Prints one JSON object (and writes it to
 ``--out`` if given): the card's ``nvidia-smi`` name and power limit, and
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from . import constants as C
 from . import weights
 from .config import Config
 from .infer import Predictor
@@ -45,6 +51,7 @@ ROUTES = {
     "int8_fused": dict(use_quantized=True, use_fused=True),
     "int8_resident": dict(use_quantized=True),
 }
+VIT_ROUTES = {"fused": dict(use_fused=True), "module": dict()}
 TOP = 12  # kernel names listed per route
 NAME_CHARS = 160  # of a kernel name: templated names run to 1,000 and more
 _OVERHEAD = {"Activity Buffer Request"}  # profiler bookkeeping, not work
@@ -59,8 +66,27 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
-def profile_route(cfg: Config, params, frames: np.ndarray, route: str) -> dict:
-    opts = dict(ROUTES[route])
+def model_setup(model: str) -> tuple[Config, dict, dict]:
+    """(config, seeded flax-layout params, route options) of ``--model``."""
+    rng = np.random.default_rng(SEED)
+    if model == "vit":
+        cfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+        params = weights.init_vit_params(
+            rng, SHAPE[-1], K, SHAPE[0], patch_size=cfg.patch_size,
+            dim=cfg.projection_dim, depth=cfg.transformer_layers,
+            heads=cfg.num_heads, dim_head=cfg.projection_dim,
+            mlp_expand=cfg.fully_connected_expand, kernel_size=cfg.kernel_size)
+        return cfg, params, VIT_ROUTES
+    cfg = Config()
+    params = weights.init_basicnet_params(
+        rng, SHAPE[-1], K, filters=cfg.num_base_filters)
+    return cfg, params, ROUTES
+
+
+def profile_route(
+    cfg: Config, params, frames: np.ndarray, route: str, opts: dict,
+) -> dict:
+    opts = dict(opts)
     if opts.get("use_quantized"):
         opts["calibration_frames"] = frames[:CALIB_FRAMES]
     pred = Predictor(cfg, params, SHAPE, K, device="cuda", **opts)
@@ -99,23 +125,27 @@ def profile_route(cfg: Config, params, frames: np.ndarray, route: str) -> dict:
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("basicnet", "vit"), default="basicnet")
     ap.add_argument("--frames", type=int, default=512)
-    ap.add_argument("--routes", nargs="+", choices=list(ROUTES), default=list(ROUTES))
+    ap.add_argument("--routes", nargs="+", choices=list(ROUTES),
+                    help="default: every route of the model")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
+    known = VIT_ROUTES if args.model == "vit" else ROUTES
+    for route in args.routes or ():
+        if route not in known:
+            ap.error(f"--model {args.model} has no route {route!r}")
     if not torch.cuda.is_available():
         raise SystemExit("profile_routes: needs a CUDA device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    cfg = Config()
-    params = weights.init_basicnet_params(
-        np.random.default_rng(SEED), SHAPE[-1], K, filters=cfg.num_base_filters)
+    cfg, params, routes = model_setup(args.model)
     frames = np.random.default_rng(SEED).random((args.frames, *SHAPE), dtype=np.float32)
-    out = {"nvidia_smi": smi}
-    for route in args.routes:
-        out[route] = profile_route(cfg, params, frames, route)
+    out = {"nvidia_smi": smi, "model": args.model}
+    for route in args.routes or routes:
+        out[route] = profile_route(cfg, params, frames, route, routes[route])
     text = json.dumps(out, indent=1)
     if args.out:
         with open(args.out, "w") as f:

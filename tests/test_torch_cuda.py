@@ -17,13 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from pose_estimation_amitai_torch import constants as C
 from pose_estimation_amitai_torch.config import Config
 from pose_estimation_amitai_torch.infer import Predictor
+from pose_estimation_amitai_torch.ops import hopper_attention as ha
 from pose_estimation_amitai_torch.ops import hopper_conv as hc
+from pose_estimation_amitai_torch.ops import hopper_probes as hp
 from pose_estimation_amitai_torch.models import quantized
 from pose_estimation_amitai_torch.ops import hopper_deconv as hd
 from pose_estimation_amitai_torch.ops import hopper_qconv as hq
-from pose_estimation_amitai_torch.weights import init_basicnet_params
+from pose_estimation_amitai_torch.weights import init_basicnet_params, init_vit_params
 
 pytestmark = pytest.mark.cuda
 
@@ -250,3 +253,121 @@ def test_predictor_int8_routes_on_card(cuda):
             assert pred.serving_path == path
             out[dev] = pred(frames)[0]
         assert np.abs(out["cuda"] - out["cpu"]).max() <= 5e-2 * np.abs(out["cpu"]).max()
+
+
+# ---------------------------------------------------------------------------
+# attention kernel, probe kernels, ViT serving
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g, n, d", [
+    (2048, 144, 256),  # the served shape: batch 256 x 8 heads
+    (13, 144, 64),     # dim head 64; G off any multiple of 8
+    (5, 100, 72),      # N off the 48-row tiles, D off the 64-column chunks
+    (3, 7, 8),         # smaller than one tile
+    (2, 300, 40),      # more keys than the served shape
+])
+def test_attention_kernel_matches_plain(cuda, dtype, g, n, d):
+    gen = torch.Generator(device="cuda").manual_seed(g + n + d)
+    q, k, v = (_rand(gen, g, n, d).to(dtype) for _ in range(3))
+    before = ha.fused_attention.launches
+    got = ha.fused_attention(q, k, v)
+    assert ha.fused_attention.launches == before + 1
+    assert got.is_contiguous()
+    _close(got, ha.fused_attention_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_on_module_views(cuda, dtype):
+    """q, k, v sliced from one (B, N, 3, H, D) tensor and the result written
+    through a permuted view, as models/vit.py calls it: no copy is made."""
+    b, n, h, d = 6, 144, 4, 256
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = _rand(gen, b, n, 3, h, d).to(dtype)
+    q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    out = torch.full((b, n, h, d), float("nan"), dtype=dtype, device="cuda")
+    res = ha.fused_attention(q, k, v, out=out.permute(0, 2, 1, 3))
+    assert res.data_ptr() == out.data_ptr()
+    _close(out.permute(0, 2, 1, 3), ha.fused_attention_plain(q, k, v), dtype)
+
+
+def test_attention_wrapper_checks_operands(cuda):
+    q = torch.rand(4, 16, 16, device="cuda")
+    with pytest.raises(TypeError):
+        ha.fused_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="shape"):
+        ha.fused_attention(q, q[:, :8], q)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ha.fused_attention(q[..., :12], q[..., :12], q[..., :12])
+    with pytest.raises(ValueError, match="contiguous"):
+        ha.fused_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError, match="aligned"):  # base 8 bytes off
+        off = torch.rand(4 * 16 * 16 + 2, device="cuda")[2:].view(4, 16, 16)
+        ha.fused_attention(q, q, off)
+    with pytest.raises(ValueError, match="outside"):
+        big = torch.rand(1, ha.MAX_N + 1, 8, device="cuda")
+        ha.fused_attention(big, big, big)
+    with pytest.raises(TypeError):
+        ha.fused_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):  # v left on the CPU
+        ha.fused_attention(q, q, q.cpu())
+
+
+@pytest.mark.parametrize("shape", [(1, 192, 192, 64), (2, 37, 50, 12), (3, 16, 32, 4)])
+@pytest.mark.parametrize("name", ["k_copy", "k_stage", "k_dyn_read", "k_reshape",
+                                  "k_concat_dot"])
+def test_bisect_probe_kernel_equals_plain(cuda, name, shape):
+    rng = np.random.default_rng(shape[1])
+    lim = 80 if name != "k_concat_dot" or shape[-1] == 64 else 4
+    x = _int8(rng, *shape, lim=lim)
+    fn = getattr(hp, name)
+    before = fn.launches
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got, getattr(hp, name + "_plain")(x))
+
+
+@pytest.mark.parametrize("grid_b", [1, 4])
+def test_full_epilogue_kernel_equals_plain(cuda, grid_b):
+    args = hp.run_full_inputs(grid_b, "cuda")
+    before = hq.quantized_conv3x3.launches
+    got = hp.full_epilogue(*args)
+    torch.cuda.synchronize()
+    assert hq.quantized_conv3x3.launches == before + 1
+    assert torch.equal(got, hp.full_epilogue_plain(*args))
+
+
+def test_mosaic_probe_kernels_equal_plain(cuda):
+    a = torch.arange(8 * 128, device="cuda").to(torch.int8).reshape(8, 128)
+    b = torch.ones((8, 128), dtype=torch.int8, device="cuda")
+    assert torch.equal(hp.int8_vector_arith(a, b), hp.int8_vector_arith_plain(a, b))
+    rng = np.random.default_rng(0)
+    for n in (8, 16, 32, 64):
+        x = torch.from_numpy(rng.standard_normal((n, 8, 128)).astype(np.float32)).cuda()
+        assert torch.equal(hp.grid_scale(x), hp.grid_scale_plain(x))
+    xi = _int8(rng, 16, 8, 128, lim=127)
+    assert torch.equal(hp.int8_vector_in_grid(xi), hp.int8_vector_in_grid_plain(xi))
+    assert hp.int8_vector_arith.launches and hp.grid_scale.launches >= 4
+    with pytest.raises(TypeError):
+        hp.grid_scale(xi)
+    with pytest.raises(ValueError, match="at most 64"):
+        hp.k_stage(_int8(rng, 1, 8, 8, 65))
+
+
+@pytest.mark.parametrize("four", [False, True])
+def test_vit_predictor_fused_matches_module_on_card(cuda, four):
+    """f32 on the card: the attention kernel and the library's matrix
+    products agree to summation order (TF32 off), through Predictor."""
+    cfg = Config(model_type=C.ALL_CAMS_18_POINTS_VIT if four
+                 else C.MODEL_18_POINTS_PER_WING_VIT, projection_dim=64, num_heads=2,
+                 transformer_layers=2, fully_connected_expand=2, compute_dtype="float32")
+    shape, k = ((48, 48, 16), 8) if four else ((48, 48, 4), 6)
+    params = init_vit_params(np.random.default_rng(0), shape[-1], k, 48, dim=64, depth=2,
+                             heads=2, dim_head=64, mlp_expand=2, four_cameras=four)
+    frames = np.random.default_rng(1).standard_normal((5, *shape)).astype(np.float32)
+    before = ha.fused_attention.launches
+    out = [Predictor(cfg, params, shape, k, device="cuda", chunk_size=2,
+                     return_heatmaps=True, use_fused=f)(frames) for f in (False, True)]
+    assert ha.fused_attention.launches == before + 3 * (2 + 4 if four else 2)
+    np.testing.assert_allclose(out[1][0], out[0][0], atol=1e-4)
+    np.testing.assert_allclose(out[1][1][:, 2], out[0][1][:, 2], atol=1e-4)

@@ -1,0 +1,139 @@
+"""The probe kernels' plain versions (what the wrappers run on CPU tensors).
+
+S3, ``scripts/exp_im2col_bisect.py``: each plain version against the script's
+own kernel body, run through a ``pl.pallas_call(..., interpret=True)`` built
+here as ``run_case`` and ``run_full`` build theirs (the bodies are
+module-level functions; nothing in the script changes). S4,
+``scripts/exp_mosaic_probe.py``: its bodies are closures, so each plain
+version is held against the script's own numpy expectation, and against the
+same arithmetic in jnp. Integer results: equal, every element."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from pose_estimation_amitai_torch.ops import hopper_probes as hp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def bisect():
+    spec = importlib.util.spec_from_file_location(
+        "exp_im2col_bisect", os.path.join(ROOT, "scripts", "exp_im2col_bisect.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_case(mod, kernel, scratch_shapes, x):
+    """``run_case``'s pallas_call, interpreted."""
+    fn = pl.pallas_call(
+        kernel,
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=mod.O8, scratch_shapes=scratch_shapes, interpret=True)
+    return np.asarray(jax.jit(fn)(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("name", ["k_copy", "k_stage", "k_dyn_read", "k_reshape",
+                                  "k_concat_dot"])
+def test_bisect_case_matches_pallas_body(bisect, name):
+    x = hp.run_case_input("cpu")
+    assert x.shape == (1, 192, 192, 64) and x.dtype == torch.int8
+    scratch = [] if name == "k_copy" else [bisect.XPAD]
+    want = _run_case(bisect, getattr(bisect, name), scratch, x.numpy())
+    plain = getattr(hp, name + "_plain")(x)
+    assert plain.dtype == torch.int8 and plain.is_contiguous()
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(getattr(hp, name)(x).numpy(), want)  # CPU -> plain
+    if name == "k_concat_dot":  # the clip is reached, and not everywhere
+        assert np.abs(want).max() == 127 and (np.abs(want) < 127).mean() > 0.05
+    else:
+        np.testing.assert_array_equal(want, x.numpy())
+
+
+@pytest.mark.parametrize("grid_b", [1, 4])
+def test_full_epilogue_matches_pallas_body(bisect, grid_b):
+    """``run_full``'s pallas_call (grid over frames), interpreted. XLA may
+    contract ``acc * m + b`` into one rounding where the source and the port
+    have two: at most one quantum on at most 0.1% of the elements."""
+    x, w, m, b = hp.run_full_inputs(grid_b, "cpu")
+    hw, c = bisect.HW, bisect.C
+    wspec = pl.BlockSpec(memory_space=pltpu.VMEM)
+    frame = pl.BlockSpec((1, hw, hw, c), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM)
+    fn = pl.pallas_call(
+        bisect.full_kernel, grid=(grid_b,), in_specs=[frame, wspec, wspec, wspec],
+        out_specs=frame, out_shape=jax.ShapeDtypeStruct((grid_b, hw, hw, c), jnp.int8),
+        scratch_shapes=[bisect.XPAD], interpret=True)
+    want = np.asarray(jax.jit(fn)(*[jnp.asarray(a.numpy()) for a in (x, w, m, b)]))
+    plain = hp.full_epilogue_plain(x, w, m, b)
+    assert plain.shape == want.shape and plain.dtype == torch.int8
+    assert np.abs(want).max() == 127 and np.abs(want).mean() > 10
+    diff = np.abs(plain.numpy().astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
+    np.testing.assert_array_equal(hp.full_epilogue(x, w, m, b).numpy(), plain.numpy())
+
+
+def test_run_full_inputs_are_the_scripts():
+    x1, w1, m1, b1 = hp.run_full_inputs(1, "cpu")
+    rng = np.random.default_rng(0)
+    np.testing.assert_array_equal(x1.numpy(), rng.integers(-80, 80, (1, 192, 192, 64)))
+    np.testing.assert_array_equal(w1.numpy(), rng.integers(-90, 90, (576, 64)))
+    assert m1.dtype == b1.dtype == torch.float32 and m1.shape == b1.shape == (64,)
+    # im2col rows are tap-major, channel-minor: (3, 3, C, Cout) as it lies
+    assert torch.equal(hp._hwio(w1)[1, 2, 5], w1[(1 * 3 + 2) * 64 + 5])
+
+
+def test_concat_dot_plain_on_ragged_frame():
+    """All-ones weights: every output channel is the clipped 9-tap sum over
+    all input channels, zero outside the frame."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.integers(-3, 4, (2, 9, 11, 8)).astype(np.int8))
+    got = hp.k_concat_dot(x).numpy()
+    s = np.pad(x.numpy().astype(np.int32).sum(-1), ((0, 0), (2, 2), (2, 2)))
+    want = sum(s[:, ky:ky + 9, kx:kx + 11] for ky in (0, 2, 4) for kx in (0, 2, 4))
+    want = np.clip(want, -127, 127)
+    assert got.shape == (2, 9, 11, 8)
+    np.testing.assert_array_equal(got, np.repeat(want[..., None], 8, axis=-1))
+
+
+def test_int8_vector_arith_wraps():
+    """The script's inputs and its expectation, (int32(a) * 2 + 1) -> int8."""
+    a_np = np.arange(8 * 128).astype(np.int8).reshape(8, 128)
+    a, b = torch.from_numpy(a_np), torch.ones((8, 128), dtype=torch.int8)
+    want = (a_np.astype(np.int32) * 2 + 1).astype(np.int8)
+    assert want.min() < 0 < want.max()  # wrapped
+    np.testing.assert_array_equal(hp.int8_vector_arith_plain(a, b).numpy(), want)
+    np.testing.assert_array_equal(hp.int8_vector_arith(a, b).numpy(), want)
+    jn = np.asarray(jnp.asarray(a_np) * jnp.int8(2) + jnp.ones((8, 128), jnp.int8))
+    np.testing.assert_array_equal(jn, want)
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_grid_scale(n):
+    x = torch.ones((n, 8, 128))
+    got = hp.grid_scale(x)
+    assert got.shape == (n, 8, 128) and np.allclose(got.numpy(), 2.0)
+    y = torch.from_numpy(np.random.default_rng(n).standard_normal((n, 8, 128)).astype(
+        np.float32))
+    np.testing.assert_array_equal(hp.grid_scale_plain(y).numpy(),
+                                  np.asarray(jnp.asarray(y.numpy()) * 2.0))
+
+
+def test_int8_vector_in_grid_shifts_arithmetically():
+    x = torch.ones((16, 8, 128), dtype=torch.int8)
+    assert bool((hp.int8_vector_in_grid(x) == 2).all())  # the script's check
+    full = torch.arange(-128, 128).to(torch.int8).reshape(1, 2, 128).repeat(16, 1, 1)
+    want = np.asarray(((jnp.asarray(full.numpy()).astype(jnp.int32) * 3 + 7) >> 2).astype(
+        jnp.int8))
+    np.testing.assert_array_equal(hp.int8_vector_in_grid_plain(full).numpy(), want)
+    assert want[0, 0, 0] == -95  # floor(-377 / 4): a truncating shift gives -94

@@ -33,8 +33,11 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.ops.hopper_conv",
             "pose_estimation_amitai_torch.ops.hopper_deconv",
             "pose_estimation_amitai_torch.ops.hopper_qconv",
+            "pose_estimation_amitai_torch.ops.hopper_attention",
+            "pose_estimation_amitai_torch.ops.hopper_probes",
             "pose_estimation_amitai_torch.ops.int8_conv",
             "pose_estimation_amitai_torch.models.quantized",
+            "pose_estimation_amitai_torch.models.vit",
             "pose_estimation_amitai_torch.weights"} <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -55,7 +58,8 @@ def test_kernel_modules_import_and_refuse_without_nvcc_or_cuda():
     code = (
         "import torch\n"
         "from pose_estimation_amitai_torch.ops import _build, hopper_conv, hopper_deconv, hopper_qconv\n"
-        "from pose_estimation_amitai_torch.models import quantized\n"
+        "from pose_estimation_amitai_torch.ops import hopper_attention, hopper_probes\n"
+        "from pose_estimation_amitai_torch.models import quantized, vit\n"
         "assert not torch.cuda.is_available()\n"
         "x = torch.rand(1, 8, 8, 4); w = torch.rand(3, 3, 4, 8); b = torch.rand(8)\n"
         "w2 = torch.rand(3, 3, 8, 8)\n"
@@ -65,7 +69,13 @@ def test_kernel_modules_import_and_refuse_without_nvcc_or_cuda():
         "out = hopper_qconv.fused_quantized_stage(xq, wq, b, b, wq2, b, b, wq2, b, b, 1.0, 1.0, 1.0)\n"
         "assert out.shape == (1, 8, 8, 8) and out.dtype == torch.int8\n"
         "assert hopper_qconv.quantized_conv3x3(xq, wq, b, b).shape == (1, 8, 8, 8)\n"
-        "for name in ('encoder_stage', 'decoder', 'qconv_stage'):\n"
+        "q = torch.rand(2, 5, 8)\n"
+        "assert hopper_attention.fused_attention(q, q, q).shape == (2, 5, 8)\n"
+        "net = vit.Attention(8, 2, 8, torch.float32, fused_attention=True).eval()\n"
+        "assert net(torch.rand(1, 5, 8)).shape == (1, 5, 8)\n"
+        "assert hopper_probes.k_concat_dot(xq).shape == (1, 8, 8, 4)\n"
+        "assert hopper_probes.int8_vector_arith(xq, xq).dtype == torch.int8\n"
+        "for name in ('encoder_stage', 'decoder', 'qconv_stage', 'attention', 'probes'):\n"
         "    try:\n"
         "        _build.load(name)\n"
         "    except RuntimeError as e:\n"
@@ -89,13 +99,16 @@ def test_find_nvcc_raises_without_toolkit(monkeypatch, tmp_path):
 
 def test_build_sources_and_hash():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["decoder.cu", "encoder_stage.cu", "qconv_stage.cu"]
+    assert names == ["attention.cu", "decoder.cu", "encoder_stage.cu", "probes.cu",
+                     "qconv_stage.cu"]
     assert _build._source_hash() == _build._source_hash()
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_ROOT.relative_to(ROOT).as_posix() == "build/kernels"
     for p in _build._sources():  # each kernel names the Pallas function it replaces
-        assert "Replaces pose_estimation_amitai_tpu/ops/pallas_" in p.read_text()
+        text = p.read_text()
+        assert ("Replaces pose_estimation_amitai_tpu/ops/pallas_" in text
+                or "Replaces scripts/exp_" in text), p.name
 
 
 def test_load_refuses_without_cuda():

@@ -46,3 +46,33 @@ def test_route_options_give_the_route(route):
 def test_unknown_route_is_refused():
     with pytest.raises(SystemExit):
         profile_routes.main(["--routes", "int8_generic"])
+
+
+def test_vit_route_on_basicnet_is_refused():
+    with pytest.raises(SystemExit):
+        profile_routes.main(["--model", "vit", "--routes", "int8_fused"])
+
+
+@pytest.mark.parametrize("model", ["basicnet", "vit"])
+def test_model_setup_gives_full_width(model):
+    """--model's config and seeded params: the default widths, and a tree
+    the model's state_dict takes (on the meta device: no weights made)."""
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.models import build_model
+
+    cfg, params, routes = profile_routes.model_setup(model)
+    with torch.device("meta"):
+        net = build_model(cfg, profile_routes.SHAPE, profile_routes.K)
+    if model == "vit":
+        assert set(routes) == {"fused", "module"}
+        attn = net.transformer.attn0
+        assert (attn.dim, attn.heads, attn.dim_head) == (256, 8, 256)
+        assert net.transformer.depth == 8 and net.patch_embed.pos_embedding.shape == (
+            1, 144, 256)
+        sd = weights.vit_state_dict(params)
+    else:
+        assert set(routes) == set(profile_routes.ROUTES)
+        sd = weights.basicnet_state_dict(params)
+    want = net.state_dict()
+    assert sd.keys() == want.keys()
+    assert all(sd[k].shape == want[k].shape for k in sd)
