@@ -19,12 +19,20 @@ Phases, each printing one JSON line ({"phase": ...}):
              the attention kernel on the views the ViT gives it (batch 256 x
              8 heads x 144 tokens x 256, and the 4-camera fusion block's 4
              heads), timed beside ``scaled_dot_product_attention`` on the
-             same tensors (a yardstick; nothing in the port calls it);
+             same tensors (a yardstick; nothing in the port calls it); where a
+             wrapper chooses between two hand-written kernels (the bf16
+             tensor-core ones and the f32 CUDA-core ones), the served shapes
+             must take the tensor-core kernel in bfloat16 and the CUDA-core
+             kernel in float32, and one general shape per kernel (a stage at
+             9 -> 70 channels, attention at (5, 100, 72)) holds the CUDA-core
+             kernel against its plain version in bfloat16 too;
 4. slice   - Predictor(Config(), use_fused=True) at full width (filters 64,
              192x192x4 frames -> 18 maps, bf16) on seeded random weights made
              by the weight bridge: three requests (256, 256, 100 frames) and
              one predict_movie call, with the kernels' launch counters
-             zeroed just before and read just after; then the same frames
+             zeroed just before and read just after (every conv of the path,
+             the 4-channel first one and the decoder's two, must have taken a
+             tensor-core kernel); then the same frames
              through the "module" route (cuDNN), timed; then the first
              request's maps and peaks, fused vs module, in bf16 (as served,
              and equal to the main path's answer) and in float32 (TF32 off);
@@ -60,7 +68,10 @@ could take for the same call: the larger of its operations over the
 published peak of their type and its bytes (each operand read once, the
 output written once) over the published memory rate. ``library_ms`` is the time of the one PyTorch call
 that computes the same function, where there is one (the attention kernel:
-``scaled_dot_product_attention``), else null. Last
+``scaled_dot_product_attention``), else null. The rows of the kernels that
+were redesigned for the tensor cores also carry ``previous_ms``, the time in
+this run of the CUDA-core kernel they replace, on the same tensors, and
+``kernel``, which of the wrapper's kernels the served shape took. Last
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 nonzero without the ok line.
 """
@@ -98,6 +109,7 @@ VIT_F32_ATOL = 1e-4  # fused vs module normalised maps, float32, TF32 off
 VIT4_FRAMES = 64  # one chunk of the 4-camera model each way
 VIT4_FOLD_RTOL = 2e-2  # folded vs unfolded bf16 maps, of their range
 PEAK_BYTES = 3.35e12
+PREVIOUS_REPS = 2  # timed runs of a CUDA-core kernel on a served shape
 
 
 def emit(obj: dict) -> None:
@@ -133,6 +145,15 @@ def compare_timed(torch, kernel, plain, reps: int, library=None):
     p2 = time_ms(torch, plain, reps)
     l_ms = (l1 + time_ms(torch, library, reps)) / 2 if library else None
     return (k1 + k2) / 2, (p1 + p2) / 2, l_ms
+
+
+def took(counter: dict, fn):
+    """(fn(), the kernels it ran by a wrapper's by-kernel counter, each name
+    as often as it ran, joined by +)."""
+    before = dict(counter)
+    out = fn()
+    names = [k for k in counter for _ in range(counter[k] - before[k])]
+    return out, "+".join(names)
 
 
 def nbytes(*tensors) -> int:
@@ -195,6 +216,16 @@ def phase_kernels(torch, params) -> list[dict]:
     from pose_estimation_amitai_torch.ops import hopper_qconv as hq
     from pose_estimation_amitai_torch.ops.int8_conv import max_pool_2x2
 
+    # the shared-memory figures of the dispatch rules are the libraries' own
+    for dil in (1, 2, hc.MAX_DILATION):
+        for packed in (False, True):
+            check(hc.conv_mma_smem_bytes(dil, packed)
+                  == hc.conv_mma_smem_bytes_built(dil, packed),
+                  f"conv shared memory at dilation {dil}, packed {packed}")
+    check(ha.attention_mma_smem_bytes(VIT_TOKENS, VIT_DIM_HEAD)
+          == ha.attention_mma_smem_bytes_built(VIT_TOKENS, VIT_DIM_HEAD),
+          "attention shared memory at the served shape")
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     frames = torch.rand((CHUNK, 192, 192, 4), generator=gen, device="cuda")
     cases = {"fused_encoder_stage": [], "fused_decoder": [],
@@ -206,8 +237,12 @@ def phase_kernels(torch, params) -> list[dict]:
         for k, st in enumerate(kp["stages"]):
             args = (x, st["w1"], st["b1"], st["w2"], st["b2"], st["w3"], st["b3"])
             kw = dict(dilation=2, alpha=0.1, pool=k < 2)
-            got = hc.fused_encoder_stage(*args, **kw)
+            got, ran = took(hc.fused_encoder_stage.convs_by_kernel,
+                            lambda: hc.fused_encoder_stage(*args, **kw))
             want = hc.fused_encoder_stage_plain(*args, **kw)
+            expect = "fma+fma+fma" if dt == torch.float32 else (
+                "mma+mma+mma_c4" if k == 0 else "mma+mma+mma")
+            check(ran == expect, f"stage {k} {dt}: kernels {ran}, expected {expect}")
             cases["fused_encoder_stage"].append(_case(
                 torch, f"{tuple(x.shape)}->{tuple(want.shape)}", dt, got, want,
                 lambda: hc.fused_encoder_stage(*args, **kw),
@@ -215,10 +250,19 @@ def phase_kernels(torch, params) -> list[dict]:
                 bound(stage_ops(*x.shape, st["w1"].shape[-1]), "bf16",
                       nbytes(*args, want)),
             ))
+            cases["fused_encoder_stage"][-1]["kernel"] = ran
+            if dt == torch.bfloat16:
+                cases["fused_encoder_stage"][-1].update(
+                    previous_ms=time_ms(torch, lambda: hc.fused_encoder_stage_on(
+                        ("fma",) * 3, *args, **kw), PREVIOUS_REPS),
+                    **rounding_flips(torch, got, want, args, kw))
             x = want  # the next stage's input: this stage's plain output
         d = kp["decoder"]
-        got = hd.fused_decoder(x, **d)
+        got, ran = took(hd.fused_decoder.convs_by_kernel,
+                        lambda: hd.fused_decoder(x, **d))
         want = hd.fused_decoder_plain(x, **d)
+        check(ran == ("fma+fma" if dt == torch.float32 else "mma+mma"),
+              f"decoder {dt}: stride-1 convs on {ran}")
         pix = x.shape[0] * x.shape[1] * x.shape[2]
         mid, k = d["w1"].shape[-1], d["w4"].shape[-1]
         # real multiply-adds: a stride-2 transposed conv does 9 per input pixel
@@ -228,7 +272,31 @@ def phase_kernels(torch, params) -> list[dict]:
             lambda: hd.fused_decoder(x, **d), lambda: hd.fused_decoder_plain(x, **d),
             bound(ops, "bf16", nbytes(x, *d.values(), want)),
         ))
+        cases["fused_decoder"][-1]["kernel"] = "up2+" + ran + "+up2"
+        if dt == torch.bfloat16:
+            cases["fused_decoder"][-1]["previous_ms"] = time_ms(
+                torch, lambda: hd.fused_decoder_on("fma", x, **d), PREVIOUS_REPS)
         del got, want
+
+    # a general shape on the CUDA-core conv kernel in bf16 (channel counts off
+    # the tensor-core tiles), held against plain like the served ones
+    x = torch.rand((2, 40, 52, 9), generator=gen, device="cuda").to(torch.bfloat16)
+    args = [x]
+    for c in (9, 70, 70):
+        args += [(torch.randn((3, 3, c, 70), generator=gen, device="cuda")
+                  * (9 * c) ** -0.5).to(torch.bfloat16),
+                 torch.randn((70,), generator=gen, device="cuda") * 0.05]
+    got, ran = took(hc.fused_encoder_stage.convs_by_kernel,
+                    lambda: hc.fused_encoder_stage(*args, dilation=2, pool=True))
+    want = hc.fused_encoder_stage_plain(*args, dilation=2, pool=True)
+    check(ran == "fma+fma+fma", f"9 -> 70 channels took {ran}")
+    general = {"fused_encoder_stage": _case(
+        torch, f"{tuple(x.shape)}->{tuple(want.shape)}", torch.bfloat16, got, want,
+        lambda: hc.fused_encoder_stage(*args, dilation=2, pool=True),
+        lambda: hc.fused_encoder_stage_plain(*args, dilation=2, pool=True),
+        bound(stage_ops(*x.shape, 70), "bf16", nbytes(*args, want)))}
+    general["fused_encoder_stage"]["kernel"] = "fma+fma+fma"
+    del got, want
 
     # the int8 stage at its three flagship shapes: scales calibrated on the
     # first frames, each stage fed the pooled plain output of the one before
@@ -278,8 +346,11 @@ def phase_kernels(torch, params) -> list[dict]:
         q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))  # (B, H, N, D)
         out = torch.empty((CHUNK, VIT_TOKENS, heads, VIT_DIM_HEAD), dtype=dt,
                           device="cuda")
-        got = ha.fused_attention(q, k, v, out=out.permute(0, 2, 1, 3))
+        got, ran = took(ha.fused_attention.launches_by_kernel,
+                        lambda: ha.fused_attention(q, k, v, out=out.permute(0, 2, 1, 3)))
         want = ha.fused_attention_plain(q, k, v)
+        check(ran == ("fma" if dt == torch.float32 else "mma"),
+              f"attention {dt} heads {heads}: kernel {ran}")
         g = CHUNK * heads
         cases["fused_attention"].append(_case(
             torch, f"{tuple(q.shape)} heads {heads}", dt, got, want,
@@ -292,7 +363,29 @@ def phase_kernels(torch, params) -> list[dict]:
         lib = F.scaled_dot_product_attention(q, k, v)
         cases["fused_attention"][-1]["library_max_abs_err"] = (
             lib.float() - want.float()).abs().max().item()
+        cases["fused_attention"][-1]["kernel"] = ran
+        if dt == torch.bfloat16:
+            cases["fused_attention"][-1]["previous_ms"] = time_ms(
+                torch, lambda: ha.fused_attention_on(
+                    "fma", q, k, v, out=out.permute(0, 2, 1, 3)), 5)
         del qkv, out, got, want, lib
+
+    # a general shape on the CUDA-core attention kernel in bf16 (N off the
+    # 16-row tiles, D off the multiples of 16)
+    q, k, v = (torch.randn((5, 100, 72), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got, ran = took(ha.fused_attention.launches_by_kernel,
+                    lambda: ha.fused_attention(q, k, v))
+    want = ha.fused_attention_plain(q, k, v)
+    check(ran == "fma", f"attention (5, 100, 72) took {ran}")
+    general["fused_attention"] = _case(
+        torch, "(5, 100, 72)", torch.bfloat16, got, want,
+        lambda: ha.fused_attention(q, k, v),
+        lambda: ha.fused_attention_plain(q, k, v),
+        bound(4.0 * 5 * 100 ** 2 * 72, "bf16", nbytes(q, k, v, want)),
+        library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
+    general["fused_attention"]["kernel"] = "fma"
+    del got, want
 
     csrc = "pose_estimation_amitai_torch/csrc/"
     tpu = "pose_estimation_amitai_tpu/ops/"
@@ -335,9 +428,14 @@ def phase_kernels(torch, params) -> list[dict]:
                    bound_ms=sum(c["bound_ms"] for c in served),
                    bound_by=max(served, key=lambda c: c["bound_ms"])["bound_by"],
                    library_ms=library_ms, cases=cs)
+        if "previous_ms" in served[0]:
+            row.update(previous_ms=sum(c["previous_ms"] for c in served),
+                       kernel=[c["kernel"] for c in served])
+        if name in general:
+            row["general_case"] = general[name]
         rows.append(row)
     emit({"phase": "kernels", "batch": CHUNK, "tf32": False,
-          "cases": {r["name"]: r["cases"] for r in rows}})
+          "cases": {r["name"]: r["cases"] for r in rows}, "general_cases": general})
     return rows
 
 
@@ -391,6 +489,47 @@ def _case(torch, shape, dt, got, want, kernel_fn, plain_fn, bnd, library_fn=None
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": l_ms}
 
 
+def rounding_flips(torch, got, want, args, kw) -> dict:
+    """Where a bf16 stage's distance from its plain version comes from.
+    The kernel takes each conv's f32 sum in another order than the plain
+    version, so an x1 or x2 that lies near a rounding boundary lands one bf16
+    step to the other side and the next conv carries the step on. Shown by
+    the plain version itself with every conv's sum taken in two halves of
+    the input channels, which no kernel touches: its distance from the plain
+    version beside the kernel's, each as the largest error, the share of
+    outputs that differ at all and the share beyond half the limit."""
+    import torch.nn.functional as F
+
+    from pose_estimation_amitai_torch.ops.hopper_conv import bias_nchw, lrelu
+
+    half_limit = 0.5 * BF16_RTOL * want.float().abs().max().item()
+
+    def distance(a, b):
+        d = (a.float() - b.float()).abs()
+        return {"max_abs_err": d.max().item(),
+                "share_differing": (d > 0).float().mean().item(),
+                "share_over_half_the_limit": (d > half_limit).float().mean().item()}
+
+    x, w1, b1, w2, b2, w3, b3 = args
+    dil, alpha, dt = kw["dilation"], kw["alpha"], x.dtype
+
+    def conv(h, w):
+        wt, half = w.float().permute(3, 2, 0, 1), h.shape[1] // 2
+        return (F.conv2d(h[:, :half], wt[:, :half], padding=dil, dilation=dil)
+                + F.conv2d(h[:, half:], wt[:, half:], padding=dil, dilation=dil))
+
+    h = x.permute(0, 3, 1, 2).float()
+    x1 = lrelu(conv(h, w1) + bias_nchw(b1), alpha).to(dt).float()
+    x2 = (lrelu(conv(x1, w2) + bias_nchw(b2), alpha) + x1).to(dt).float()
+    y = lrelu(conv(x2, w3) + bias_nchw(b3), alpha) + x2
+    del h, x1
+    if kw["pool"]:
+        y = lrelu(F.max_pool2d(y, 2, 2, ceil_mode=True), alpha)
+    halves = y.to(dt).permute(0, 2, 3, 1)
+    return {"kernel_vs_plain": distance(got, want),
+            "plain_in_halves_vs_plain": distance(halves, want)}
+
+
 def serve(pred, frames) -> tuple[list, np.ndarray, float, float]:
     """The requests one by one, then the whole as a movie: (answers, movie
     peaks, seconds of the requests, seconds of the movie)."""
@@ -438,11 +577,19 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
     # ---- the main path: counters zeroed just before, read just after ----
     hc.fused_encoder_stage.launches = 0
     hd.fused_decoder.launches = 0
+    hc.fused_encoder_stage.convs_by_kernel = dict.fromkeys(hc.CONV_KERNEL_CODES, 0)
+    hd.fused_decoder.convs_by_kernel = dict.fromkeys(hd.fused_decoder.convs_by_kernel, 0)
     answers, movie, t_req, t_movie = serve(fused, frames)
     launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
                 "fused_decoder": hd.fused_decoder.launches}
+    convs = dict(hc.fused_encoder_stage.convs_by_kernel)
+    decoder_convs = dict(hd.fused_decoder.convs_by_kernel)
     # ---------------------------------------------------------------------
     chunks = sum(-(-r // CHUNK) for r in REQUESTS) + -(-n // CHUNK)
+    check(convs == {"fma": 0, "mma": 8 * chunks, "mma_c4": chunks}
+          and decoder_convs == {"fma": 0, "mma": 2 * chunks},
+          f"the served convs took {convs}, the decoder's {decoder_convs}: "
+          "not all on the tensor cores")
     check(launches["fused_encoder_stage"] == 3 * chunks
           and launches["fused_decoder"] == chunks,
           f"launch counts {launches}, expected {3 * chunks} and {chunks}")
@@ -480,7 +627,8 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
         "phase": "slice", "device": device_name, "nvidia_smi": smi,
         "model": "BasicNet MODEL_18_POINTS_PER_WING filters 64 bf16, 192x192x4 -> 18",
         "requests": list(REQUESTS), "chunk_size": CHUNK,
-        "launches": launches,
+        "launches": launches, "encoder_convs_by_kernel": convs,
+        "decoder_convs_by_kernel": decoder_convs,
         "fused_frames_per_s": n / t_req, "fused_movie_frames_per_s": n / t_movie,
         "module_frames_per_s": n / t_mod,
         "routes": routes,
@@ -704,11 +852,15 @@ def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
 
     # ---- the ViT path: counter zeroed just before, read just after ----
     ha.fused_attention.launches = 0
+    ha.fused_attention.launches_by_kernel = dict.fromkeys(ha.KERNEL_CODES, 0)
     answers, movie, t_req, t_movie = serve(fused, frames)
     launches = ha.fused_attention.launches
+    by_kernel = dict(ha.fused_attention.launches_by_kernel)
     # --------------------------------------------------------------------
     chunks = sum(-(-r // CHUNK) for r in REQUESTS) + -(-n // CHUNK)
     depth = cfg.transformer_layers
+    check(by_kernel == {"fma": 0, "mma": launches},
+          f"the served attention launches took {by_kernel}")
     check(launches == depth * chunks,
           f"fused_attention launched {launches} times, expected {depth * chunks}")
     check_peaks(answers, movie, n, k)
@@ -747,6 +899,7 @@ def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
                  "heads 8 dim_head 256 mlp 1024 bf16, 192x192x4 -> 18",
         "requests": list(REQUESTS), "chunk_size": CHUNK,
         "launches": {"fused_attention": launches},
+        "attention_launches_by_kernel": by_kernel,
         "fused_frames_per_s": n / t_req, "fused_movie_frames_per_s": n / t_movie,
         **rates, "routes": routes,
     }
@@ -784,11 +937,14 @@ def phase_vit4cam(torch, device_name: str, smi: str) -> None:
               and fused.model.fold_views is (name == "folded"), name)
         fused(frames[:1])
         ha.fused_attention.launches = 0
+        ha.fused_attention.launches_by_kernel = dict.fromkeys(ha.KERNEL_CODES, 0)
         t0 = time.perf_counter()
         pts = fused(frames)
         t_fused = time.perf_counter() - t0
         launches = ha.fused_attention.launches
         check(launches == want, f"{name}: {launches} attention launches, expected {want}")
+        check(ha.fused_attention.launches_by_kernel["mma"] == want,
+              f"{name}: launches by kernel {ha.fused_attention.launches_by_kernel}")
         check(pts.shape == (VIT4_FRAMES, 3, k) and bool(np.isfinite(pts).all()),
               f"{name}: peaks {pts.shape}")
         module = predictor()

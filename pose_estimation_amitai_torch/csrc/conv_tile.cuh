@@ -1,6 +1,11 @@
 // Shared device code of the port's hand-written convolution kernels
 // (encoder_stage.cu, decoder.cu): the output tiling, the f32 <-> storage
-// conversions, and the SAME 3x3 dilated convolution with its fused epilogue.
+// conversions, and the SAME 3x3 dilated convolution with its fused epilogue
+// as a direct convolution in f32 on the CUDA cores. That arithmetic (67
+// TFLOP/s at best) bounds it; it serves float32, where the tensor cores'
+// TF32 would break the 1e-4 limit against the plain version, any channel
+// counts, and the decoder's stride-2 up2_kernel. The bf16 convs of the
+// flagship shapes run on the tensor cores instead: conv_mma.cuh.
 //
 // Tiling, common to every kernel here: a block of 256 threads owns an output
 // tile of TH x TW pixels x TC channels. Thread t owns one 2x2 pixel quad

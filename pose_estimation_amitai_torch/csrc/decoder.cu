@@ -11,7 +11,8 @@
 //
 // Weights are flax ConvTranspose HWIO kernels, used as they are. A stride-1
 // flax ConvTranspose(SAME) is an unflipped SAME correlation, so t2 and t3
-// are the encoder's conv3x3 kernel at dilation 1 (conv_tile.cuh). The
+// are the encoder's conv3x3 at dilation 1 (conv_tile.cuh, or in bf16 the
+// tensor-core conv3x3_mma_kernel of conv_mma.cuh, as the wrapper says). The
 // torch-flavour stride-2 layer (ConvTranspose2d p=1, op=1) is, per axis,
 //   y[2j] = x[j] . W[1],   y[2j+1] = x[j] . W[0] + x[j+1] . W[2]
 // (x beyond the edge is zero), so one input position (j, l) and its three
@@ -37,7 +38,7 @@
 // Mosaic limits (cin a multiple of 128 up to 256, mid <= 128, K padded to
 // 32) do not carry over.
 
-#include "conv_tile.cuh"
+#include "conv_mma.cuh"
 
 namespace {
 
@@ -145,7 +146,8 @@ template <typename T>
 int decoder(const void* x, const void* w1, const void* b1, const void* w2,
             const void* b2, const void* w3, const void* b3, const void* w4,
             const void* b4, void* ws1, void* ws2, void* out, int B, int R,
-            int Wd, int Cin, int Mid, int K, float alpha, cudaStream_t s) {
+            int Wd, int Cin, int Mid, int K, float alpha, int conv_kind,
+            cudaStream_t s) {
   T* t1 = static_cast<T*>(ws1);
   T* t2 = static_cast<T*>(ws2);
   T* t3 = t1;  // t1 is dead once t2 exists
@@ -154,13 +156,13 @@ int decoder(const void* x, const void* w1, const void* b1, const void* w2,
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const float*>(b1), t1, B, R, Wd, Cin, Mid, alpha, s);
   if (e != cudaSuccess) return (int)e;
-  e = pe::launch_conv3x3<T>(t1, static_cast<const T*>(w2),
-                            static_cast<const float*>(b2), t1, t2, B, R2, W2,
-                            Mid, Mid, 1, alpha, 0, s);
+  e = pe::launch_conv3x3_kind<T>(t1, static_cast<const T*>(w2),
+                                 static_cast<const float*>(b2), t1, t2, B, R2,
+                                 W2, Mid, Mid, 1, alpha, 0, conv_kind, s);
   if (e != cudaSuccess) return (int)e;
-  e = pe::launch_conv3x3<T>(t2, static_cast<const T*>(w3),
-                            static_cast<const float*>(b3), t2, t3, B, R2, W2,
-                            Mid, Mid, 1, alpha, 0, s);
+  e = pe::launch_conv3x3_kind<T>(t2, static_cast<const T*>(w3),
+                                 static_cast<const float*>(b3), t2, t3, B, R2,
+                                 W2, Mid, Mid, 1, alpha, 0, conv_kind, s);
   if (e != cudaSuccess) return (int)e;
   e = launch_up2<T>(t3, static_cast<const T*>(w4),
                     static_cast<const float*>(b4), static_cast<T*>(out), B,
@@ -171,21 +173,25 @@ int decoder(const void* x, const void* w1, const void* b1, const void* w2,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (latent, weights, workspace and out;
-// biases are always float32). ws1, ws2: (B, 2R, 2Wd, Mid) each. Returns the
-// first nonzero cudaGetLastError().
+// biases are always float32). ws1, ws2: (B, 2R, 2Wd, Mid) each. conv_kind:
+// the kernel of the two stride-1 convs, 0 = conv3x3_kernel, 1 =
+// conv3x3_mma_kernel (bf16, Mid a multiple of 16). Returns the first nonzero
+// cudaGetLastError().
 extern "C" int pe_fused_decoder(int dtype, const void* x, const void* w1,
                                 const void* b1, const void* w2,
                                 const void* b2, const void* w3,
                                 const void* b3, const void* w4,
                                 const void* b4, void* ws1, void* ws2,
                                 void* out, int B, int R, int Wd, int Cin,
-                                int Mid, int K, float alpha, void* stream) {
+                                int Mid, int K, float alpha, int conv_kind,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return decoder<float>(x, w1, b1, w2, b2, w3, b3, w4, b4, ws1, ws2, out, B,
-                          R, Wd, Cin, Mid, K, alpha, s);
+                          R, Wd, Cin, Mid, K, alpha, conv_kind, s);
   if (dtype == 1)
     return decoder<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, w4, b4, ws1, ws2,
-                                  out, B, R, Wd, Cin, Mid, K, alpha, s);
+                                  out, B, R, Wd, Cin, Mid, K, alpha, conv_kind,
+                                  s);
   return (int)cudaErrorInvalidValue;
 }

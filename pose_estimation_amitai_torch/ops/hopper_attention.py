@@ -18,7 +18,15 @@ views: any strides for b, h and n, last dimension contiguous, so the ViT's
 On a CUDA tensor :func:`fused_attention` launches ``csrc/attention.cu``; on
 a CPU tensor it runs :func:`fused_attention_plain`. Nothing falls back from
 one to the other. float32 or bfloat16; D a multiple of 8; N at most
-:data:`MAX_N` (a query tile's logits against all keys live in shared memory).
+:data:`MAX_N`.
+
+The source holds two kernels, and :func:`attention_kernel_for` chooses
+between them from dtype and shape alone: ``"mma"``, both products on the bf16
+tensor cores with q, k, v of one g whole in shared memory (bfloat16, N up to
+:data:`MMA_MAX_N`, D a multiple of 16, within :data:`SMEM_MAX`: every shape
+the ViTs serve); ``"fma"``, f32 arithmetic on the CUDA cores with a query
+tile's logits against all keys in shared memory (float32, where TF32 would
+break the 1e-4 limit, and every other bfloat16 shape).
 """
 
 from __future__ import annotations
@@ -28,9 +36,32 @@ import ctypes
 import torch
 
 from . import _build
-from .hopper_conv import DTYPE_CODES
+from .hopper_conv import DTYPE_CODES, SMEM_MAX
 
-MAX_N = 1056  # 48 x (N + 4) f32 logits + two 48 x 68 f32 chunks <= 227 KB
+MAX_N = 1056  # "fma": 48 x (N + 4) f32 logits + two 48 x 68 f32 chunks <= 227 KB
+MMA_MAX_N = 144  # "mma": 9 warps x 16 query rows (+ 1 that copies); 72 f32 logit registers a thread
+MMA_PAD = 8  # bf16 of padding a staged row: ldmatrix rows fall in distinct banks
+MMA_BAR_BYTES = 32  # four mbarriers behind the three buffers
+KERNEL_CODES = {"fma": 0, "mma": 1}
+
+
+def attention_mma_smem_bytes(n: int, d: int) -> int:
+    """Shared memory the ``"mma"`` kernel asks for: q, k and v of one g in
+    bf16, N rounded up to 16-row tiles, rows padded by :data:`MMA_PAD`, and
+    the copies' barriers. The rule needs the figure where nothing is built;
+    the kernel's own is :func:`attention_mma_smem_bytes_built`, and the
+    card's tests hold the two equal."""
+    return 3 * (-(-n // 16) * 16) * (d + MMA_PAD) * 2 + MMA_BAR_BYTES
+
+
+def attention_kernel_for(dtype: torch.dtype, n: int, d: int) -> str:
+    """Which kernel of ``csrc/attention.cu`` a CUDA call of this dtype and
+    shape launches: ``"mma"`` or ``"fma"``. A rule on dtype and shape only;
+    shapes neither kernel takes are refused by :func:`fused_attention`."""
+    if (dtype == torch.bfloat16 and 1 <= n <= MMA_MAX_N and d >= 16
+            and d % 16 == 0 and attention_mma_smem_bytes(n, d) <= SMEM_MAX):
+        return "mma"
+    return "fma"
 
 
 def fused_attention_plain(
@@ -52,10 +83,17 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pe_fused_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 4 + [i] * 4 + [
+        fn.argtypes = [i, i] + [p] * 4 + [i] * 4 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        lib.pe_attention_mma_smem_bytes.argtypes = [i, i]
+        lib.pe_attention_mma_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def attention_mma_smem_bytes_built(n: int, d: int) -> int:
+    """The same figure from the built library: what the launch asks for."""
+    return _lib().pe_attention_mma_smem_bytes(n, d)
 
 
 def _check_view(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -88,9 +126,11 @@ def fused_attention(
       out: optional tensor (or view) of the same shape to write into.
 
     Returns ``out`` (a new contiguous tensor if none was given). CUDA
-    tensors run the ``csrc/attention.cu`` kernel (one launch; logits and
-    probabilities stay in shared memory); CPU tensors run the plain version.
-    Each kernel run adds one to ``fused_attention.launches``.
+    tensors run one kernel of ``csrc/attention.cu`` (one launch; logits and
+    probabilities never reach device memory), the one
+    :func:`attention_kernel_for` names; CPU tensors run the plain version.
+    Each kernel run adds one to ``fused_attention.launches`` and to
+    ``fused_attention.launches_by_kernel[name]``.
     """
     if q.dim() not in (3, 4):
         raise ValueError(f"q must be (G, N, D) or (B, H, N, D), got {tuple(q.shape)}")
@@ -100,6 +140,21 @@ def fused_attention(
             return res
         out.copy_(res)
         return out
+    kernel = attention_kernel_for(q.dtype, *q.shape[-2:])
+    return fused_attention_on(kernel, q, k, v, out)
+
+
+def fused_attention_on(
+    kernel: str,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`fused_attention` on CUDA tensors with the kernel named by the
+    caller: the one :func:`attention_kernel_for` names, or ``"fma"``, which
+    takes every shape (to time one kernel against the other on the same
+    tensors). Raises for any other choice."""
+    if q.dim() not in (3, 4):
+        raise ValueError(f"q must be (G, N, D) or (B, H, N, D), got {tuple(q.shape)}")
     if not q.is_cuda:
         raise ValueError(f"kernel input on {q.device}, expected a CUDA tensor")
     if q.dtype not in DTYPE_CODES:
@@ -109,6 +164,8 @@ def fused_attention(
         raise ValueError(f"D = {d} must be a positive multiple of 8")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"N = {n} outside 1..{MAX_N}")
+    if kernel not in ("fma", attention_kernel_for(q.dtype, n, d)):
+        raise ValueError(f"kernel {kernel!r} does not take {q.dtype} N = {n}, D = {d}")
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -122,13 +179,16 @@ def fused_attention(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _lib().pe_fused_attention(
-            DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            DTYPE_CODES[q.dtype], KERNEL_CODES[kernel],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), b, h, n, d, strides, d ** -0.5, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_attention kernel: CUDA error {rc}")
+        raise RuntimeError(f"fused_attention {kernel} kernel: CUDA error {rc}")
     fused_attention.launches += 1
+    fused_attention.launches_by_kernel[kernel] += 1
     return out
 
 
 fused_attention.launches = 0
+fused_attention.launches_by_kernel = {"fma": 0, "mma": 0}

@@ -9,9 +9,17 @@ of the flagship encoder (reference: pytorch/CNNs.py:73-88)
 
 with 3x3 dilated SAME convs, f32 accumulation, and x1/x2 rounded to x's
 dtype as the TPU kernel stores them (its ``a1_ref``/``a2_ref`` scratch).
-On a CUDA tensor :func:`fused_encoder_stage` launches the hand-written kernel
+On a CUDA tensor :func:`fused_encoder_stage` launches the hand-written kernels
 of ``csrc/encoder_stage.cu``; on a CPU tensor it runs
 :func:`fused_encoder_stage_plain`. Nothing falls back from one to the other.
+
+Each of the three convs runs one of three kernels, and
+:func:`conv_kernel_for` chooses from dtype and shape alone: ``"mma"``, an
+implicit GEMM on the bf16 tensor cores (bfloat16, Cin a multiple of 16, Cout
+a multiple of 8); ``"mma_c4"``, the same with the nine taps of a 4-channel
+input packed into one K of 48 (bfloat16, Cin 4: the encoder's first conv);
+``"fma"``, the direct convolution in f32 on the CUDA cores (float32, where
+TF32 would break the 1e-4 limit, and every other bfloat16 shape).
 
 Tensors keep the JAX contracts: x NHWC (B, H, W, Cin), weights HWIO
 (3, 3, Cin, Cout) in x's dtype, biases (Cout,) float32.
@@ -27,7 +35,46 @@ import torch.nn.functional as F
 from . import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_DILATION = 8  # the kernel's shared-memory patch is sized for <= 8
+MAX_DILATION = 8  # the kernels' shared-memory patch is sized for <= 8
+SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90
+CONV_KERNEL_CODES = {"fma": 0, "mma": 1, "mma_c4": 2}
+# the tensor-core kernels' tiling (csrc/conv_mma.cuh)
+MMA_TILE = 16  # output rows and columns of a block
+MMA_COUT = 64  # output channels of a block
+MMA_CIN = 16  # input channels of a staged chunk
+MMA_STAGES = 3  # ring depth
+MMA_C4_K = 48  # 9 taps x 4 channels, padded to three k-steps of 16
+
+
+def conv_mma_smem_bytes(dilation: int, packed: bool = False) -> int:
+    """Shared memory a block of the ``"mma"`` (or, ``packed``, the
+    ``"mma_c4"``) kernel asks for: the larger of its staging buffers and the
+    f32 epilogue tile. Staging is bf16: a ring of :data:`MMA_STAGES` x (the
+    halo'd patch, 16 channels a pixel, + the 9 x 16 x 64 weight slab, both
+    swizzled, not padded) and a 4-byte table entry a patch pixel, or the 256
+    packed pixel rows of 48 padded to 56 + 48 weight rows padded to 72.
+    The rule needs the figure where nothing is built; the kernels' own is
+    :func:`conv_mma_smem_bytes_built`, and the card's tests hold the two
+    equal."""
+    side = MMA_TILE + 2 * dilation
+    ring = (MMA_STAGES * 2 * (side * side * MMA_CIN + 9 * MMA_CIN * MMA_COUT)
+            + 4 * side * side)
+    c4 = 2 * (MMA_TILE * MMA_TILE * (MMA_C4_K + 8) + MMA_C4_K * (MMA_COUT + 8))
+    epilogue = 4 * MMA_TILE * MMA_TILE * (MMA_COUT + 8)
+    return max(c4 if packed else ring, epilogue)
+
+
+def conv_kernel_for(dtype: torch.dtype, cin: int, cout: int, dilation: int) -> str:
+    """Which kernel a CUDA 3x3 conv of this dtype and shape launches:
+    ``"mma"``, ``"mma_c4"`` or ``"fma"``. A rule on dtype and shape only."""
+    if dtype != torch.bfloat16 or cout < 8 or cout % 8:
+        return "fma"
+    if cin == 4 and conv_mma_smem_bytes(dilation, True) <= SMEM_MAX:
+        return "mma_c4"
+    if (cin >= MMA_CIN and cin % MMA_CIN == 0
+            and conv_mma_smem_bytes(dilation) <= SMEM_MAX):
+        return "mma"
+    return "fma"
 
 
 def lrelu(v: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -75,9 +122,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pe_fused_encoder_stage
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+        fn.argtypes = [i] + [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
+        lib.pe_conv_mma_smem_bytes.argtypes = [i, i]
+        lib.pe_conv_mma_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def conv_mma_smem_bytes_built(dilation: int, packed: bool = False) -> int:
+    """The same figure from the built library: what the launch asks for."""
+    return _lib().pe_conv_mma_smem_bytes(dilation, int(packed))
 
 
 def check_operand(
@@ -122,16 +176,41 @@ def fused_encoder_stage(
     """Fused (conv -> conv(+skip) -> conv(+skip) [-> maxpool]) stage.
 
     Returns (B, H/2, W/2, Cout) if ``pool`` else (B, H, W, Cout), in x's
-    dtype. CUDA tensors run the ``csrc/encoder_stage.cu`` kernel (three
-    launches, x1/x2 in a workspace allocated here); CPU tensors run the
-    plain version. Each kernel run adds one to
-    ``fused_encoder_stage.launches``.
+    dtype. CUDA tensors run the ``csrc/encoder_stage.cu`` kernels (three
+    launches, x1/x2 in a workspace the wrapper allocates), each conv on the kernel
+    :func:`conv_kernel_for` names; CPU tensors run the plain version. Each
+    kernel run adds one to ``fused_encoder_stage.launches`` and its three
+    convs to ``fused_encoder_stage.convs_by_kernel``.
     """
     if x.device.type == "cpu":
         return fused_encoder_stage_plain(
             x, w1, b1, w2, b2, w3, b3,
             dilation=dilation, alpha=alpha, pool=pool,
         )
+    cin, cout = x.shape[-1], w1.shape[-1]
+    kernels = tuple(conv_kernel_for(x.dtype, c, cout, dilation)
+                    for c in (cin, cout, cout))
+    return fused_encoder_stage_on(
+        kernels, x, w1, b1, w2, b2, w3, b3,
+        dilation=dilation, alpha=alpha, pool=pool,
+    )
+
+
+def fused_encoder_stage_on(
+    kernels: tuple[str, str, str],
+    x: torch.Tensor,
+    w1: torch.Tensor, b1: torch.Tensor,
+    w2: torch.Tensor, b2: torch.Tensor,
+    w3: torch.Tensor, b3: torch.Tensor,
+    *,
+    dilation: int = 2,
+    alpha: float = 0.1,
+    pool: bool = True,
+) -> torch.Tensor:
+    """:func:`fused_encoder_stage` on CUDA tensors with the kernel of each
+    conv named by the caller: the one :func:`conv_kernel_for` names, or
+    ``"fma"``, which takes every shape (to time one kernel against the
+    other on the same tensors). Raises for any other choice."""
     check_input(x)
     b, h, w, cin = x.shape
     cout = w1.shape[-1]
@@ -145,6 +224,11 @@ def fused_encoder_stage(
         raise ValueError(f"dilation {dilation} outside 1..{MAX_DILATION}")
     if pool and (h % 2 or w % 2):
         raise ValueError(f"pooling needs even H, W, got {h}x{w}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"{h}x{w} pixels a frame: the kernels index them in 32 bits")
+    for k, c in zip(kernels, (cin, cout, cout), strict=True):
+        if k not in ("fma", conv_kernel_for(dt, c, cout, dilation)):
+            raise ValueError(f"kernel {k!r} does not take {dt} {c} -> {cout} channels")
     out_shape = (b, h // 2, w // 2, cout) if pool else (b, h, w, cout)
     ws1 = torch.empty((b, h, w, cout), dtype=dt, device=dev)
     ws2 = torch.empty((b, h, w, cout), dtype=dt, device=dev)
@@ -155,15 +239,20 @@ def fused_encoder_stage(
             DTYPE_CODES[dt], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
             ws1.data_ptr(), ws2.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, dilation, alpha, int(pool), stream,
+            b, h, w, cin, cout, dilation, alpha, int(pool),
+            *(CONV_KERNEL_CODES[k] for k in kernels), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"fused_encoder_stage kernel: CUDA error {rc}")
+        raise RuntimeError(
+            f"fused_encoder_stage kernels {kernels}: CUDA error {rc}")
     fused_encoder_stage.launches += 1
+    for k in kernels:
+        fused_encoder_stage.convs_by_kernel[k] += 1
     return out
 
 
 fused_encoder_stage.launches = 0
+fused_encoder_stage.convs_by_kernel = {"fma": 0, "mma": 0, "mma_c4": 0}
 
 
 def encoder_forward_fused(

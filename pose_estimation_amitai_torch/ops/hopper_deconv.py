@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from . import _build
 from .hopper_conv import (
-    DTYPE_CODES, bias_nchw, check_input, check_operand, lrelu,
+    CONV_KERNEL_CODES, DTYPE_CODES, bias_nchw, check_input, check_operand,
+    conv_kernel_for, lrelu,
 )
 
 
@@ -66,7 +67,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pe_fused_decoder
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 12 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = [i] + [p] * 12 + [i] * 6 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -83,13 +84,33 @@ def fused_decoder(
     Weights are flax ConvTranspose HWIO kernels in the latent's dtype,
     biases float32. CUDA tensors run the ``csrc/decoder.cu`` kernels (four
     launches writing the interleaved output directly, intermediates in a
-    workspace allocated here); CPU tensors run the plain version. Each
-    kernel run adds one to ``fused_decoder.launches``.
+    workspace the wrapper allocates); CPU tensors run the plain version. The
+    two stride-1 convs run the kernel ``hopper_conv.conv_kernel_for`` names
+    for (mid -> mid, dilation 1): the tensor-core one in bfloat16 when mid is
+    a multiple of 16. Each kernel run adds one to ``fused_decoder.launches``
+    and its two convs to ``fused_decoder.convs_by_kernel``.
     """
     if latent.device.type == "cpu":
         return fused_decoder_plain(
             latent, w1, b1, w2, b2, w3, b3, w4, b4, alpha=alpha
         )
+    mid = w1.shape[-1]
+    conv_kernel = conv_kernel_for(latent.dtype, mid, mid, 1)
+    return fused_decoder_on(conv_kernel, latent, w1, b1, w2, b2, w3, b3, w4, b4,
+                            alpha=alpha)
+
+
+def fused_decoder_on(
+    conv_kernel: str,
+    latent: torch.Tensor,
+    w1, b1, w2, b2, w3, b3, w4, b4,
+    *,
+    alpha: float = 0.1,
+) -> torch.Tensor:
+    """:func:`fused_decoder` on CUDA tensors with the kernel of the two
+    stride-1 convs named by the caller: the one ``conv_kernel_for`` names, or
+    ``"fma"``, which takes every shape (to time one kernel against the other
+    on the same tensors). Raises for any other choice."""
     check_input(latent)
     b, r, wd, cin = latent.shape
     mid = w1.shape[-1]
@@ -102,6 +123,10 @@ def fused_decoder(
     for name, bias, n in (("b1", b1, mid), ("b2", b2, mid), ("b3", b3, mid),
                           ("b4", b4, k)):
         check_operand(name, bias, (n,), torch.float32, dev)
+    if 4 * r * wd >= 2 ** 31:
+        raise ValueError(f"{2 * r}x{2 * wd} pixels a map: the kernels index them in 32 bits")
+    if conv_kernel not in ("fma", conv_kernel_for(dt, mid, mid, 1)):
+        raise ValueError(f"kernel {conv_kernel!r} does not take {dt} {mid} -> {mid} channels")
     ws1 = torch.empty((b, 2 * r, 2 * wd, mid), dtype=dt, device=dev)
     ws2 = torch.empty((b, 2 * r, 2 * wd, mid), dtype=dt, device=dev)
     out = torch.empty((b, 4 * r, 4 * wd, k), dtype=dt, device=dev)
@@ -112,12 +137,14 @@ def fused_decoder(
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(),
             ws1.data_ptr(), ws2.data_ptr(), out.data_ptr(),
-            b, r, wd, cin, mid, k, alpha, stream,
+            b, r, wd, cin, mid, k, alpha, CONV_KERNEL_CODES[conv_kernel], stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_decoder kernel: CUDA error {rc}")
     fused_decoder.launches += 1
+    fused_decoder.convs_by_kernel[conv_kernel] += 2
     return out
 
 
 fused_decoder.launches = 0
+fused_decoder.convs_by_kernel = {"fma": 0, "mma": 0}

@@ -371,3 +371,165 @@ def test_vit_predictor_fused_matches_module_on_card(cuda, four):
     assert ha.fused_attention.launches == before + 3 * (2 + 4 if four else 2)
     np.testing.assert_allclose(out[1][0], out[0][0], atol=1e-4)
     np.testing.assert_allclose(out[1][1][:, 2], out[0][1][:, 2], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core kernels and the wrappers' choice between kernels
+# ---------------------------------------------------------------------------
+def _stage_args(gen, b, h, w, cin, cout, dtype):
+    args = [_rand(gen, b, h, w, cin).abs().to(dtype)]
+    for c in (cin, cout, cout):
+        args += [_rand(gen, 3, 3, c, cout, scale=(9 * c) ** -0.5).to(dtype),
+                 _rand(gen, cout, scale=0.05)]
+    return args
+
+
+def _took(counter, fn):
+    """(fn(), the names of the kernels it ran, from a by-kernel counter, each
+    as often as it ran)."""
+    before = dict(counter)
+    out = fn()
+    return out, tuple(sorted(k for k in counter for _ in range(counter[k] - before[k])))
+
+
+@pytest.mark.parametrize("h, cin, cout, pool, kernels", [
+    (192, 4, 64, True, ("mma_c4", "mma", "mma")),
+    (96, 64, 128, True, ("mma", "mma", "mma")),
+    (48, 128, 256, False, ("mma", "mma", "mma")),
+])
+def test_encoder_stage_flagship_shapes_on_tensor_cores(cuda, h, cin, cout, pool, kernels):
+    """The three flagship stages at batch 2 in bf16: every conv on a
+    tensor-core kernel; the same call in float32 stays on the CUDA cores."""
+    gen = torch.Generator(device="cuda").manual_seed(h)
+    args = _stage_args(gen, 2, h, h, cin, cout, torch.bfloat16)
+    by_kernel = hc.fused_encoder_stage.convs_by_kernel
+    got, took = _took(by_kernel, lambda: hc.fused_encoder_stage(*args, dilation=2, pool=pool))
+    assert took == tuple(sorted(kernels))
+    _close(got, hc.fused_encoder_stage_plain(*args, dilation=2, pool=pool), torch.bfloat16)
+    f32 = [a.float() for a in args]
+    got, took = _took(by_kernel, lambda: hc.fused_encoder_stage(*f32, dilation=2, pool=pool))
+    assert took == ("fma", "fma", "fma")
+    _close(got, hc.fused_encoder_stage_plain(*f32, dilation=2, pool=pool), torch.float32)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_encoder_stage_bf16_error_holds_over_seeds(cuda, seed):
+    """The deepest flagship stage (K = 9 x 256, the most sums to reorder)
+    stays within the bf16 limit on other draws of weights and inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args = _stage_args(gen, 4, 48, 48, 128, 256, torch.bfloat16)
+    _close(hc.fused_encoder_stage(*args, dilation=2, pool=False),
+           hc.fused_encoder_stage_plain(*args, dilation=2, pool=False), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout, dil, pool, kernels", [
+    (2, 32, 32, 16, 64, 2, False, ("mma", "mma", "mma")),
+    (1, 13, 17, 32, 72, 1, False, ("mma", "fma", "fma")),    # odd H x W, ragged Cout tile
+    (2, 22, 38, 32, 32, 2, True, ("mma", "mma", "mma")),     # pooled, tile remainders 6 x 6
+    (1, 40, 24, 48, 16, 8, True, ("mma", "mma", "mma")),     # the widest halo
+    (3, 24, 24, 16, 136, 3, True, ("mma", "fma", "fma")),    # three Cout tiles, the last ragged
+    (2, 20, 36, 4, 24, 2, False, ("mma_c4", "fma", "fma")),  # the packed first conv alone
+    (2, 10, 50, 4, 8, 2, True, ("mma_c4", "fma", "fma")),    # pooled, remainders 10 x 2
+    (2, 18, 34, 4, 32, 1, True, ("mma_c4", "mma", "mma")),   # dilation 1, remainders 2 x 2
+])
+def test_encoder_stage_tensor_core_kernels_match_plain(cuda, b, h, w, cin, cout, dil, pool,
+                                                       kernels):
+    gen = torch.Generator(device="cuda").manual_seed(cin * cout + h)
+    args = _stage_args(gen, b, h, w, cin, cout, torch.bfloat16)
+    got, took = _took(hc.fused_encoder_stage.convs_by_kernel,
+                      lambda: hc.fused_encoder_stage(*args, dilation=dil, pool=pool))
+    assert took == tuple(sorted(kernels))
+    _close(got, hc.fused_encoder_stage_plain(*args, dilation=dil, pool=pool), torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin, cout", [(4, 16), (16, 16), (9, 16)])
+def test_nan_input_reaches_the_pooled_output(cuda, cin, cout):
+    """The pool's max propagates NaN on every kernel, as the plain version's
+    does: the same output elements are NaN, the others agree."""
+    gen = torch.Generator(device="cuda").manual_seed(cin)
+    args = _stage_args(gen, 1, 16, 16, cin, cout, torch.bfloat16)
+    args[0][0, 5, 5, 1] = float("nan")
+    got = hc.fused_encoder_stage(*args, pool=True)
+    want = hc.fused_encoder_stage_plain(*args, pool=True)
+    assert got.isnan().any() and not got.isnan().all()
+    assert torch.equal(got.isnan(), want.isnan())
+    _close(got.nan_to_num(0.0), want.nan_to_num(0.0), torch.bfloat16)
+
+
+def test_decoder_stride1_convs_on_tensor_cores(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for mid, kernel in ((128, "mma"), (40, "fma")):
+        args = [_rand(gen, 2, 12, 12, 256).abs().bfloat16()]
+        for ci, co in ((256, mid), (mid, mid), (mid, mid), (mid, 18)):
+            args += [_rand(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5).bfloat16(),
+                     _rand(gen, co, scale=0.05)]
+        got, took = _took(hd.fused_decoder.convs_by_kernel, lambda: hd.fused_decoder(*args))
+        assert took == (kernel, kernel)
+        _close(got, hd.fused_decoder_plain(*args), torch.bfloat16)
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    assert _took(hd.fused_decoder.convs_by_kernel,
+                 lambda: hd.fused_decoder(*f32))[1] == ("fma", "fma")
+
+
+@pytest.mark.parametrize("b, heads, n", [(6, 8, 144), (6, 4, 144), (3, 4, 576), (2, 8, 1)])
+def test_attention_views_take_the_kernel_the_rule_names(cuda, b, heads, n):
+    """The ViT's views (q, k, v slices of one qkv tensor, a permuted output
+    view) at the encoder's 8 heads and the fusion block's 4: the tensor-core
+    kernel in bf16 up to 144 tokens, the CUDA-core kernel beyond and in
+    float32."""
+    d = 256
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = _rand(gen, b, n, 3, heads, d).to(dtype)
+        q, k, v = (qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        out = torch.full((b, n, heads, d), float("nan"), dtype=dtype, device="cuda")
+        want = "mma" if dtype == torch.bfloat16 and n <= 144 else "fma"
+        assert want == ha.attention_kernel_for(dtype, n, d)
+        _, took = _took(ha.fused_attention.launches_by_kernel,
+                        lambda: ha.fused_attention(q, k, v, out=out.permute(0, 2, 1, 3)))
+        assert took == (want,)
+        _close(out.permute(0, 2, 1, 3), ha.fused_attention_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("g, n, d", [
+    (300, 144, 256),  # more g than resident blocks: the ring runs several rounds
+    (1, 144, 256), (7, 33, 32), (5, 100, 80), (3, 7, 16), (9, 129, 48),
+])
+def test_attention_tensor_core_kernel_matches_plain(cuda, g, n, d):
+    gen = torch.Generator(device="cuda").manual_seed(g * n + d)
+    q, k, v = (_rand(gen, g, n, d).bfloat16() for _ in range(3))
+    got, took = _took(ha.fused_attention.launches_by_kernel,
+                      lambda: ha.fused_attention(q, k, v))
+    assert took == ("mma",)
+    _close(got, ha.fused_attention_plain(q, k, v), torch.bfloat16)
+
+
+def test_shared_memory_figures_are_the_kernels_own(cuda):
+    """The byte counts the dispatch rules reckon with are the ones the built
+    libraries launch with."""
+    for dil in range(1, hc.MAX_DILATION + 1):
+        for packed in (False, True):
+            assert hc.conv_mma_smem_bytes(dil, packed) == hc.conv_mma_smem_bytes_built(dil, packed)
+    for n, d in [(144, 256), (129, 256), (1, 16), (100, 80), (144, 272)]:
+        assert ha.attention_mma_smem_bytes(n, d) == ha.attention_mma_smem_bytes_built(n, d)
+
+
+def test_named_kernel_runs_and_a_wrong_name_is_refused(cuda):
+    """The CUDA-core kernels on shapes the rules give the tensor cores: the
+    same answers; a tensor-core kernel named for a shape it does not take
+    raises."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args = _stage_args(gen, 2, 32, 32, 16, 64, torch.bfloat16)
+    got, took = _took(hc.fused_encoder_stage.convs_by_kernel,
+                      lambda: hc.fused_encoder_stage_on(("fma",) * 3, *args, pool=True))
+    assert took == ("fma",) * 3
+    _close(got, hc.fused_encoder_stage_plain(*args, pool=True), torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        hc.fused_encoder_stage_on(("mma_c4", "mma", "mma"), *args, pool=True)
+    q, k, v = (_rand(gen, 4, 144, 64).bfloat16() for _ in range(3))
+    got, took = _took(ha.fused_attention.launches_by_kernel,
+                      lambda: ha.fused_attention_on("fma", q, k, v))
+    assert took == ("fma",)
+    _close(got, ha.fused_attention_plain(q, k, v), torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        ha.fused_attention_on("mma", q.float(), k.float(), v.float())

@@ -87,3 +87,155 @@ def test_wrapper_refuses_non_cpu_non_cuda_tensors():
     b = torch.empty((8,), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         hc.fused_encoder_stage(x, w, b, w, b, w, b)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's choice between the conv kernels, their shared-memory budget,
+# and the implicit GEMM the tensor-core kernels perform, multiplied out
+# ---------------------------------------------------------------------------
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype, cin, cout, dil, kernel", [
+    (BF16, 4, 64, 2, "mma_c4"),     # the encoder's first conv
+    (BF16, 64, 64, 2, "mma"), (BF16, 64, 128, 2, "mma"), (BF16, 128, 128, 2, "mma"),
+    (BF16, 128, 256, 2, "mma"), (BF16, 256, 256, 2, "mma"),
+    (BF16, 128, 128, 1, "mma"),     # the decoder's two stride-1 convs
+    (BF16, 16, 8, 8, "mma"), (BF16, 4, 8, 8, "mma_c4"), (BF16, 32, 72, 1, "mma"),
+    (F32, 4, 64, 2, "fma"), (F32, 64, 64, 2, "fma"), (F32, 128, 128, 1, "fma"),
+    (BF16, 3, 24, 2, "fma"), (BF16, 9, 70, 1, "fma"), (BF16, 5, 8, 2, "fma"),
+    (BF16, 24, 24, 2, "fma"),       # Cin off the chunk of 16
+    (BF16, 8, 8, 2, "fma"),
+    (BF16, 16, 130, 3, "fma"), (BF16, 130, 130, 3, "fma"), (BF16, 70, 70, 1, "fma"),
+    (BF16, 4, 70, 2, "fma"),        # Cout off the 16-byte store
+])
+def test_conv_kernel_rule(dtype, cin, cout, dil, kernel):
+    assert hc.conv_kernel_for(dtype, cin, cout, dil) == kernel
+
+
+def test_every_cuda_test_stage_gets_kernels():
+    """The ragged stages of tests/test_torch_cuda.py: each of their three
+    convs gets an answer, in both dtypes, and none of them in float32 or off
+    the channel multiples takes a tensor-core kernel."""
+    for cin, cout, dil in [(3, 24, 2), (9, 70, 1), (16, 130, 3), (5, 8, 2)]:
+        for dtype in (F32, BF16):
+            kernels = [hc.conv_kernel_for(dtype, c, cout, dil) for c in (cin, cout, cout)]
+            assert set(kernels) <= set(hc.CONV_KERNEL_CODES)
+            if dtype == F32 or cout % 8:
+                assert kernels == ["fma"] * 3
+    # flagship: every conv of the three stages and of the decoder on the tensor cores
+    for cin, cout in [(4, 64), (64, 128), (128, 256)]:
+        assert [hc.conv_kernel_for(BF16, c, cout, 2) for c in (cin, cout, cout)] == [
+            "mma_c4" if cin == 4 else "mma", "mma", "mma"]
+    assert hc.conv_kernel_for(BF16, 128, 128, 1) == "mma"
+
+
+def test_conv_shared_memory_budget():
+    """A ring of three stages of (halo'd 16 x 16 patch x 16 bf16 + 9 x 16 x 64
+    bf16 of weights) and a 4-byte table entry a patch pixel, or the f32
+    epilogue tile where that is larger: two blocks fit an SM's 227 KB at the
+    served dilations, one at every dilation the wrapper takes."""
+    assert hc.conv_mma_smem_bytes(2) == 3 * (20 * 20 * 32 + 18432) + 1600 == 95296
+    assert hc.conv_mma_smem_bytes(1) == 3 * (18 * 18 * 32 + 18432) + 1296 == 87696
+    assert hc.conv_mma_smem_bytes(8) == 3 * (32 * 32 * 32 + 18432) + 4096 == 157696
+    assert 4 * 256 * 72 == 73728 < hc.conv_mma_smem_bytes(1)  # the epilogue tile fits
+    assert hc.conv_mma_smem_bytes(2, packed=True) == 73728
+    assert 2 * (256 * 56 + 48 * 72) == 35584 < 73728  # the packed staging itself
+    for dil in range(1, hc.MAX_DILATION + 1):
+        assert hc.conv_mma_smem_bytes(dil) <= hc.SMEM_MAX
+        assert hc.conv_mma_smem_bytes(dil, packed=True) <= hc.SMEM_MAX
+    for dil in (1, 2):  # two blocks an SM, 1 KB reserved a block
+        assert 2 * (hc.conv_mma_smem_bytes(dil) + 1024) <= hc.SMEM_MAX
+    # 64 f32 accumulators a thread: 2 m16 tiles x 8 n8 tiles x 4
+    assert 2 * (hc.MMA_COUT // 8) * 4 == 64
+
+
+def _implicit_gemm_conv(x, w, dil):
+    """SAME 3x3 dilated conv of NHWC ``x`` with HWIO ``w`` as the tensor-core
+    kernel multiplies it out: zero padding at staging, a tap as a pixel
+    offset into the padded patch, K = 9 taps x Cin walked in chunks of 16
+    input channels (taps inside a chunk), f32 sums."""
+    b, h, wd, cin = x.shape
+    patch = torch.nn.functional.pad(x, (0, 0, dil, dil, dil, dil))
+    acc = torch.zeros(b, h, wd, w.shape[-1])
+    for c0 in range(0, cin, hc.MMA_CIN):
+        for ky in range(3):
+            for kx in range(3):
+                a = patch[:, ky * dil:ky * dil + h, kx * dil:kx * dil + wd,
+                          c0:c0 + hc.MMA_CIN]                       # A: pixels x 16
+                acc += a @ w[ky, kx, c0:c0 + hc.MMA_CIN]            # B: 16 x Cout
+    return acc
+
+
+def _packed_c4_conv(x, w, dil):
+    """The same for Cin = 4: the nine taps of a pixel packed into one row of
+    K = 48 (columns 36.. zero), times the HWIO kernel read as it lies as a
+    (36, Cout) matrix, zero rows below."""
+    b, h, wd, cin = x.shape
+    assert cin == 4
+    patch = torch.nn.functional.pad(x, (0, 0, dil, dil, dil, dil))
+    rows = torch.zeros(b, h, wd, hc.MMA_C4_K)
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        rows[..., tap * 4:tap * 4 + 4] = patch[:, ky * dil:ky * dil + h,
+                                               kx * dil:kx * dil + wd]
+    slab = torch.zeros(hc.MMA_C4_K, w.shape[-1])
+    slab[:36] = w.reshape(36, -1)
+    return rows @ slab
+
+
+@pytest.mark.parametrize("cin, cout, dil, pool", [(4, 16, 2, True), (16, 32, 1, False),
+                                                  (4, 16, 3, False), (32, 16, 2, True)])
+def test_implicit_gemm_equals_plain_and_pallas(cin, cout, dil, pool):
+    """The stage assembled from the two GEMM forms (with the kernels'
+    epilogue: bias, LReLU, skip, NaN-propagating pool, LReLU) equals
+    ``fused_encoder_stage_plain`` and, at the shapes the Pallas kernel takes,
+    the Pallas kernel in interpret mode, in float32 within 1e-5."""
+    rng = np.random.default_rng(cin * cout + dil)
+    x = rng.random((2, 18, 20, cin)).astype(np.float32)
+    w = _stage_weights(rng, cin, cout)
+    t = {k: torch.from_numpy(v) for k, v in w.items()}
+
+    def conv(inp, wk):
+        form = {"mma_c4": _packed_c4_conv, "mma": _implicit_gemm_conv}[
+            hc.conv_kernel_for(BF16, inp.shape[-1], cout, dil)]
+        return form(inp, wk, dil)
+
+    xt = torch.from_numpy(x)
+    x1 = hc.lrelu(conv(xt, t["w1"]) + t["b1"], 0.1)
+    x2 = hc.lrelu(conv(x1, t["w2"]) + t["b2"], 0.1) + x1
+    y = hc.lrelu(conv(x2, t["w3"]) + t["b3"], 0.1) + x2
+    if pool:
+        q = y.reshape(2, 9, 2, 10, 2, cout)
+        y = hc.lrelu(q.amax(dim=(2, 4)), 0.1)
+    plain = hc.fused_encoder_stage_plain(xt, *(t[k] for k in KEYS), dilation=dil, pool=pool)
+    np.testing.assert_allclose(y.numpy(), plain.numpy(), atol=1e-5)
+    if dil == 2 and cin == 4:
+        xj = rng.random((2, 48, 48, 4)).astype(np.float32)
+        want = np.asarray(fused_encoder_stage(
+            jnp.asarray(xj), *(jnp.asarray(w[k]) for k in KEYS), pool=pool, interpret=True))
+        xt = torch.from_numpy(xj)
+        x1 = hc.lrelu(conv(xt, t["w1"]) + t["b1"], 0.1)
+        x2 = hc.lrelu(conv(x1, t["w2"]) + t["b2"], 0.1) + x1
+        y = hc.lrelu(conv(x2, t["w3"]) + t["b3"], 0.1) + x2
+        y = hc.lrelu(y.reshape(2, 24, 2, 24, 2, cout).amax(dim=(2, 4)), 0.1)
+        np.testing.assert_allclose(y.numpy(), want, atol=1e-5)
+
+
+def test_cpu_calls_leave_the_kernel_counters_alone():
+    before = dict(hc.fused_encoder_stage.convs_by_kernel), hc.fused_encoder_stage.launches
+    x = torch.rand(1, 8, 8, 4)
+    w = {k: torch.from_numpy(v) for k, v in _stage_weights(np.random.default_rng(0), 4, 8).items()}
+    hc.fused_encoder_stage(x, *(w[k] for k in KEYS))
+    assert (dict(hc.fused_encoder_stage.convs_by_kernel),
+            hc.fused_encoder_stage.launches) == before
+    assert set(hc.fused_encoder_stage.convs_by_kernel) == set(hc.CONV_KERNEL_CODES)
+
+
+def test_naming_a_kernel_needs_a_cuda_tensor():
+    """``fused_encoder_stage_on`` launches or raises: a CPU tensor never
+    reaches a kernel, and it has no plain path."""
+    x = torch.rand(1, 8, 8, 4)
+    w = {k: torch.from_numpy(v) for k, v in _stage_weights(np.random.default_rng(0), 4, 8).items()}
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        hc.fused_encoder_stage_on(("fma",) * 3, x, *(w[k] for k in KEYS))
