@@ -23,9 +23,13 @@ Phases, each printing one JSON line ({"phase": ...}):
              wrapper chooses between two hand-written kernels (the bf16
              tensor-core ones and the f32 CUDA-core ones), the served shapes
              must take the tensor-core kernel in bfloat16 and the CUDA-core
-             kernel in float32, and one general shape per kernel (a stage at
-             9 -> 70 channels, attention at (5, 100, 72)) holds the CUDA-core
-             kernel against its plain version in bfloat16 too;
+             kernel in float32 (the int8 ones: the int8 tensor-core kernel,
+             the 4-channel first conv its packed-tap form), and general
+             shapes per kernel (a stage at 9 -> 70 channels, attention at
+             (5, 100, 72), the decoder at ragged sizes on either stride-2
+             kernel, the int8 stage at ragged tiles on each of its kernels)
+             are held against the plain versions too; the int8 weight
+             packing equals its plain version;
 4. slice   - Predictor(Config(), use_fused=True) at full width (filters 64,
              192x192x4 frames -> 18 maps, bf16) on seeded random weights made
              by the weight bridge: three requests (256, 256, 100 frames) and
@@ -69,9 +73,10 @@ published peak of their type and its bytes (each operand read once, the
 output written once) over the published memory rate. ``library_ms`` is the time of the one PyTorch call
 that computes the same function, where there is one (the attention kernel:
 ``scaled_dot_product_attention``), else null. The rows of the kernels that
-were redesigned for the tensor cores also carry ``previous_ms``, the time in
-this run of the CUDA-core kernel they replace, on the same tensors, and
-``kernel``, which of the wrapper's kernels the served shape took. Last
+were redesigned for the tensor cores (all five that compute) also carry
+``previous_ms``, the time in this run of the CUDA-core kernel they replace,
+on the same tensors, and ``kernel``, which of the wrapper's kernels the
+served shape took. Last
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 nonzero without the ok line.
 """
@@ -156,6 +161,13 @@ def took(counter: dict, fn):
     return out, "+".join(names)
 
 
+def decoder_kernels(convs: str, up2: str) -> str:
+    """The decoder's four launches in order, from the names its two by-kernel
+    counters gave (``took``: each sorted by name, so a mixed pair reads
+    "fma+mma" whichever layer took which)."""
+    return f"up2({up2})+conv({convs})"
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -225,6 +237,11 @@ def phase_kernels(torch, params) -> list[dict]:
     check(ha.attention_mma_smem_bytes(VIT_TOKENS, VIT_DIM_HEAD)
           == ha.attention_mma_smem_bytes_built(VIT_TOKENS, VIT_DIM_HEAD),
           "attention shared memory at the served shape")
+    check(hd.up2_mma_smem_bytes() == hd.up2_mma_smem_bytes_built(),
+          "stride-2 layer shared memory")
+    for dil in (1, 2, hc.MAX_DILATION):
+        check(hq.qconv_mma_smem_bytes(dil) == hq.qconv_mma_smem_bytes_built(dil),
+              f"int8 conv shared memory at dilation {dil}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     frames = torch.rand((CHUNK, 192, 192, 4), generator=gen, device="cuda")
@@ -258,11 +275,12 @@ def phase_kernels(torch, params) -> list[dict]:
                     **rounding_flips(torch, got, want, args, kw))
             x = want  # the next stage's input: this stage's plain output
         d = kp["decoder"]
-        got, ran = took(hd.fused_decoder.convs_by_kernel,
-                        lambda: hd.fused_decoder(x, **d))
+        (got, ran), up2 = took(hd.fused_decoder.up2_by_kernel, lambda: took(
+            hd.fused_decoder.convs_by_kernel, lambda: hd.fused_decoder(x, **d)))
         want = hd.fused_decoder_plain(x, **d)
-        check(ran == ("fma+fma" if dt == torch.float32 else "mma+mma"),
-              f"decoder {dt}: stride-1 convs on {ran}")
+        expect = "fma+fma" if dt == torch.float32 else "mma+mma"
+        check(ran == expect and up2 == expect,
+              f"decoder {dt}: stride-1 convs on {ran}, stride-2 layers on {up2}")
         pix = x.shape[0] * x.shape[1] * x.shape[2]
         mid, k = d["w1"].shape[-1], d["w4"].shape[-1]
         # real multiply-adds: a stride-2 transposed conv does 9 per input pixel
@@ -272,10 +290,13 @@ def phase_kernels(torch, params) -> list[dict]:
             lambda: hd.fused_decoder(x, **d), lambda: hd.fused_decoder_plain(x, **d),
             bound(ops, "bf16", nbytes(x, *d.values(), want)),
         ))
-        cases["fused_decoder"][-1]["kernel"] = "up2+" + ran + "+up2"
+        cases["fused_decoder"][-1]["kernel"] = decoder_kernels(ran, up2)
         if dt == torch.bfloat16:
+            # the kernel before: the stride-2 layers on the CUDA cores, the
+            # stride-1 convs on the tensor cores as they have been
             cases["fused_decoder"][-1]["previous_ms"] = time_ms(
-                torch, lambda: hd.fused_decoder_on("fma", x, **d), PREVIOUS_REPS)
+                torch, lambda: hd.fused_decoder_on("mma", ("fma", "fma"), x, **d),
+                PREVIOUS_REPS)
         del got, want
 
     # a general shape on the CUDA-core conv kernel in bf16 (channel counts off
@@ -290,13 +311,40 @@ def phase_kernels(torch, params) -> list[dict]:
                     lambda: hc.fused_encoder_stage(*args, dilation=2, pool=True))
     want = hc.fused_encoder_stage_plain(*args, dilation=2, pool=True)
     check(ran == "fma+fma+fma", f"9 -> 70 channels took {ran}")
-    general = {"fused_encoder_stage": _case(
+    general = {"fused_encoder_stage": [_case(
         torch, f"{tuple(x.shape)}->{tuple(want.shape)}", torch.bfloat16, got, want,
         lambda: hc.fused_encoder_stage(*args, dilation=2, pool=True),
         lambda: hc.fused_encoder_stage_plain(*args, dilation=2, pool=True),
-        bound(stage_ops(*x.shape, 70), "bf16", nbytes(*args, want)))}
-    general["fused_encoder_stage"]["kernel"] = "fma+fma+fma"
+        bound(stage_ops(*x.shape, 70), "bf16", nbytes(*args, want)))]}
+    general["fused_encoder_stage"][0]["kernel"] = "fma+fma+fma"
     del got, want
+
+    # the decoder in bf16 at ragged sizes: both stride-2 layers on the
+    # tensor-core kernel (Cin a multiple of 16; K = 5 off every multiple the
+    # stores like), a whole-row head of 24 channels beside a CUDA-core layer,
+    # and both layers on the CUDA-core kernel (cin 9)
+    general["fused_decoder"] = []
+    for cin, mid, k, expect in ((48, 32, 5, "mma+mma"), (48, 24, 5, "fma+mma"),
+                                (9, 24, 5, "fma+fma")):
+        x = torch.rand((2, 13, 10, cin), generator=gen, device="cuda").to(torch.bfloat16)
+        args = [x]
+        for ci, co in ((cin, mid), (mid, mid), (mid, mid), (mid, k)):
+            args += [(torch.randn((3, 3, ci, co), generator=gen, device="cuda")
+                      * (9 * ci) ** -0.5).to(torch.bfloat16),
+                     torch.randn((co,), generator=gen, device="cuda") * 0.05]
+        (got, ran), up2 = took(hd.fused_decoder.up2_by_kernel, lambda: took(
+            hd.fused_decoder.convs_by_kernel, lambda: hd.fused_decoder(*args)))
+        want = hd.fused_decoder_plain(*args)
+        check(up2 == expect, f"decoder {cin} -> {mid} -> {k}: stride-2 layers on {up2}")
+        pix = x.shape[0] * x.shape[1] * x.shape[2]
+        general["fused_decoder"].append(_case(
+            torch, f"{tuple(x.shape)}->{mid}->{tuple(want.shape)}", torch.bfloat16,
+            got, want, lambda: hd.fused_decoder(*args),
+            lambda: hd.fused_decoder_plain(*args),
+            bound(2.0 * 9 * pix * (cin * mid + 8 * mid * mid + 4 * mid * k), "bf16",
+                  nbytes(*args, want))))
+        general["fused_decoder"][-1]["kernel"] = decoder_kernels(ran, up2)
+        del got, want
 
     # the int8 stage at its three flagship shapes: scales calibrated on the
     # first frames, each stage fed the pooled plain output of the one before
@@ -310,22 +358,70 @@ def phase_kernels(torch, params) -> list[dict]:
         nxt = f"conv{3 * s + 4}" if s < 2 else "deconv1"
         kw = dict(inv_s2=inv[f"conv{3 * s + 2}"], inv_s3=inv[f"conv{3 * s + 3}"],
                   inv_out=inv[nxt], dilation=2, alpha=0.1, pool=s < 2)
-        got = hq.fused_quantized_stage(*args, **kw)
+        got, ran = took(hq.fused_quantized_stage.convs_by_kernel,
+                        lambda: hq.fused_quantized_stage(*args, **kw))
         want = hq.fused_quantized_stage_plain(*args, **kw)
+        expect = "mma_s8+mma_s8+mma_s8_c4" if s == 0 else "mma_s8+mma_s8+mma_s8"
+        check(ran == expect, f"int8 stage {s}: kernels {ran}, expected {expect}")
+        for n in (f"conv{3 * s + i}" for i in (1, 2, 3)):  # packed once, by the kernel
+            check(bool(torch.equal(layers[n]["w_packed"],
+                                   hq.pack_qconv_weights_plain(layers[n]["w_q"]))),
+                  f"{n}: packed weights differ from the plain packing")
+        # the operands as the JAX function takes them (HWIO int8 weights)
+        operands = [x] + [t for n in (f"conv{3 * s + i}" for i in (1, 2, 3))
+                          for t in (layers[n]["w_q"], layers[n]["mult"], layers[n]["bias"])]
         cases["fused_quantized_stage"].append(_case_int8(
             torch, f"{tuple(x.shape)}->{tuple(want.shape)}", got, want,
             lambda: hq.fused_quantized_stage(*args, **kw),
             lambda: hq.fused_quantized_stage_plain(*args, **kw),
-            bound(stage_ops(*x.shape, want.shape[-1]), "int8", nbytes(*args, want)),
+            bound(stage_ops(*x.shape, want.shape[-1]), "int8", nbytes(*operands, want)),
         ))
+        cases["fused_quantized_stage"][-1].update(
+            kernel=ran, previous_ms=time_ms(
+                torch, lambda: hq.fused_quantized_stage_on(("dp4a",) * 3, *args, **kw),
+                PREVIOUS_REPS))
         x = max_pool_2x2(want).contiguous() if s < 2 else want
+        del got, want
+
+    # the int8 stage at ragged tiles (40 x 52 pixels, the last channel tile
+    # half full), dilation 1 and 3, on the tensor-core kernel; at 32 -> 40
+    # channels, where only the first conv takes it; at 4 -> 40 (the first
+    # conv on the 4-channel tensor-core kernel); at 9 -> 70 on the CUDA-core
+    # kernel
+    general["fused_quantized_stage"] = []
+    rng = np.random.default_rng(SEED)
+    for cin, cout, dil, expect in ((32, 96, 1, "mma_s8+mma_s8+mma_s8"),
+                                   (32, 96, 3, "mma_s8+mma_s8+mma_s8"),
+                                   (32, 40, 3, "dp4a+dp4a+mma_s8"),
+                                   (4, 40, 3, "dp4a+dp4a+mma_s8_c4"),
+                                   (9, 70, 2, "dp4a+dp4a+dp4a")):
+        args = [torch.from_numpy(rng.integers(-127, 128, (2, 40, 52, cin)).astype(np.int8))]
+        for c in (cin, cout, cout):
+            args += [torch.from_numpy(a) for a in (
+                rng.integers(-127, 128, (3, 3, c, cout)).astype(np.int8),
+                (rng.uniform(0.5, 1.5, cout) / (np.sqrt(9 * c) * 5329)).astype(np.float32),
+                (rng.standard_normal(cout) * 0.05).astype(np.float32))]
+        args = [a.to("cuda") for a in args]
+        kw = dict(inv_s2=30.0, inv_s3=25.0, inv_out=35.0, dilation=dil, pool=dil != 1)
+        got, ran = took(hq.fused_quantized_stage.convs_by_kernel,
+                        lambda: hq.fused_quantized_stage(*args, **kw))
+        want = hq.fused_quantized_stage_plain(*args, **kw)
+        check(ran == expect, f"int8 stage {cin} -> {cout}: kernels {ran}, expected {expect}")
+        general["fused_quantized_stage"].append(_case_int8(
+            torch, f"(2, 40, 52, {cin})->{cout} dilation {dil}", got, want,
+            lambda: hq.fused_quantized_stage(*args, **kw),
+            lambda: hq.fused_quantized_stage_plain(*args, **kw),
+            bound(stage_ops(2, 40, 52, cin, cout), "int8", nbytes(*args, want))))
+        general["fused_quantized_stage"][-1]["kernel"] = ran
         del got, want
 
     # the single int8 conv on the experiment's seeded inputs, batch 8 and 256
     for b in (IM2COL_BATCH, CHUNK):
         x, w, mult, bias = im2col_inputs(torch, b)
-        got = hq.quantized_conv3x3(x, w, mult, bias)
+        got, ran = took(hq.quantized_conv3x3.launches_by_kernel,
+                        lambda: hq.quantized_conv3x3(x, w, mult, bias))
         want = hq.quantized_conv3x3_plain(x, w, mult, bias)
+        check(ran == "mma_s8", f"the single int8 conv took {ran}")
         cases["quantized_conv3x3"].append(_case_int8(
             torch, f"{tuple(x.shape)}->{tuple(want.shape)}", got, want,
             lambda: hq.quantized_conv3x3(x, w, mult, bias),
@@ -333,6 +429,10 @@ def phase_kernels(torch, params) -> list[dict]:
             bound(2.0 * 9 * x.numel() * w.shape[-1], "int8",
                   nbytes(x, w, mult, bias, want)),
         ))
+        cases["quantized_conv3x3"][-1].update(
+            kernel=ran, previous_ms=time_ms(
+                torch, lambda: hq.quantized_conv3x3_on("dp4a", x, w, mult, bias),
+                PREVIOUS_REPS))
         del got, want
 
     # the attention kernel on the ViT's own views: q, k, v sliced from one
@@ -378,13 +478,13 @@ def phase_kernels(torch, params) -> list[dict]:
                     lambda: ha.fused_attention(q, k, v))
     want = ha.fused_attention_plain(q, k, v)
     check(ran == "fma", f"attention (5, 100, 72) took {ran}")
-    general["fused_attention"] = _case(
+    general["fused_attention"] = [_case(
         torch, "(5, 100, 72)", torch.bfloat16, got, want,
         lambda: ha.fused_attention(q, k, v),
         lambda: ha.fused_attention_plain(q, k, v),
         bound(4.0 * 5 * 100 ** 2 * 72, "bf16", nbytes(q, k, v, want)),
-        library_fn=lambda: F.scaled_dot_product_attention(q, k, v))
-    general["fused_attention"]["kernel"] = "fma"
+        library_fn=lambda: F.scaled_dot_product_attention(q, k, v))]
+    general["fused_attention"][0]["kernel"] = "fma"
     del got, want
 
     csrc = "pose_estimation_amitai_torch/csrc/"
@@ -432,7 +532,7 @@ def phase_kernels(torch, params) -> list[dict]:
             row.update(previous_ms=sum(c["previous_ms"] for c in served),
                        kernel=[c["kernel"] for c in served])
         if name in general:
-            row["general_case"] = general[name]
+            row["general_cases"] = general[name]
         rows.append(row)
     emit({"phase": "kernels", "batch": CHUNK, "tf32": False,
           "cases": {r["name"]: r["cases"] for r in rows}, "general_cases": general})
@@ -579,17 +679,20 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
     hd.fused_decoder.launches = 0
     hc.fused_encoder_stage.convs_by_kernel = dict.fromkeys(hc.CONV_KERNEL_CODES, 0)
     hd.fused_decoder.convs_by_kernel = dict.fromkeys(hd.fused_decoder.convs_by_kernel, 0)
+    hd.fused_decoder.up2_by_kernel = dict.fromkeys(hd.UP2_KERNEL_CODES, 0)
     answers, movie, t_req, t_movie = serve(fused, frames)
     launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
                 "fused_decoder": hd.fused_decoder.launches}
     convs = dict(hc.fused_encoder_stage.convs_by_kernel)
     decoder_convs = dict(hd.fused_decoder.convs_by_kernel)
+    decoder_up2 = dict(hd.fused_decoder.up2_by_kernel)
     # ---------------------------------------------------------------------
     chunks = sum(-(-r // CHUNK) for r in REQUESTS) + -(-n // CHUNK)
     check(convs == {"fma": 0, "mma": 8 * chunks, "mma_c4": chunks}
-          and decoder_convs == {"fma": 0, "mma": 2 * chunks},
-          f"the served convs took {convs}, the decoder's {decoder_convs}: "
-          "not all on the tensor cores")
+          and decoder_convs == {"fma": 0, "mma": 2 * chunks}
+          and decoder_up2 == {"fma": 0, "mma": 2 * chunks},
+          f"the served convs took {convs}, the decoder's {decoder_convs}, its "
+          f"stride-2 layers {decoder_up2}: not all on the tensor cores")
     check(launches["fused_encoder_stage"] == 3 * chunks
           and launches["fused_decoder"] == chunks,
           f"launch counts {launches}, expected {3 * chunks} and {chunks}")
@@ -629,6 +732,7 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
         "requests": list(REQUESTS), "chunk_size": CHUNK,
         "launches": launches, "encoder_convs_by_kernel": convs,
         "decoder_convs_by_kernel": decoder_convs,
+        "decoder_up2_by_kernel": decoder_up2,
         "fused_frames_per_s": n / t_req, "fused_movie_frames_per_s": n / t_movie,
         "module_frames_per_s": n / t_mod,
         "routes": routes,
@@ -682,12 +786,20 @@ def phase_int8(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
 
     # ---- the int8 path: counter zeroed just before, read just after ----
     hq.fused_quantized_stage.launches = 0
+    hq.fused_quantized_stage.convs_by_kernel = dict.fromkeys(hq.QCONV_KERNEL_CODES, 0)
+    packs = hq.pack_qconv_weights.launches
     answers, movie, t_req, t_movie = serve(fused, frames)
     launches = hq.fused_quantized_stage.launches
+    convs = dict(hq.fused_quantized_stage.convs_by_kernel)
     # ---------------------------------------------------------------------
     chunks = sum(-(-r // CHUNK) for r in REQUESTS) + -(-n // CHUNK)
     check(launches == 3 * chunks,
           f"fused_quantized_stage launched {launches} times, expected {3 * chunks}")
+    check(convs == {"dp4a": 0, "mma_s8": 8 * chunks, "mma_s8_c4": chunks},
+          f"the served int8 convs took {convs}: all belong on the tensor cores, "
+          "the 4-channel first conv on its own kernel")
+    check(hq.pack_qconv_weights.launches == packs,
+          "serving packed weights again: they are packed once, with the predictor")
     check_peaks(answers, movie, n, k)
 
     resident = predictor(False)
@@ -741,6 +853,7 @@ def phase_int8(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
         "requests": list(REQUESTS), "chunk_size": CHUNK,
         "calibration_frames": CALIB_FRAMES,
         "launches": {"fused_quantized_stage": launches},
+        "int8_convs_by_kernel": convs,
         "int8_fused_frames_per_s": n / t_req,
         "int8_fused_movie_frames_per_s": n / t_movie,
         "int8_resident_frames_per_s": n / t_res,

@@ -54,7 +54,7 @@ constexpr int MC = 64;            // output channels of a block
 constexpr int MKC = 16;           // input channels of a staged chunk
 constexpr int MSTAGES = 3;        // ring depth
 constexpr int MTHREADS = 256;     // 8 warps, two tile rows each
-constexpr int PIX_BYTES = 2 * MKC;           // a staged pixel: 32 bytes
+constexpr int PIX_BYTES = PATCH_PIX_BYTES;   // a staged pixel: 16 bf16
 constexpr int W_ROW_BYTES = 2 * MC;          // a staged weight row: 128 bytes
 constexpr int W_BYTES = 9 * MKC * W_ROW_BYTES;  // a chunk's weight slab
 constexpr int W_LD = MC + 8;      // bf16 a row of the packed conv's weights
@@ -169,8 +169,9 @@ __device__ __forceinline__ void mma_epilogue(
 // so that staging a chunk costs no division. Neither buffer is padded; 16-byte
 // pieces are swizzled instead, so that the 8 rows of every `ldmatrix` fall in
 // distinct banks: patch pixel p keeps its two 16-byte halves (channels 0-7,
-// 8-15) in slots p * 2 + (half ^ ((p >> 2) & 1)); weight row r = tap * 16 + ci
-// (128 bytes, 64 channels) keeps piece c in slot c ^ (r & 7).
+// 8-15) in slots p * 2 + (half ^ ((p >> 2) & 1)) (mma_tile.cuh: the patch is
+// staged as the decoder's and the int8 kernels stage theirs); weight row r =
+// tap * 16 + ci (128 bytes, 64 channels) keeps piece c in slot c ^ (r & 7).
 __global__ void __launch_bounds__(MTHREADS, 2)
 conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w,
@@ -194,27 +195,17 @@ conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x,
   const int ox0 = (tile % tiles_w) * MT;
   const int bi = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const __nv_bfloat16* xb = x + (size_t)bi * H * W * Cin;
+  const char* xb = reinterpret_cast<const char*>(x + (size_t)bi * H * W * Cin);
 
-  for (int p = threadIdx.x; p < npix; p += MTHREADS) {
-    const int pr = p / PW, pc = p - pr * PW;
-    const int iy = oy0 - dil + pr, ix = ox0 - dil + pc;
-    pix_of[p] = (iy >= 0 && iy < H && ix >= 0 && ix < W) ? iy * W + ix : -1;
-  }
+  fill_patch_table(pix_of, PW, PW, oy0 - dil, ox0 - dil, H, W);
   __syncthreads();
 
   // chunk c (input channels 16 c ..) -> stage st of the ring
   auto load_chunk = [&](int c, int st) {
     const uint32_t sp = ring + st * stage_bytes;
     const uint32_t sw = sp + patch_bytes;
-    const __nv_bfloat16* xc = xb + c * MKC;
-    for (int i = threadIdx.x; i < npix * 2; i += MTHREADS) {
-      const int p = i >> 1, half = i & 1;
-      const int src = pix_of[p];
-      cp_async16(sp + p * PIX_BYTES + ((half ^ ((p >> 2) & 1)) << 4),
-                 src >= 0 ? xc + (size_t)src * Cin + half * 8 : xb,
-                 src >= 0 ? 16 : 0);
-    }
+    stage_patch(sp, pix_of, npix, xb + c * PIX_BYTES,
+                (size_t)Cin * sizeof(__nv_bfloat16));
     const __nv_bfloat16* wc = w + (size_t)c * MKC * Cout + co0;
     for (int i = threadIdx.x; i < 9 * MKC * 8; i += MTHREADS) {
       const int r = i >> 3, piece = i & 7;  // r = tap * 16 + ci
@@ -262,9 +253,8 @@ conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll 1
       for (int kx = 0; kx < 3; ++kx) {
         uint32_t a[2][4];
-        const int p1 = p0 + PW;
-        ldmatrix_x4(a[0], sp + p0 * PIX_BYTES + ((a_half ^ ((p0 >> 2) & 1)) << 4));
-        ldmatrix_x4(a[1], sp + p1 * PIX_BYTES + ((a_half ^ ((p1 >> 2) & 1)) << 4));
+        ldmatrix_x4(a[0], sp + patch_offset(p0, a_half));
+        ldmatrix_x4(a[1], sp + patch_offset(p0 + PW, a_half));
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t b[4];

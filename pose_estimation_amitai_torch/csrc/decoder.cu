@@ -17,18 +17,24 @@
 //   y[2j] = x[j] . W[1],   y[2j+1] = x[j] . W[0] + x[j+1] . W[2]
 // (x beyond the edge is zero), so one input position (j, l) and its three
 // right/lower neighbours give the four output phases y[2j+a, 2l+c] using
-// each of the 9 taps once: that is up2_kernel. Each thread owns one input
-// position and writes its 2x2 output quad straight into the interleaved
-// (B, 2R, 2W, Cout) map, so no separate permute pass exists.
+// each of the 9 taps once. Both up2 kernels write the 2x2 output quads
+// straight into the interleaved (B, 2R, 2W, Cout) map, so no separate
+// permute pass exists. In bf16 with Cin a multiple of 16 the layer runs
+// up2_mma_kernel (deconv_mma.cuh: four phase GEMMs on the tensor cores that
+// share their A fragments); in float32, where TF32 would break the 1e-4
+// limit, and for every other Cin, up2_kernel below (f32 FMAs on the CUDA
+// cores, one input position and 8 channels a thread). The wrapper names the
+// kernel of each layer; nothing here falls from one to the other.
 //
 // What bounds it on this card. At the flagship shape ((B, 48, 48, 256) ->
 // (B, 192, 192, 18), mid 128) a frame costs 1.4 + 2.7 + 2.7 + 0.4 GFLOP
 // against about 21 MB of bf16 activations moved by the four launches (each
 // 96 x 96 x 128 intermediate written once, read twice as conv input and
-// skip): some 340 FLOP per byte, compute bound for this kernel's f32 FMA on
-// the CUDA cores. The head wastes lanes: K = 18 fills 3 of the 8 channel
-// groups of a 64-channel tile, so it costs as if K were 64 (about 1.4
-// instead of 0.4 GFLOP of issued FMAs).
+// skip): some 340 FLOP per byte over the whole decoder, so on the tensor
+// cores layers 1 to 3 are bound by their rate and the head (104 operations a
+// byte) by memory; on the CUDA cores (float32) every layer is bound by
+// operations, and up2_kernel's head issues as if K were 64 (K = 18 fills 3
+// of its 8 channel groups).
 //
 // What the design does about it. The TPU kernel keeps all intermediates of
 // a frame in VMEM; at 96 x 96 x 128 they do not fit an SM's 227 KB, so here
@@ -38,7 +44,10 @@
 // Mosaic limits (cin a multiple of 128 up to 256, mid <= 128, K padded to
 // 32) do not carry over.
 
+#include <type_traits>
+
 #include "conv_mma.cuh"
+#include "deconv_mma.cuh"
 
 namespace {
 
@@ -142,19 +151,34 @@ cudaError_t launch_up2(const T* x, const T* w, const float* b, T* out, int B,
   return cudaGetLastError();
 }
 
+// One stride-2 layer by the kernel the caller names: kind 0 = up2_kernel
+// (any dtype and shape), 1 = up2_mma_kernel (bf16, Cin a multiple of 16).
+template <typename T>
+cudaError_t launch_up2_kind(const T* x, const T* w, const float* b, T* out,
+                            int B, int R, int Wd, int Cin, int Cout,
+                            float alpha, int kind, cudaStream_t s) {
+  if (kind == 0) return launch_up2<T>(x, w, b, out, B, R, Wd, Cin, Cout, alpha, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (kind == 1)
+      return pe::launch_up2_mma(x, w, b, out, B, R, Wd, Cin, Cout, alpha, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 int decoder(const void* x, const void* w1, const void* b1, const void* w2,
             const void* b2, const void* w3, const void* b3, const void* w4,
             const void* b4, void* ws1, void* ws2, void* out, int B, int R,
             int Wd, int Cin, int Mid, int K, float alpha, int conv_kind,
-            cudaStream_t s) {
+            int up2_kind1, int up2_kind4, cudaStream_t s) {
   T* t1 = static_cast<T*>(ws1);
   T* t2 = static_cast<T*>(ws2);
   T* t3 = t1;  // t1 is dead once t2 exists
   const int R2 = 2 * R, W2 = 2 * Wd;
-  cudaError_t e = launch_up2<T>(
+  cudaError_t e = launch_up2_kind<T>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const float*>(b1), t1, B, R, Wd, Cin, Mid, alpha, s);
+      static_cast<const float*>(b1), t1, B, R, Wd, Cin, Mid, alpha, up2_kind1,
+      s);
   if (e != cudaSuccess) return (int)e;
   e = pe::launch_conv3x3_kind<T>(t1, static_cast<const T*>(w2),
                                  static_cast<const float*>(b2), t1, t2, B, R2,
@@ -164,9 +188,9 @@ int decoder(const void* x, const void* w1, const void* b1, const void* w2,
                                  static_cast<const float*>(b3), t2, t3, B, R2,
                                  W2, Mid, Mid, 1, alpha, 0, conv_kind, s);
   if (e != cudaSuccess) return (int)e;
-  e = launch_up2<T>(t3, static_cast<const T*>(w4),
-                    static_cast<const float*>(b4), static_cast<T*>(out), B,
-                    R2, W2, Mid, K, alpha, s);
+  e = launch_up2_kind<T>(t3, static_cast<const T*>(w4),
+                         static_cast<const float*>(b4), static_cast<T*>(out),
+                         B, R2, W2, Mid, K, alpha, up2_kind4, s);
   return (int)e;
 }
 
@@ -175,7 +199,9 @@ int decoder(const void* x, const void* w1, const void* b1, const void* w2,
 // dtype: 0 = float32, 1 = bfloat16 (latent, weights, workspace and out;
 // biases are always float32). ws1, ws2: (B, 2R, 2Wd, Mid) each. conv_kind:
 // the kernel of the two stride-1 convs, 0 = conv3x3_kernel, 1 =
-// conv3x3_mma_kernel (bf16, Mid a multiple of 16). Returns the first nonzero
+// conv3x3_mma_kernel (bf16, Mid a multiple of 16). up2_kind1, up2_kind4: the
+// kernel of the two stride-2 layers, 0 = up2_kernel, 1 = up2_mma_kernel (bf16,
+// the layer's input channels a multiple of 16). Returns the first nonzero
 // cudaGetLastError().
 extern "C" int pe_fused_decoder(int dtype, const void* x, const void* w1,
                                 const void* b1, const void* w2,
@@ -184,14 +210,20 @@ extern "C" int pe_fused_decoder(int dtype, const void* x, const void* w1,
                                 const void* b4, void* ws1, void* ws2,
                                 void* out, int B, int R, int Wd, int Cin,
                                 int Mid, int K, float alpha, int conv_kind,
-                                void* stream) {
+                                int up2_kind1, int up2_kind4, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return decoder<float>(x, w1, b1, w2, b2, w3, b3, w4, b4, ws1, ws2, out, B,
-                          R, Wd, Cin, Mid, K, alpha, conv_kind, s);
+                          R, Wd, Cin, Mid, K, alpha, conv_kind, up2_kind1,
+                          up2_kind4, s);
   if (dtype == 1)
     return decoder<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, w4, b4, ws1, ws2,
                                   out, B, R, Wd, Cin, Mid, K, alpha, conv_kind,
-                                  s);
+                                  up2_kind1, up2_kind4, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory a block of up2_mma_kernel is launched with.
+extern "C" long long pe_up2_mma_smem_bytes() {
+  return (long long)pe::up2_mma_smem_bytes();
 }

@@ -1,8 +1,10 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// bf16 kernels (attention.cu, conv_mma.cuh): 16-byte and 8-byte `cp.async`
-// with zero fill, bulk asynchronous copies that report to an `mbarrier`,
-// `ldmatrix` (plain and transposed) and the bf16 `mma.sync.m16n8k16` with
-// f32 accumulation.
+// tensor-core kernels (attention.cu, conv_mma.cuh, deconv_mma.cuh,
+// qconv_stage.cu): 16-, 8- and 4-byte `cp.async` with zero fill, bulk
+// asynchronous copies that report to an `mbarrier`, `ldmatrix` (plain and
+// transposed), the bf16 `mma.sync.m16n8k16` with f32 accumulation, the int8
+// `mma.sync.m16n8k32` with int32 accumulation, and the swizzled input patch
+// of 32-byte pixels that the convolution kernels stage.
 //
 // Fragment layout of m16n8k16 (lane = 4 * gid + tig, gid 0..7, tig 0..3):
 //   A (16 x 16, row major)  a0 (gid, 2tig..+1)   a1 (gid+8, 2tig..+1)
@@ -12,6 +14,14 @@
 // `ldmatrix.x4` reads four 8 x 8 b16 matrices; lane i gives the address of
 // row i % 8 of matrix i / 8, and register j of a lane holds matrix j's
 // element (lane / 4, 2 (lane % 4) ..+1), or its transpose with `.trans`.
+//
+// Fragment layout of the int8 m16n8k32 (same lanes):
+//   A (16 x 32, row major)  a0 (gid, 4tig..+3)      a1 (gid+8, 4tig..+3)
+//                           a2 (gid, 16+4tig..+3)   a3 (gid+8, 16+4tig..+3)
+//   B (32 x 8, "col")       b0 (k 4tig..+3, n gid)  b1 (k 16+4tig..+3, n gid)
+//   C (16 x 8, int32)       as for bf16
+// A row of 32 int8 is 32 bytes, as a row of 16 bf16 is: `ldmatrix.x4` on the
+// same addresses yields the int8 A fragment (a b16 pair is four int8).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,6 +48,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The same for 4 bytes (`bytes` 0 or 4).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -132,6 +150,56 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b: int8 x int8 products summed in int32 on the tensor cores.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- a staged input patch of 32-byte pixels (16 bf16 or 32 int8 channels
+// of a chunk), unpadded: pixel p keeps its two 16-byte halves in slots
+// p * 2 + (half ^ ((p >> 2) & 1)), so that the 8 rows of an `ldmatrix` on
+// consecutive pixels fall in distinct banks ----
+
+constexpr int PATCH_PIX_BYTES = 32;
+
+// byte offset of `half` (0, 1) of patch pixel p
+__device__ __forceinline__ uint32_t patch_offset(int p, int half) {
+  return p * PATCH_PIX_BYTES + ((half ^ ((p >> 2) & 1)) << 4);
+}
+
+// pix_of[p] = the image pixel index (row * W + col) of patch pixel p of a
+// PH x PW patch whose first pixel is image pixel (y0, x0), or -1 outside
+// the H x W image. Every thread of the block calls it; follow with a block
+// barrier.
+__device__ __forceinline__ void fill_patch_table(int* pix_of, int PH, int PW,
+                                                 int y0, int x0, int H, int W) {
+  for (int p = threadIdx.x; p < PH * PW; p += blockDim.x) {
+    const int pr = p / PW, pc = p - pr * PW;
+    const int iy = y0 + pr, ix = x0 + pc;
+    pix_of[p] = (iy >= 0 && iy < H && ix >= 0 && ix < W) ? iy * W + ix : -1;
+  }
+}
+
+// One chunk's patch -> shared memory at `sp` by 16-byte `cp.async`, zeros
+// outside the image. `chunk` points at the chunk's 32 bytes of image pixel 0
+// (16-byte aligned); `pix_stride` is the bytes from a pixel to the next.
+__device__ __forceinline__ void stage_patch(uint32_t sp, const int* pix_of,
+                                            int npix, const char* chunk,
+                                            size_t pix_stride) {
+  for (int i = threadIdx.x; i < npix * 2; i += blockDim.x) {
+    const int p = i >> 1, half = i & 1;
+    const int src = pix_of[p];
+    cp_async16(sp + patch_offset(p, half),
+               src >= 0 ? chunk + (size_t)src * pix_stride + half * 16 : chunk,
+               src >= 0 ? 16 : 0);
+  }
 }
 
 // Two floats rounded to nearest even, `lo` in the low half of the word.

@@ -33,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.hopper_conv import lrelu
-from ..ops.hopper_qconv import dequant, fused_quantized_stage, quant_bf16
+from ..ops.hopper_qconv import (
+    dequant, fused_quantized_stage, pack_qconv_weights, quant_bf16,
+)
 from ..ops.int8_conv import conv_s32, deconv_s1_s32, deconv_s2_s32, max_pool_2x2
 from .layers import TORCH_ALPHA
 
@@ -156,23 +158,28 @@ def quantize_params(params: Mapping, act_scales: Mapping[str, float]) -> dict:
 
 def device_layers(params, act_scales, device) -> tuple[dict, dict]:
     """``quantize_params`` as contiguous tensors on ``device`` (``w_q``,
-    ``mult``, ``bias`` per layer), and each layer's input scale ``s_x`` as a
-    Python float."""
+    ``mult``, ``bias`` per layer; for the encoder's convs also ``w_packed``,
+    the weights as the int8 conv kernels read them, packed here once), and
+    each layer's input scale ``s_x`` as a Python float."""
     q = quantize_params(params, act_scales)
     layers = {
         n: {k: torch.as_tensor(v, device=device).contiguous()
             for k, v in layer.items() if k != "s_x"}
         for n, layer in q.items()
     }
+    for n, layer in layers.items():
+        if n.startswith("conv"):
+            layer["w_packed"] = pack_qconv_weights(layer["w_q"])
     return layers, {n: q[n]["s_x"] for n in q}
 
 
 def stage_args(layers: dict, s: int) -> list[torch.Tensor]:
     """``w1, m1, b1, w2, m2, b2, w3, m3, b3`` of encoder stage ``s`` (0-2),
-    as ``fused_quantized_stage`` takes them, from :func:`device_layers`."""
+    as ``fused_quantized_stage`` takes them, the weights packed, from
+    :func:`device_layers`."""
     args = []
     for n in _stage_names(s)[:3]:
-        args += [layers[n]["w_q"], layers[n]["mult"], layers[n]["bias"]]
+        args += [layers[n]["w_packed"], layers[n]["mult"], layers[n]["bias"]]
     return args
 
 

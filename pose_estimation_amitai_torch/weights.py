@@ -29,6 +29,7 @@ flax-layout trees with numpy.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
@@ -41,16 +42,17 @@ _EXT_NPSCALAR = 3
 
 def conv_kernel_to_torch(k_hwio: Any) -> torch.Tensor:
     """flax Conv kernel (kh, kw, I, O) -> torch Conv2d weight (O, I, kh, kw)."""
-    return torch.from_numpy(np.ascontiguousarray(
-        np.transpose(np.asarray(k_hwio, np.float32), (3, 2, 0, 1))
-    ))
+    k = np.asarray(k_hwio, np.float32)
+    return torch.from_numpy(np.transpose(k, (3, 2, 0, 1)).copy())
 
 
 def deconv_kernel_to_torch(k_hwio: Any) -> torch.Tensor:
     """flax ConvTranspose kernel (kh, kw, I, O) -> torch ConvTranspose2d
     weight (I, O, kh, kw), flipped in space."""
     k = np.asarray(k_hwio, np.float32)[::-1, ::-1]
-    return torch.from_numpy(np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1))))
+    # copy(): a flipped axis of length 1 keeps its negative stride through
+    # ascontiguousarray, and torch.from_numpy refuses negative strides
+    return torch.from_numpy(np.transpose(k, (2, 3, 0, 1)).copy())
 
 
 def _bias(b: Any) -> torch.Tensor:
@@ -258,11 +260,20 @@ def load_flax_checkpoint(path: str) -> tuple[dict, dict]:
     """``(params, batch_stats)`` from a file ``train/checkpoint.py`` wrote:
     a weights-only snapshot (``save_params``) or a full training-state
     payload (``save_checkpoint``: step, params, opt_state, batch_stats,
-    rng). ``batch_stats`` is ``{}`` where there are none. Leaves are numpy
-    arrays; nothing of jax is imported. (Snapshots of imported reference
-    checkpoints are ROADMAP Queue A item 13.)"""
+    rng). ``path`` may be a run directory, as the JAX ``load_variables``
+    takes one: its ``best_model.msgpack`` is read if there, else its
+    ``checkpoint.msgpack``. ``batch_stats`` is ``{}`` where there are none.
+    Leaves are numpy arrays; nothing of jax is imported. (Snapshots of
+    imported reference checkpoints are ROADMAP Queue A item 13.)"""
     import msgpack
 
+    if os.path.isdir(path):
+        names = ("best_model.msgpack", "checkpoint.msgpack")
+        found = [n for n in names if os.path.isfile(os.path.join(path, n))]
+        if not found:
+            raise FileNotFoundError(
+                f"{path}: neither {names[0]} nor {names[1]} in this run directory")
+        path = os.path.join(path, found[0])
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     batch_stats: dict = {}

@@ -512,6 +512,9 @@ def test_shared_memory_figures_are_the_kernels_own(cuda):
             assert hc.conv_mma_smem_bytes(dil, packed) == hc.conv_mma_smem_bytes_built(dil, packed)
     for n, d in [(144, 256), (129, 256), (1, 16), (100, 80), (144, 272)]:
         assert ha.attention_mma_smem_bytes(n, d) == ha.attention_mma_smem_bytes_built(n, d)
+    assert hd.up2_mma_smem_bytes() == hd.up2_mma_smem_bytes_built()
+    for dil in range(1, hc.MAX_DILATION + 1):
+        assert hq.qconv_mma_smem_bytes(dil) == hq.qconv_mma_smem_bytes_built(dil)
 
 
 def test_named_kernel_runs_and_a_wrong_name_is_refused(cuda):
@@ -533,3 +536,184 @@ def test_named_kernel_runs_and_a_wrong_name_is_refused(cuda):
     _close(got, ha.fused_attention_plain(q, k, v), torch.bfloat16)
     with pytest.raises(ValueError, match="does not take"):
         ha.fused_attention_on("mma", q.float(), k.float(), v.float())
+
+
+# ---------------------------------------------------------------------------
+# the stride-2 tensor-core kernel of the decoder, the int8 tensor-core conv
+# ---------------------------------------------------------------------------
+def _decoder_args(gen, b, r, w, cin, mid, k, dtype=torch.bfloat16):
+    args = [_rand(gen, b, r, w, cin).abs().to(dtype)]
+    for ci, co in ((cin, mid), (mid, mid), (mid, mid), (mid, k)):
+        args += [_rand(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(dtype),
+                 _rand(gen, co, scale=0.05)]
+    return args
+
+
+@pytest.mark.parametrize("b, r, w, cin, mid, k", [
+    (2, 13, 10, 48, 24, 5),     # ragged tiles; the head (Cin 24) stays on the CUDA cores
+    (2, 13, 10, 48, 32, 5),     # K = 5: odd, staged and stored by element
+    (2, 13, 10, 9, 24, 5),      # both layers on the CUDA cores
+    (1, 12, 12, 256, 128, 18),  # the flagship widths: four channel tiles, then K = 18
+    (2, 5, 7, 32, 48, 70),      # K = 70: three channel tiles, the last of 6, by element
+    (3, 17, 33, 32, 64, 18),    # three column tiles, the last one pixel wide
+    (2, 20, 20, 64, 80, 40),    # channel tiles of 32, 32, 16 and 32, 8
+    (1, 8, 16, 16, 16, 8),      # exactly one tile
+    (2, 9, 18, 16, 32, 6),      # K = 6 with 2 W K = 216: whole rows by 16 bytes
+    (2, 9, 17, 16, 32, 6),      # ... and with rows off the 16 bytes: by element
+])
+def test_decoder_stride2_kernels_match_plain(cuda, b, r, w, cin, mid, k):
+    gen = torch.Generator(device="cuda").manual_seed(cin * mid + k + w)
+    args = _decoder_args(gen, b, r, w, cin, mid, k)
+    got, took = _took(hd.fused_decoder.up2_by_kernel, lambda: hd.fused_decoder(*args))
+    want = tuple(sorted([hd.up2_kernel_for(torch.bfloat16, cin, mid),
+                         hd.up2_kernel_for(torch.bfloat16, mid, k)]))
+    assert took == want
+    assert got.shape == (b, 4 * r, 4 * w, k)
+    _close(got, hd.fused_decoder_plain(*args), torch.bfloat16)
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    got, took = _took(hd.fused_decoder.up2_by_kernel, lambda: hd.fused_decoder(*f32))
+    assert took == ("fma", "fma")
+    _close(got, hd.fused_decoder_plain(*f32), torch.float32)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_decoder_bf16_error_holds_over_seeds(cuda, seed):
+    """The served decoder widths (256 -> 128 -> 18, a 48 x 48 latent) stay
+    within the bf16 limit on other draws of weights and inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args = _decoder_args(gen, 2, 48, 48, 256, 128, 18)
+    got, took = _took(hd.fused_decoder.up2_by_kernel, lambda: hd.fused_decoder(*args))
+    assert took == ("mma", "mma")
+    _close(got, hd.fused_decoder_plain(*args), torch.bfloat16)
+
+
+def test_decoder_named_kernels_run_and_a_wrong_name_is_refused(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args = _decoder_args(gen, 2, 12, 12, 64, 32, 18)
+    want = hd.fused_decoder_plain(*args)
+    for up2 in (("fma", "fma"), ("mma", "fma"), ("fma", "mma"), ("mma", "mma")):
+        got, took = _took(hd.fused_decoder.up2_by_kernel,
+                          lambda: hd.fused_decoder_on("mma", up2, *args))
+        assert took == tuple(sorted(up2))
+        _close(got, want, torch.bfloat16)
+    f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]
+    with pytest.raises(ValueError, match="does not take"):
+        hd.fused_decoder_on("fma", ("mma", "fma"), *f32)
+
+
+def _qstage_args(rng, b, h, w, cin, cout):
+    args = [_int8(rng, b, h, w, cin)]
+    for c in (cin, cout, cout):
+        args += _dequant_args(rng, c, cout)
+    return args, [float(v) for v in rng.uniform(20, 40, 3)]
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout, dil, pool, kernels", [
+    (2, 40, 52, 32, 40, 1, True, ("dp4a", "dp4a", "mma_s8")),   # ragged tiles
+    (2, 40, 52, 32, 40, 3, False, ("dp4a", "dp4a", "mma_s8")),
+    (2, 40, 52, 32, 96, 3, True, ("mma_s8",) * 3),    # the last channel tile half full
+    (2, 20, 36, 64, 64, 2, True, ("mma_s8",) * 3),
+    (1, 13, 17, 32, 8, 1, False, ("dp4a", "dp4a", "mma_s8")),   # one n8 tile of eight
+    (3, 24, 24, 64, 136, 8, True, ("dp4a", "dp4a", "mma_s8")),  # the widest halo
+    (1, 96, 96, 64, 128, 2, True, ("mma_s8",) * 3),   # flagship stages 2 and 3
+    (1, 48, 48, 128, 256, 2, False, ("mma_s8",) * 3),
+    (2, 20, 36, 4, 32, 2, True, ("mma_s8_c4", "mma_s8", "mma_s8")),  # as flagship stage 1
+    (1, 30, 21, 4, 72, 8, False, ("mma_s8_c4", "dp4a", "dp4a")),  # ragged, the widest halo
+])
+def test_quantized_stage_tensor_core_kernel_equals_plain(cuda, b, h, w, cin, cout, dil,
+                                                         pool, kernels):
+    rng = np.random.default_rng(cin * cout + dil + h)
+    args, invs = _qstage_args(rng, b, h, w, cin, cout)
+    got, took = _took(hq.fused_quantized_stage.convs_by_kernel,
+                      lambda: hq.fused_quantized_stage(*args, *invs, dilation=dil, pool=pool))
+    torch.cuda.synchronize()
+    assert took == tuple(sorted(kernels))
+    want = hq.fused_quantized_stage_plain(*args, *invs, dilation=dil, pool=pool)
+    assert 5 < want.float().abs().mean() < 64  # the int8 range is used, unsaturated
+    assert torch.equal(got, want)
+    # the CUDA-core kernel on the same tensors, named; packed weights handed over
+    packed = [args[0]] + [hq.pack_qconv_weights(a) if a.dtype == torch.int8 else a
+                          for a in args[1:]]
+    old = hq.fused_quantized_stage_on(("dp4a",) * 3, *packed, *invs, dilation=dil, pool=pool)
+    assert torch.equal(old, want)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4])
+def test_quantized_stage_equals_plain_over_seeds(cuda, seed):
+    """The deepest flagship stage (128 -> 256 -> 256) on other draws."""
+    rng = np.random.default_rng(seed)
+    args, invs = _qstage_args(rng, 2, 48, 48, 128, 256)
+    got = hq.fused_quantized_stage(*args, *invs, dilation=2, pool=False)
+    assert torch.equal(got, hq.fused_quantized_stage_plain(*args, *invs, dilation=2, pool=False))
+
+
+@pytest.mark.parametrize("b, h, w, cin, cout, dil, kernel", [
+    (2, 24, 40, 64, 64, 2, "mma_s8"),
+    (1, 11, 33, 160, 72, 8, "mma_s8"),
+    (1, 17, 19, 32, 8, 1, "mma_s8"),
+    (2, 16, 16, 12, 70, 3, "dp4a"),
+    (2, 19, 40, 4, 64, 2, "mma_s8_c4"),
+    (1, 16, 16, 4, 8, 1, "mma_s8_c4"),
+])
+def test_quantized_conv3x3_takes_the_kernel_the_rule_names(cuda, b, h, w, cin, cout, dil,
+                                                           kernel):
+    rng = np.random.default_rng(h + cin)
+    mult = torch.from_numpy((rng.uniform(5e-4, 2e-3, cout) * 64 / cin).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.uniform(-0.1, 0.1, cout).astype(np.float32)).cuda()
+    x, wq = _int8(rng, b, h, w, cin, lim=80), _int8(rng, 3, 3, cin, cout, lim=90)
+    assert hq.qconv_kernel_for(cin, cout, dil) == kernel
+    got, took = _took(hq.quantized_conv3x3.launches_by_kernel,
+                      lambda: hq.quantized_conv3x3(x, wq, mult, bias, dilation=dil))
+    assert took == (kernel,)
+    want = hq.quantized_conv3x3_plain(x, wq, mult, bias, dilation=dil)
+    assert torch.equal(got, want)
+    assert torch.equal(
+        hq.quantized_conv3x3_on("dp4a", x, hq.pack_qconv_weights(wq), mult, bias,
+                                dilation=dil), want)
+    if kernel == "dp4a":
+        with pytest.raises(ValueError, match="does not take"):
+            hq.quantized_conv3x3_on("mma_s8", x, wq, mult, bias, dilation=dil)
+        with pytest.raises(ValueError, match="does not take"):
+            hq.quantized_conv3x3_on("mma_s8_c4", x, wq, mult, bias, dilation=dil)
+
+
+@pytest.mark.parametrize("cin, cout", [(4, 64), (9, 7), (64, 64), (130, 24)])
+def test_pack_qconv_weights_kernel_equals_plain(cuda, cin, cout):
+    w = _int8(np.random.default_rng(cin), 3, 3, cin, cout, lim=127)
+    before = hq.pack_qconv_weights.launches
+    got = hq.pack_qconv_weights(w)
+    assert hq.pack_qconv_weights.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == hq.packed_shape(cin, cout)
+    assert torch.equal(got, hq.pack_qconv_weights_plain(w))
+    assert torch.equal(got.cpu(), hq.pack_qconv_weights(w.cpu()))
+    with pytest.raises(ValueError, match="shape"):
+        hq.fused_quantized_stage(_int8(np.random.default_rng(0), 1, 8, 8, cin + 4),
+                                 got, *([torch.zeros(cout, device="cuda")] * 2),
+                                 *([got, torch.zeros(cout, device="cuda"),
+                                    torch.zeros(cout, device="cuda")] * 2), 1.0, 1.0, 1.0)
+
+
+def test_encoder_stage_times_at_the_served_chunk(cuda, capsys):
+    """The three flagship stages in bf16 at batch 256, timed and printed (run
+    with -s to read them): the tensor-core conv kernel shares its headers
+    with the decoder's and the int8 kernels, and its times must not move
+    with theirs. The bound is loose: a card below its full power limit is
+    slower, the CUDA-core kernel took ten times as long."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = []
+    for h, cin, cout, pool in ((192, 4, 64, True), (96, 64, 128, True), (48, 128, 256, False)):
+        args = _stage_args(gen, 256, h, h, cin, cout, torch.bfloat16)
+        hc.fused_encoder_stage(*args, dilation=2, pool=pool)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(5):
+            hc.fused_encoder_stage(*args, dilation=2, pool=pool)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 5)
+        del args
+    with capsys.disabled():
+        print(f"\nfused_encoder_stage bf16 batch 256, ms a stage: "
+              f"{times[0]:.3f} / {times[1]:.3f} / {times[2]:.3f} on "
+              f"{torch.cuda.get_device_name(0)}")
+    assert all(t < 12.0 for t in times), times

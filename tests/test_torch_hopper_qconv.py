@@ -197,3 +197,98 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         hq.fused_quantized_stage(x, w, v, v, w, v, v, w, v, v, 1.0, 1.0, 1.0)
     with pytest.raises(ValueError, match="CUDA"):
         hq.quantized_conv3x3(x, w, v, v)
+
+
+@pytest.mark.parametrize("cin, cout, dilation, kernel", [
+    (64, 64, 2, "mma_s8"),     # the served convs, and the single conv
+    (64, 128, 2, "mma_s8"),
+    (128, 128, 2, "mma_s8"),
+    (128, 256, 2, "mma_s8"),
+    (256, 256, 2, "mma_s8"),
+    (32, 8, 1, "mma_s8"),
+    (160, 72, 8, "mma_s8"),    # the widest halo the wrappers take
+    (4, 64, 2, "mma_s8_c4"),   # the encoder's first conv
+    (4, 8, 8, "mma_s8_c4"),
+    (4, 70, 2, "dp4a"),        # 4 channels in, Cout off the multiples of 8
+    (8, 64, 2, "dp4a"),
+    (9, 70, 2, "dp4a"),
+    (40, 40, 1, "dp4a"),       # Cin off the 32-channel chunks
+    (64, 70, 2, "dp4a"),       # Cout off the multiples of 8
+    (64, 4, 2, "dp4a"),
+    (64, 64, 13, "dp4a"),      # the ring would not fit an SM's shared memory
+])
+def test_qconv_kernel_for(cin, cout, dilation, kernel):
+    assert hq.qconv_kernel_for(cin, cout, dilation) == kernel
+
+
+def test_qconv_mma_shared_memory():
+    """Three stages of the halo'd patch (32 bytes a pixel) and 72 weight rows
+    of 72 words, and the patch table; two blocks fit an SM at the served
+    dilation, one at the widest."""
+    for dil in range(1, 9):
+        side = 16 + 2 * dil
+        want = 3 * (32 * side * side + 72 * 72 * 4) + 4 * side * side
+        assert hq.qconv_mma_smem_bytes(dil) == want
+    assert 2 * hq.qconv_mma_smem_bytes(2) <= hq.SMEM_MAX
+    assert hq.qconv_mma_smem_bytes(8) <= hq.SMEM_MAX < hq.qconv_mma_smem_bytes(13)
+
+
+@pytest.mark.parametrize("cin", [4, 9, 32, 64])
+def test_pack_qconv_weights_plain_matches_a_loop(cin):
+    cout = 7
+    rng = np.random.default_rng(cin)
+    w = rng.integers(-128, 128, (3, 3, cin, cout)).astype(np.int8)
+    words = -(-cin // 4)
+    want = np.zeros((9, words, cout), np.uint32)
+    flat = w.reshape(9, cin, cout)
+    for tap in range(9):
+        for ci in range(cin):
+            want[tap, ci // 4] |= (flat[tap, ci].astype(np.uint8).astype(np.uint32)
+                                   << np.uint32(8 * (ci % 4)))
+    tw = torch.from_numpy(w)
+    got = hq.pack_qconv_weights_plain(tw)
+    assert got.dtype == torch.int32 and tuple(got.shape) == hq.packed_shape(cin, cout)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    assert torch.equal(hq.pack_qconv_weights(tw), got)  # CPU -> plain
+    assert torch.equal(hq.unpack_qconv_weights_plain(got, cin), tw)
+
+
+@pytest.mark.parametrize("cin, cout, dilation", [(4, 8, 2), (32, 16, 1), (9, 7, 3)])
+def test_wrappers_take_packed_weights(cin, cout, dilation):
+    """Packed once or handed over as HWIO int8: the same outputs."""
+    rng = np.random.default_rng(cin + cout)
+    x, layers, invs = _stage_inputs(rng, 2, 12, 14, cin, cout)
+    args = [torch.from_numpy(a) for a in layers]
+    packed = [hq.pack_qconv_weights(a) if a.dtype == torch.int8 else a for a in args]
+    tx = torch.from_numpy(x)
+    want = hq.fused_quantized_stage(tx, *args, *invs, dilation=dilation)
+    got = hq.fused_quantized_stage(tx, *packed, *invs, dilation=dilation)
+    assert torch.equal(got, want)
+    assert torch.equal(hq.quantized_conv3x3(tx, *packed[:3], dilation=dilation),
+                       hq.quantized_conv3x3(tx, *args[:3], dilation=dilation))
+
+
+def test_on_functions_refuse_a_kernel_the_rule_does_not_allow():
+    """Checked from the shapes before any CUDA call, so also here."""
+    rng = np.random.default_rng(0)
+    x, layers, invs = _stage_inputs(rng, 1, 8, 8, 4, 32)
+    args = [torch.from_numpy(a) for a in layers]
+    tx = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="'mma_s8' does not take 4 -> 32"):
+        hq.fused_quantized_stage_on(("mma_s8",) * 3, tx, *args, *invs)
+    with pytest.raises(ValueError, match="'mma_s8_c4' does not take 32 -> 32"):
+        hq.fused_quantized_stage_on(("mma_s8_c4",) * 3, tx, *args, *invs)
+    with pytest.raises(ValueError, match="'imma' does not take"):
+        hq.fused_quantized_stage_on(("dp4a", "imma", "dp4a"), tx, *args, *invs)
+    with pytest.raises(ValueError, match="'mma_s8' does not take 4 -> 32"):
+        hq.quantized_conv3x3_on("mma_s8", tx, *args[:3])
+    with pytest.raises(ValueError, match="dilation 13"):
+        hq.quantized_conv3x3_on("mma_s8", torch.zeros((1, 8, 8, 32), dtype=torch.int8),
+                                *args[3:6], dilation=13)
+    # the names the rule gives pass that check and reach the device check
+    with pytest.raises(ValueError, match="CUDA"):
+        hq.fused_quantized_stage_on(("mma_s8_c4", "mma_s8", "dp4a"), tx, *args, *invs)
+    with pytest.raises(ValueError, match="CUDA"):
+        hq.quantized_conv3x3_on("dp4a", tx, *args[:3])
+    assert set(hq.fused_quantized_stage.convs_by_kernel) == set(hq.QCONV_KERNEL_CODES)
+    assert set(hq.quantized_conv3x3.launches_by_kernel) == {"dp4a", "mma_s8", "mma_s8_c4"}

@@ -143,6 +143,46 @@ def test_load_flax_checkpoint_round_trip(tmp_path, setup, kind):
     np.testing.assert_array_equal(pred(frames), ref(frames))
 
 
+@pytest.mark.parametrize("files, wins", [
+    (("checkpoint.msgpack",), "checkpoint.msgpack"),
+    (("checkpoint.msgpack", "best_model.msgpack"), "best_model.msgpack"),
+])
+def test_load_flax_checkpoint_from_run_directory(tmp_path, setup, files, wins):
+    """A run directory, as the JAX ``load_variables`` takes one: the best
+    snapshot if there, else the training checkpoint."""
+    frames, params = setup
+    trees = {}
+    for i, name in enumerate(files):
+        trees[name] = jax.tree_util.tree_map(lambda v: np.asarray(v) * (1.0 + i), params)
+        if name == "checkpoint.msgpack":
+            payload = {"step": np.int32(3), "params": trees[name],
+                       "opt_state": {"count": np.int32(3)}, "batch_stats": {},
+                       "rng": np.arange(2, dtype=np.uint32)}
+            (tmp_path / name).write_bytes(serialization.to_bytes(payload))
+        else:
+            jckpt.save_params(str(tmp_path / name),
+                              jax.tree_util.tree_map(jnp.asarray, trees[name]))
+    got, batch_stats = weights.load_flax_checkpoint(str(tmp_path))
+    assert batch_stats == {}
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(trees[wins])):
+        np.testing.assert_array_equal(a, b)
+    jax_params, _ = jckpt.load_variables(str(tmp_path))
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(jax_params)):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    pred = tinfer.Predictor.from_checkpoint(CFG, str(tmp_path), SHAPE, K, device="cpu",
+                                            chunk_size=2)
+    ref = tinfer.Predictor(CFG, trees[wins], SHAPE, K, device="cpu", chunk_size=2)
+    np.testing.assert_array_equal(pred(frames), ref(frames))
+
+
+def test_load_flax_checkpoint_from_an_empty_run_directory(tmp_path):
+    with pytest.raises(FileNotFoundError, match="best_model.msgpack.*checkpoint.msgpack"):
+        weights.load_flax_checkpoint(str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        tinfer.Predictor.from_checkpoint(CFG, str(tmp_path), SHAPE, K, device="cpu")
+
+
 @pytest.mark.parametrize("kw, item", [
     # int8 serving is ported for the flagship geometry only
     ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),

@@ -22,8 +22,9 @@ from pose_estimation_amitai_tpu.models.fast_infer import (
 )
 
 
-def _flax_net(filters, out_ch=6, seed=0):
-    model = JaxBasicNet(out_channels=out_ch, filters=filters, dtype=jnp.float32)
+def _flax_net(filters, out_ch=6, seed=0, kernel_size=3):
+    model = JaxBasicNet(out_channels=out_ch, filters=filters, dtype=jnp.float32,
+                        kernel_size=kernel_size)
     x = np.random.default_rng(seed).random((2, 48, 48, 4)).astype(np.float32)
     params = model.init({"params": jax.random.key(seed)}, jnp.asarray(x),
                         train=False)["params"]
@@ -35,8 +36,9 @@ def _flax_net(filters, out_ch=6, seed=0):
     return model, params, x
 
 
-def _port_net(params, filters, out_ch=6):
-    net = BasicNet(4, out_ch, filters=filters, dtype=torch.float32)
+def _port_net(params, filters, out_ch=6, kernel_size=3):
+    net = BasicNet(4, out_ch, filters=filters, kernel_size=kernel_size,
+                   dtype=torch.float32)
     net.load_state_dict(weights.basicnet_state_dict(params))
     return net.eval()
 
@@ -49,6 +51,30 @@ def test_module_matches_flax_apply(filters):
         got = _port_net(params, filters)(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape == (2, 48, 48, 6) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel_size", [1, 5])
+def test_module_matches_flax_apply_at_other_kernel_sizes(kernel_size):
+    """The bridge at kernel sizes whose flipped axes are 1 long (a flip that
+    numpy keeps as a negative stride) and 5 long."""
+    model, params, x = _flax_net(8, kernel_size=kernel_size)
+    want = np.asarray(model.apply({"params": params}, jnp.asarray(x), train=False))
+    with torch.inference_mode():
+        got = _port_net(params, 8, kernel_size=kernel_size)(torch.from_numpy(x)).numpy()
+    # the reference's fixed crop (padding 1, output_padding 1) at any kernel size
+    side = 4 * 12 + 3 * (kernel_size - 3)
+    assert got.shape == want.shape == (2, side, side, 6)
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_kernel_bridges_copy_whatever_the_strides():
+    for shape in [(1, 1, 2, 3), (1, 3, 2, 2), (3, 3, 4, 5)]:
+        k = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+        d = weights.deconv_kernel_to_torch(k)
+        c = weights.conv_kernel_to_torch(k)
+        assert d.is_contiguous() and c.is_contiguous()
+        np.testing.assert_array_equal(d.numpy(), k[::-1, ::-1].transpose(2, 3, 0, 1))
+        np.testing.assert_array_equal(c.numpy(), k.transpose(3, 2, 0, 1))
 
 
 @pytest.mark.parametrize("filters", [8, 32])  # 32: latent 128, JAX fuses its decoder
