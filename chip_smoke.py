@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -64,7 +64,31 @@ Phases, each printing one JSON line ({"phase": ...}):
              module, the attention launches counted (12 and 48);
 10. probes - the probe kernels as the two experiment scripts' mains run
              them, and the bisect script's other cases, each equal to its
-             plain version.
+             plain version, each timed beside the one PyTorch call that
+             computes the same function where there is one (clone for the
+             four copies, torch.mul for grid_scale, torch.add(b, a, alpha=2)
+             for int8_vector_arith, held equal first);
+11. train  - flagship training at Config()'s defaults (filters 64, batch 8,
+             bf16 compute over float32 parameters, augmentation with the
+             gather warp, dropout 0.5, Adam 1e-3) through the port's entry
+             points, all on the card: (a) build_dataset of 16 synthetic
+             192x192 frames with 32 wing points (128 per-wing samples of
+             192x192x4 -> 18, half of them validation; from arrays, as the
+             card's machine has no h5py); (b) create_train_state and 3 + 20
+             steps, every loss finite and every parameter moved, the 20
+             timed with CUDA events (steps/s, frames/s); (c) with
+             deterministic cuDNN, one float32 step (TF32 off, dropout 0,
+             targets rendered from the peaks) on the card against the same
+             step on the CPU: loss, gradients and updated parameters within
+             the stated tolerances; (d) true resume: 3 steps, a checkpoint,
+             restore_checkpoint into a fresh state, 2 steps, equal to 5 steps
+             in one go, bit for bit; (e) make_eval_step over the validation
+             split; (f) the trained parameters through
+             basicnet_params_from_state_dict into Predictor(use_fused=True):
+             one 256-frame chunk with the encoder-stage and decoder counters
+             zeroed just before and read just after (every conv on a
+             tensor-core kernel), its maps within 5% of max of the trained
+             module's eval forward.
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
@@ -72,7 +96,11 @@ could take for the same call: the larger of its operations over the
 published peak of their type and its bytes (each operand read once, the
 output written once) over the published memory rate. ``library_ms`` is the time of the one PyTorch call
 that computes the same function, where there is one (the attention kernel:
-``scaled_dot_product_attention``), else null. The rows of the kernels that
+``scaled_dot_product_attention``; the probe rows: the sum over the probes
+that have one, named in ``library_probes``, beside ``ms_of_library_probes``,
+the kernels' time on the same probes), else null. The encoder-stage and
+decoder rows also carry ``train_launches``, their launches on the trained
+weights' chunk. The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
@@ -115,6 +143,23 @@ VIT4_FRAMES = 64  # one chunk of the 4-camera model each way
 VIT4_FOLD_RTOL = 2e-2  # folded vs unfolded bf16 maps, of their range
 PEAK_BYTES = 3.35e12
 PREVIOUS_REPS = 2  # timed runs of a CUDA-core kernel on a served shape
+# the train phase: synthetic frames x 4 cameras x 2 wings = 128 per-wing
+# samples of 192x192x4; 32 wing points = 16 a wing + head and tail = 18 maps
+TRAIN_FRAMES = 16
+TRAIN_POINTS = 32
+TRAIN_WARMUP = 3  # steps before the timed ones
+TRAIN_STEPS = 20  # timed steps
+RESUME_STEPS = (3, 2)  # steps before the checkpoint, steps after the restore
+# one float32 step (TF32 off, dropout 0, targets from peaks), card vs CPU:
+TRAIN_LOSS_RTOL = 1e-4  # the loss
+TRAIN_GRAD_RTOL = 1e-3  # each gradient tensor, of its largest element
+# updated parameters where the two gradients have one sign, beyond what the
+# gradients' own difference moves Adam's first update, lr * g / (|g| + eps):
+# lr * eps * |g1 - g2| / ((|g1| + eps) (|g2| + eps)), large only where |g| is
+# near eps; a flip of sign is allowed only where the CPU gradient is within
+# TRAIN_GRAD_RTOL of zero, relative
+TRAIN_PARAM_ATOL = 1e-6
+ADAM_EPS = 1e-8  # torch.optim.Adam's and optax.adam's default
 
 
 def emit(obj: dict) -> None:
@@ -166,6 +211,15 @@ def decoder_kernels(convs: str, up2: str) -> str:
     counters gave (``took``: each sorted by name, so a mixed pair reads
     "fma+mma" whichever layer took which)."""
     return f"up2({up2})+conv({convs})"
+
+
+def zero_conv_counters(hc, hd) -> None:
+    """Set the encoder-stage and decoder kernels' launch counters to 0."""
+    hc.fused_encoder_stage.launches = 0
+    hd.fused_decoder.launches = 0
+    hc.fused_encoder_stage.convs_by_kernel = dict.fromkeys(hc.CONV_KERNEL_CODES, 0)
+    hd.fused_decoder.convs_by_kernel = dict.fromkeys(hd.fused_decoder.convs_by_kernel, 0)
+    hd.fused_decoder.up2_by_kernel = dict.fromkeys(hd.UP2_KERNEL_CODES, 0)
 
 
 def nbytes(*tensors) -> int:
@@ -675,11 +729,7 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
     fused(frames[:1])  # warm-up: allocator, library load
 
     # ---- the main path: counters zeroed just before, read just after ----
-    hc.fused_encoder_stage.launches = 0
-    hd.fused_decoder.launches = 0
-    hc.fused_encoder_stage.convs_by_kernel = dict.fromkeys(hc.CONV_KERNEL_CODES, 0)
-    hd.fused_decoder.convs_by_kernel = dict.fromkeys(hd.fused_decoder.convs_by_kernel, 0)
-    hd.fused_decoder.up2_by_kernel = dict.fromkeys(hd.UP2_KERNEL_CODES, 0)
+    zero_conv_counters(hc, hd)
     answers, movie, t_req, t_movie = serve(fused, frames)
     launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
                 "fused_decoder": hd.fused_decoder.launches}
@@ -1107,9 +1157,12 @@ def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
         (f"full_epilogue_grid{g}", lambda g=g: hp.full_epilogue(*full[g]),
          lambda g=g: hp.full_epilogue_plain(*full[g]), None) for g in full
     ]
+    # a * 2 + b wrapping in int8 is one PyTorch call; held equal before timing
+    check(bool(torch.equal(torch.add(b, a, alpha=2), hp.int8_vector_arith_plain(a, b))),
+          "torch.add(b, a, alpha=2) differs from int8_vector_arith_plain")
     mosaic_specs = [
         ("int8_vector_arith", lambda: hp.int8_vector_arith(a, b),
-         lambda: hp.int8_vector_arith_plain(a, b), None),
+         lambda: hp.int8_vector_arith_plain(a, b), lambda: torch.add(b, a, alpha=2)),
     ] + [
         (f"grid_{n}", lambda n=n: hp.grid_scale(ones[n]),
          lambda n=n: hp.grid_scale_plain(ones[n]), lambda n=n: torch.mul(ones[n], 2.0))
@@ -1163,6 +1216,9 @@ def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
         ("mosaic_probes", mosaic, "scripts/exp_mosaic_probe.py:37",
          ("int8_vector_arith", "grid_scale", "int8_vector_in_grid")),
     ):
+        # the probes that one PyTorch call computes: clone for the copies,
+        # torch.mul for grid_scale, torch.add for int8_vector_arith
+        lib = [c for c in cases if c["library_ms"] is not None]
         rows.append({
             "name": name, "route": "cuda", "source": csrc, "replaces": replaces,
             "launches": sum(launches[k] for k in names),
@@ -1172,11 +1228,223 @@ def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
             "plain_ms": sum(c["plain_ms"] for c in cases),
             "bound_ms": sum(c["bound_ms"] for c in cases),
             "bound_by": max(cases, key=lambda c: c["bound_ms"])["bound_by"],
-            "library_ms": None,  # several functions: no single PyTorch call
+            # summed over those probes, beside the kernels' time on them
+            "library_ms": sum(c["library_ms"] for c in lib),
+            "library_probes": [c["probe"] for c in lib],
+            "ms_of_library_probes": sum(c["ms"] for c in lib),
         })
     emit({"phase": "probes", "device": device_name, "nvidia_smi": smi,
           "launches": launches, "bisect": bisect, "mosaic": mosaic})
     return rows
+
+
+def phase_train(torch, device_name: str, smi: str) -> dict:
+    """Flagship training at Config()'s defaults through the port's entry
+    points, on the card; the trained weights then served through the
+    encoder-stage and decoder kernels."""
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config, weights
+    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.train import checkpoint, loop
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    check((cfg.model_type, cfg.num_base_filters, cfg.kernel_size, cfg.dilation_rate,
+           cfg.batch_size, cfg.accumulation_steps, cfg.do_augmentations,
+           cfg.rotation_range, cfg.xy_shifts, cfg.horizontal_flip, cfg.vertical_flip,
+           cfg.interpolation_order, cfg.dropout_ratio, cfg.learning_rate,
+           cfg.compute_dtype)
+          == ("MODEL_18_POINTS_PER_WING", 64, 3, 2, 8, 1, True, 30.0, 10.0, True, True,
+              1, 0.5, 1e-3, "bfloat16"), "Config() training defaults changed")
+
+    # (a) the dataset on the card
+    t0 = time.perf_counter()
+    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                   image_size=192, seed=SEED)
+    ds, _ = build_dataset(cfg, arrays, device="cuda")
+    t_data = time.perf_counter() - t0
+    n, k = 8 * TRAIN_FRAMES, TRAIN_POINTS // 2 + 2
+    check(tuple(ds.data["box"].shape) == (n, 192, 192, 4)
+          and tuple(ds.data["confmaps"].shape) == (n, 192, 192, k)
+          and tuple(ds.data["peaks"].shape) == (n, k, 2)
+          and all(v.is_cuda for v in ds.data.values()),
+          f"dataset {({key: tuple(v.shape) for key, v in ds.data.items()})}")
+    check(len(ds.val_inds) == n // 2 and len(ds.train_inds) == n // 2,
+          f"split {len(ds.train_inds)} / {len(ds.val_inds)}")
+    with torch.device("meta"):  # the geometry only; parameters live in the state
+        model = build_model(cfg, (192, 192, 4), k)
+
+    # (b) steps at the defaults: bf16 compute, augmentation, dropout 0.5, Adam
+    state0 = loop.create_train_state(model, cfg, seed=SEED, device="cuda")
+    step = loop.make_train_step(model, cfg)
+    frames_per_step = cfg.batch_size * cfg.accumulation_steps
+    idx = [ds.step_indices(cfg.batch_size, cfg.accumulation_steps)
+           for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    state, losses = state0, []
+    for i in range(TRAIN_WARMUP):
+        state, loss = step(state, ds.data, idx[i])
+        losses.append(loss)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        state, loss = step(state, ds.data, idx[i])
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()), f"non-finite losses {losses}")
+    still = [name for name, p in state.params.items()
+             if torch.equal(p, state0.params[name])]
+    check(not still, f"parameters that never moved: {still}")
+    check(all(p.is_cuda and p.dtype == torch.float32 for p in state.params.values()),
+          "the trained parameters left the card or float32")
+    trained = state
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # (c) one float32 step (TF32 off, dropout 0, targets from peaks), card vs
+    # CPU, and (d) below, with deterministic cuDNN: the step's gradients are
+    # then those grad_fn gives, and a rerun repeats them
+    torch.backends.cudnn.deterministic = True
+    cfg32 = cfg.replace(compute_dtype="float32", dropout_ratio=0.0, do_augmentations=False)
+    with torch.device("meta"):
+        model32 = build_model(cfg32, (192, 192, 4), k)
+    grad_fn = loop.make_grad_fn(model32, cfg32)
+    step32 = loop.make_train_step(model32, cfg32)
+    data_cpu = {key: v.cpu() for key, v in ds.data.items()}
+    one = {}
+    for dev, data in (("cuda", ds.data), ("cpu", data_cpu)):
+        st = loop.create_train_state(model32, cfg32, seed=SEED, device=dev)
+        loss, grads = grad_fn(st.params, data, idx[0][0], torch.Generator(device=dev))
+        new, step_loss = step32(st, data, idx[0])
+        one[dev] = (float(loss), float(step_loss),
+                    {key: g.cpu().numpy() for key, g in grads.items()},
+                    {key: p.cpu().numpy() for key, p in new.params.items()})
+    (lg, slg, gg, pg), (lc, slc, gc, pc) = one["cuda"], one["cpu"]
+    check(slg == lg and slc == lc, "the step's loss is not its gradient's loss")
+    loss_err = abs(lg - lc) / abs(lc)
+    check(loss_err <= TRAIN_LOSS_RTOL, f"card vs CPU loss {lg} vs {lc}")
+    grad_err, param_err, unexplained, flips = 0.0, 0.0, 0.0, 0
+    for key in gc:
+        top = float(np.abs(gc[key]).max())
+        grad_err = max(grad_err, float(np.abs(gg[key] - gc[key]).max()) / top)
+        same = np.sign(gg[key]) == np.sign(gc[key])
+        flips += int((~same).sum())
+        check(float(np.abs(gc[key][~same]).max(initial=0.0)) <= TRAIN_GRAD_RTOL * top,
+              f"{key}: a gradient sign differs away from zero")
+        explained = cfg32.learning_rate * ADAM_EPS * np.abs(gg[key] - gc[key]) / (
+            (np.abs(gg[key]) + ADAM_EPS) * (np.abs(gc[key]) + ADAM_EPS))
+        d = np.abs(pg[key] - pc[key])[same]
+        param_err = max(param_err, float(d.max(initial=0.0)))
+        unexplained = max(unexplained, float((d - explained[same]).max(initial=0.0)))
+    check(grad_err <= TRAIN_GRAD_RTOL, f"card vs CPU gradients differ by {grad_err} of max")
+    check(unexplained <= TRAIN_PARAM_ATOL,
+          f"card vs CPU updated parameters differ by {unexplained} beyond their gradients'")
+    del data_cpu, one, gg, gc, pg, pc
+
+    # (d) true resume: RESUME_STEPS through a checkpoint equal as many steps
+    # in one go
+    whole, whole_losses = state0, []
+    for i in range(sum(RESUME_STEPS)):
+        whole, loss = step(whole, ds.data, idx[i])
+        whole_losses.append(float(loss))
+    part, part_losses = state0, []
+    for i in range(RESUME_STEPS[0]):
+        part, loss = step(part, ds.data, idx[i])
+        part_losses.append(float(loss))
+    with tempfile.TemporaryDirectory() as run_dir:
+        checkpoint.save_checkpoint(run_dir, part, epoch=0, val_loss=part_losses[-1])
+        fresh = loop.create_train_state(model, cfg, seed=SEED + 1, device="cuda")
+        part, meta = checkpoint.restore_checkpoint(run_dir, fresh)
+    check(part.step == RESUME_STEPS[0] and meta["epoch"] == 0, f"restored {part.step}")
+    for i in range(RESUME_STEPS[0], sum(RESUME_STEPS)):
+        part, loss = step(part, ds.data, idx[i])
+        part_losses.append(float(loss))
+    torch.backends.cudnn.deterministic = False
+    differ = [name for name in whole.params
+              if not torch.equal(whole.params[name], part.params[name])]
+    check(part_losses == whole_losses and not differ,
+          f"resumed run differs: losses {part_losses} vs {whole_losses}, params {differ}")
+
+    # (e) the eval step over the validation split
+    evaluate = loop.make_eval_step(model, cfg)
+    mses, l2s = [], []
+    for batch, m in ds.val_payloads(cfg.batch_size):
+        mse, l2 = evaluate(trained, batch)
+        check(tuple(l2.shape) == (m, k), f"l2 {tuple(l2.shape)}")
+        mses.append(float(mse))
+        l2s.append(l2.cpu().numpy())
+    l2s = np.concatenate(l2s)
+    check(len(l2s) == n // 2 and bool(np.isfinite(mses).all() and np.isfinite(l2s).all()),
+          "eval: non-finite or missing values")
+
+    # (f) the trained weights served through the kernels
+    pred = Predictor(cfg, weights.basicnet_params_from_state_dict(trained.params),
+                     (192, 192, 4), k, use_fused=True, device="cuda", chunk_size=CHUNK,
+                     return_heatmaps=True)
+    check(pred.serving_path == "fused", f"serving_path {pred.serving_path}")
+    frames = torch.cat([ds.data["box"], ds.data["box"].flip(1)]).cpu().numpy()
+    pred(frames[:1])  # warm-up
+    # ---- the served chunk: counters zeroed just before, read just after ----
+    zero_conv_counters(hc, hd)
+    maps, pts = pred(frames)
+    launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                "fused_decoder": hd.fused_decoder.launches}
+    convs = dict(hc.fused_encoder_stage.convs_by_kernel)
+    decoder_convs = dict(hd.fused_decoder.convs_by_kernel)
+    decoder_up2 = dict(hd.fused_decoder.up2_by_kernel)
+    # -----------------------------------------------------------------------
+    check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1}
+          and convs == {"fma": 0, "mma": 8, "mma_c4": 1}
+          and decoder_convs == {"fma": 0, "mma": 2} and decoder_up2 == {"fma": 0, "mma": 2},
+          f"the trained weights' chunk took {launches}, {convs}, {decoder_convs}, "
+          f"{decoder_up2}: not every conv on the tensor cores")
+    check(maps.shape == (CHUNK, 192, 192, k) and pts.shape == (CHUNK, 3, k)
+          and bool(np.isfinite(pts).all()), f"served {maps.shape} {pts.shape}")
+    want = loop.make_predict_fn(model)(trained.params,
+                                       torch.from_numpy(frames).to("cuda")).cpu().numpy()
+    top = float(np.abs(want).max())
+    serve_err = float(np.abs(maps - want).max())
+    check(serve_err <= ROUTE_RTOL * top,
+          f"served vs trained module maps: {serve_err} > {ROUTE_RTOL} * {top}")
+
+    steps_per_s = 1e3 / step_ms
+    result = {
+        "phase": "train", "device": device_name, "nvidia_smi": smi,
+        "model": "BasicNet MODEL_18_POINTS_PER_WING filters 64, bf16 compute over "
+                 "float32 parameters, dropout 0.5, Adam 1e-3, batch 8, augmentation "
+                 "(rotation 30, shifts 10, both flips, order 1, gather warp), "
+                 "192x192x4 -> 18",
+        "samples": n, "val_samples": len(ds.val_inds), "dataset_seconds": t_data,
+        "timed_steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
+        "step_ms": step_ms, "steps_per_s": steps_per_s,
+        "frames_per_s": steps_per_s * frames_per_step,
+        "peak_memory_gib": peak_gib,
+        "losses": losses.tolist(),
+        "float32_card_vs_cpu": {
+            "loss_rel_err": loss_err, "loss_rtol": TRAIN_LOSS_RTOL,
+            "grad_err_of_max": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
+            "param_max_abs_err": param_err, "param_beyond_gradients": unexplained,
+            "param_atol": TRAIN_PARAM_ATOL,
+            "sign_flips": flips},
+        "resume": {"steps": list(RESUME_STEPS), "losses": whole_losses, "equal": True},
+        "eval": {"val_mse": float(np.mean(mses)), "val_l2_mean_px": float(l2s.mean())},
+        "served": {"launches": launches, "encoder_convs_by_kernel": convs,
+                   "decoder_convs_by_kernel": decoder_convs,
+                   "decoder_up2_by_kernel": decoder_up2,
+                   "max_abs_err": serve_err, "max_abs_maps": top, "rtol": ROUTE_RTOL},
+    }
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
 
 
 def main() -> int:
@@ -1203,10 +1471,13 @@ def main() -> int:
     vt = phase_vit(torch, frames, name, smi)
     phase_vit4cam(torch, name, smi)
     probe_rows = phase_probes(torch, name, smi)
+    tr = phase_train(torch, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in tr["served"]["launches"]:  # the trained weights' chunk
+            r["train_launches"] = tr["served"]["launches"][r["name"]]
     rows += probe_rows
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")

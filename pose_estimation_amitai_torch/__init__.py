@@ -8,7 +8,9 @@ ViT families (``ViTPoseNet``, ``ViT4Cameras``): NHWC frames -> model ->
 ``fused`` serving routes run the flagship's encoder stages and decoder, its
 int8 encoder stages, and the ViT's attention cores through hand-written CUDA
 kernels for ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use
-(``ops/_build.py``).
+(``ops/_build.py``). It also trains the flagship model: the data layer
+(``data/``), on-device augmentation and target rendering, the train and eval
+steps and checkpoints with true resume (``train/``).
 """
 
 __version__ = "0.1.0"

@@ -24,7 +24,8 @@ from .cnn import BasicNet
 from .vit import ViT4Cameras, ViTPoseNet
 
 __all__ = ["BasicNet", "ViTPoseNet", "ViT4Cameras", "build_model",
-           "vit_single_kwargs"]
+           "vit_single_kwargs", "needs_camera_matrices", "augmentation_views",
+           "layout_views", "layout_masks_per_view"]
 
 _VIT_SINGLE = {
     C.MODEL_18_POINTS_PER_WING_VIT,
@@ -33,6 +34,10 @@ _VIT_SINGLE = {
     C.MODEL_18_POINTS_PER_WING_VIT_TO_POINTS,
 }
 _VIT_4CAM = {C.ALL_CAMS_18_POINTS_VIT, C.ALL_CAMS_VIT, C.VIT_4_CAMERAS}
+_MULTICAM_4 = {C.ALL_CAMS, C.ALL_CAMS_18_POINTS, C.ALL_CAMS_ALL_POINTS,
+               C.HEAD_TAIL_ALL_CAMS}
+_DISENTANGLED = {C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
+                 C.ALL_CAMS_DISENTANGLED_PER_WING_VIT}
 
 # model types the JAX registry maps to architectures not ported yet (JAX
 # models/__init__.py build_model), with the architecture and ROADMAP item
@@ -49,6 +54,46 @@ _NOT_PORTED: dict[str, str] = {
     C.RESNET_18_POINTS_PER_WING: "ResNetHeatmapNet (ROADMAP Queue A item 10)",
     C.GPTNET: "GPTResNet (ROADMAP Queue A item 10)",
 }
+
+
+def needs_camera_matrices(model_type: str) -> bool:
+    """True for models whose forward takes (x, P, P_inv)."""
+    return model_type in _DISENTANGLED
+
+
+def augmentation_views(model_type: str) -> int:
+    """How many independent affine transforms a sample draws: one per
+    camera-view channel block for ``ALL_CAMS_18_POINTS`` and its ViT twin
+    (pytorch/Datagenerators.py:141-153) and for the disentangled
+    camera-matrix models; one shared transform otherwise."""
+    if model_type in {C.ALL_CAMS_18_POINTS, C.ALL_CAMS_18_POINTS_VIT}:
+        return 4
+    if model_type in _DISENTANGLED:
+        return 4
+    return 1
+
+
+def layout_views(model_type: str) -> int:
+    """Camera views stacked on the channel axis of this model's samples,
+    which the mask-channel table of ``ops.morphology.random_mask_redilation``
+    follows whatever the augmentation draws (tensorflow/
+    simple_data_generator.py:104-111)."""
+    if model_type == C.ALL_CAMS_AND_3_GOOD_CAMS:
+        return 3
+    if model_type in _MULTICAM_4 or model_type in _VIT_4CAM or (
+        model_type in _DISENTANGLED
+    ):
+        return 4
+    return 1
+
+
+def layout_masks_per_view(model_type: str) -> int | None:
+    """Wing-mask channels in each view block, or ``None`` to let
+    ``random_mask_redilation`` infer them. ``BODY_PART_MODEL`` samples carry
+    3 body-part masks that are never re-dilated: 0."""
+    if model_type == C.BODY_PARTS_MODEL:
+        return 0
+    return None
 
 
 def _dtype(cfg: Config) -> torch.dtype:
@@ -125,4 +170,5 @@ def build_model(
         dilation=cfg.dilation_rate,
         flavor=cfg.arch_flavor,
         dtype=_dtype(cfg),
+        dropout=cfg.dropout_ratio,
     )

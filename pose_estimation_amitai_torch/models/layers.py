@@ -9,9 +9,14 @@ stride-2 / 1 / 1 / 2 ConvTranspose2d decoder with the reference's
 ``BasicNet`` (models/cnn.py) keeps the public NHWC contract.
 
 Parameter names follow the flax tree (conv1..conv9, deconv1..deconv4) so the
-weight bridge (weights.py) maps one onto the other by name. Inference only:
-the forward raises in training mode, because dropout needs the train step's
-``torch.Generator`` (ROADMAP Queue A item 6).
+weight bridge (weights.py) maps one onto the other by name. Each conv casts
+its weight and bias to the activations' dtype where it applies them, as
+flax's ``dtype=bf16, param_dtype=float32`` does: the train step passes
+float32 parameters to a bf16 module (``torch.func.functional_call``), and a
+module that holds parameters in its compute dtype computes as it always did.
+In training mode the encoder applies dropout where the JAX one does, after
+each pooled stage and after stage 3, drawing from the ``torch.Generator``
+the caller passes.
 """
 
 from __future__ import annotations
@@ -43,22 +48,53 @@ def _check_flavor(flavor: str, kernel_size: int) -> None:
 def _check_eval(module: nn.Module) -> None:
     if module.training:
         raise NotImplementedError(
-            "training-mode forward (dropout) is the train-step slice, "
-            "ROADMAP Queue A item 6; call .eval() to serve"
+            "training-mode forward of the ViT modules is not ported "
+            "(ROADMAP Queue A item 6); call .eval() to serve"
         )
+
+
+def conv(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` with the weight and bias cast to ``x``'s dtype (a no-op
+    where they have it already)."""
+    w, b = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
+    if isinstance(layer, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, layer.stride, layer.padding,
+                                  layer.output_padding, layer.groups,
+                                  layer.dilation)
+    return F.conv2d(x, w, b, layer.stride, layer.padding, layer.dilation,
+                    layer.groups)
+
+
+def drop(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``x * (u < keep) / keep`` with u uniform from
+    ``generator`` (on ``x``'s device); rate 0 returns ``x``, rate 1 zeros.
+    ``F.dropout`` takes no generator, so it is not used."""
+    if rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("a training-mode forward with dropout needs a generator")
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * (u < keep) / keep
 
 
 class EncoderAtrous(nn.Module):
     """Dilated-conv encoder, /4 downsample: 3 stages of 3 convs at
-    filters, 2x, 4x (pytorch/CNNs.py:73-88)."""
+    filters, 2x, 4x, dropout ``dropout`` per stage in training mode
+    (pytorch/CNNs.py:73-88)."""
 
     def __init__(
         self, in_channels: int, filters: int = 64, kernel_size: int = 3,
         dilation: int = 2, flavor: str = "torch",
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, dropout: float = 0.5,
     ):
         super().__init__()
         _check_flavor(flavor, kernel_size)
+        self.dropout = dropout
         chans = in_channels
         for stage, mult in enumerate((1, 2, 4)):
             f = filters * mult
@@ -73,18 +109,19 @@ class EncoderAtrous(nn.Module):
             chans = f
         self.out_channels = chans
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
         for stage in range(3):
-            conv = [getattr(self, f"conv{3 * stage + i}") for i in (1, 2, 3)]
-            x1 = leaky(conv[0](x))
-            x2 = leaky(conv[1](x1)) + x1
-            x3 = leaky(conv[2](x2)) + x2
+            c1, c2, c3 = (getattr(self, f"conv{3 * stage + i}") for i in (1, 2, 3))
+            x1 = leaky(conv(c1, x))
+            x2 = leaky(conv(c2, x1)) + x1
+            x3 = leaky(conv(c3, x2)) + x2
             if stage < 2:
                 # flax max_pool(2, 2, SAME) == ceil_mode for odd sizes
-                x = leaky(F.max_pool2d(x3, 2, 2, ceil_mode=True))
-            else:
-                x = x3
+                x3 = leaky(F.max_pool2d(x3, 2, 2, ceil_mode=True))
+            x = drop(x3, rate, generator)
         return x
 
 
@@ -120,8 +157,7 @@ class DecoderUp(nn.Module):
         self.deconv4 = up(half, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        x1 = leaky(self.deconv1(x))
-        x2 = leaky(self.deconv2(x1)) + x1
-        x3 = leaky(self.deconv3(x2)) + x2
-        return leaky(self.deconv4(x3))
+        x1 = leaky(conv(self.deconv1, x))
+        x2 = leaky(conv(self.deconv2, x1)) + x1
+        x3 = leaky(conv(self.deconv3, x2)) + x2
+        return leaky(conv(self.deconv4, x3))

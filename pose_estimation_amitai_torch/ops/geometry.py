@@ -2,9 +2,10 @@
 
 Counterpart of the lifting half of ``pose_estimation_amitai_tpu/ops/
 geometry.py``: two-view SVD triangulation (the reference's
-``custom_triangulation``, pytorch/Datagenerators.py:322-345), crop-to-sensor
-coordinates (pytorch/preprocessor.py:313-317) and the all-pairs multi-view
-mean. Plain functions on tensors; leading batch dimensions broadcast, so
+``custom_triangulation``, pytorch/Datagenerators.py:322-345), reprojection,
+crop-to-sensor coordinates (pytorch/preprocessor.py:313-317), the all-pairs
+multi-view mean and the pairwise reprojection-error score of the left/right
+consistency checker (pytorch/preprocessor.py:305-346). Plain functions on tensors; leading batch dimensions broadcast, so
 the JAX ``vmap`` over frames becomes a batch dimension.
 """
 
@@ -49,6 +50,14 @@ def triangulate_pair(
     return X[..., :3] / X[..., 3:4]
 
 
+def reproject(P: torch.Tensor, points_3d: torch.Tensor) -> torch.Tensor:
+    """Project (..., N, 3) world points through a (3, 4) camera: (..., N, 2)."""
+    ones = torch.ones((*points_3d.shape[:-1], 1), dtype=points_3d.dtype,
+                      device=points_3d.device)
+    proj = torch.cat([points_3d, ones], dim=-1) @ P.T  # (..., N, 3)
+    return proj[..., :2] / proj[..., 2:3]
+
+
 def uncrop_points(
     points_2d: torch.Tensor, cropzone: torch.Tensor
 ) -> torch.Tensor:
@@ -81,3 +90,30 @@ def triangulate_multiview(
         for a, b in CAMERA_PAIRS
     ]
     return torch.stack(acc).mean(dim=0)
+
+
+def reprojection_error_score(
+    points_2d: torch.Tensor, cropzone: torch.Tensor, camera_matrices: torch.Tensor
+) -> torch.Tensor:
+    """Mean pairwise triangulation-reprojection error over the 6 camera
+    pairs, in pixels (``get_reprojection_error``,
+    pytorch/preprocessor.py:305-346).
+
+    Args:
+      points_2d: (..., 4, N, 2) crop-local peaks per camera.
+      cropzone: (..., 4, 2) [y, x] crop offsets.
+      camera_matrices: (4, 3, 4) full-sensor DLT matrices.
+
+    Returns:
+      (...) scores.
+    """
+    full = uncrop_points(points_2d, cropzone)  # (..., 4, N, 2)
+    errs = []
+    for a, b in CAMERA_PAIRS:
+        Pa, Pb = camera_matrices[a], camera_matrices[b]
+        fa, fb = full[..., a, :, :], full[..., b, :, :]
+        pts3d = triangulate_pair(Pa, Pb, fa, fb)
+        ea = torch.linalg.norm(fa - reproject(Pa, pts3d), dim=-1).mean(dim=-1)
+        eb = torch.linalg.norm(fb - reproject(Pb, pts3d), dim=-1).mean(dim=-1)
+        errs.append((ea + eb) / 2.0)
+    return torch.stack(errs).mean(dim=0)

@@ -1,10 +1,12 @@
 """Keypoint decoding from confidence maps (PyTorch port).
 
-Counterpart of ``pose_estimation_amitai_tpu/ops/peaks.py`` for the serving
-decodes: hard argmax (the reference's ``tf_find_peaks``,
-tensorflow/preprocessor.py:657-689), the log-parabola sub-pixel refinement,
-and the soft-argmax (pytorch/utils.py:47-83). Plain functions on tensors;
-they run on the tensors' device.
+Counterpart of ``pose_estimation_amitai_tpu/ops/peaks.py``: the serving
+decodes, hard argmax (the reference's ``tf_find_peaks``,
+tensorflow/preprocessor.py:657-689), the log-parabola sub-pixel refinement
+and the soft-argmax (pytorch/utils.py:47-83); and the training ones, the
+marginal soft-argmax of the pointwise loss (tensorflow/Network.py:519-547)
+and the validation L2. Plain functions on tensors; they run on the
+tensors' device.
 
 Layout: NHWC maps (N, H, W, C); peaks (N, 3, C) [x, y, val].
 """
@@ -99,3 +101,44 @@ def find_peaks_soft_argmax(confmaps: torch.Tensor) -> torch.Tensor:
     cx = (cx * (w - 1)).clamp(0.0, w - 1)
     cy = (cy * (h - 1)).clamp(0.0, h - 1)
     return torch.stack([cx, cy], dim=-1)
+
+
+def marginal_soft_argmax(heatmaps: torch.Tensor) -> torch.Tensor:
+    """Marginal-expectation decode of the TF ``PointWiseLoss``
+    (tensorflow/Network.py:519-534): E[x], E[y] over the 1-indexed column
+    and row marginals, minus 1, with the image size taken from the shape
+    (the reference hard-codes 192). An all-zero channel's sum is floored at
+    1e-9, so it decodes to a finite point. (N, H, W, C) -> (N, C, 2) [x, y]."""
+    n, h, w, c = heatmaps.shape
+    dev, dt = heatmaps.device, heatmaps.dtype
+    lin_y = torch.arange(1, h + 1, dtype=dt, device=dev).reshape(1, h, 1)
+    lin_x = torch.arange(1, w + 1, dtype=dt, device=dev).reshape(1, w, 1)
+    total = heatmaps.sum(dim=(1, 2))  # (N, C)
+    total = torch.where(total.abs() < 1e-9, torch.full_like(total, 1e-9), total)
+    h_y = (lin_y * heatmaps.sum(dim=2)).sum(dim=1) / total
+    h_x = (lin_x * heatmaps.sum(dim=1)).sum(dim=1) / total
+    return torch.stack([h_x - 1.0, h_y - 1.0], dim=-1)
+
+
+def pointwise_loss(y_true: torch.Tensor, y_pred: torch.Tensor) -> torch.Tensor:
+    """MSE between the marginal soft-argmax keypoints of two map stacks
+    (``PointWiseLoss.pointwize_loss``, tensorflow/Network.py:536-547)."""
+    return torch.square(marginal_soft_argmax(y_true)
+                        - marginal_soft_argmax(y_pred)).mean()
+
+
+def l2_distances(
+    pred_confmaps: torch.Tensor,
+    true_confmaps: torch.Tensor,
+    decode: str = "argmax",
+) -> torch.Tensor:
+    """(N, C) pixel distances between the decoded peaks of predicted and true
+    maps, the reference's validation metric (pytorch/train_pytorch.py:199-213).
+    ``decode="argmax"`` is the reference's; ``"refined"`` decodes both with
+    :func:`find_peaks_refined`."""
+    if decode == "refined":
+        def dec(maps: torch.Tensor) -> torch.Tensor:
+            return find_peaks_refined(maps)[:, :2, :].transpose(1, 2)
+    else:
+        dec = find_peaks
+    return torch.linalg.norm(dec(pred_confmaps) - dec(true_confmaps), dim=-1)

@@ -1,0 +1,332 @@
+"""Train and eval steps of the port: gather, on-device augmentation and
+target rendering, dropout, backward, gradient accumulation, Adam.
+
+Counterpart of ``pose_estimation_amitai_tpu/train/loop.py`` (reference:
+pytorch/train_pytorch.py:98-197, its epoch loop with CUDA AMP and
+``accumulation_steps``; tensorflow/train.py:87-106). One call of the train
+step gathers each microbatch from the device-resident dataset, augments it
+(or re-renders its targets from the stored peaks), runs the training forward
+(bf16 compute over float32 parameters, each weight cast where its conv
+applies it; no autocast, no loss scaling), takes float32 gradients, averages
+them over ``accumulation_steps`` microbatches and applies one Adam update
+scaled by ``lr_scale``.
+
+The steps are functions of a :class:`TrainState` and return a new one; the
+old state is left as it was. Every random draw (augmentation, mask
+re-dilation, dropout) comes from a ``torch.Generator`` seeded from
+(seed, step, microbatch), as JAX folds the step into its key: the same
+state and step draw the same, a later step draws anew, and resuming needs
+no generator state beyond the seed and the step. The draws themselves are
+not JAX's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from .. import constants as C
+from ..config import Config
+from ..models import augmentation_views, layout_masks_per_view, layout_views
+from ..ops import affine, peaks
+from ..ops.gaussian import confmaps_from_peaks
+from ..ops.morphology import random_mask_redilation
+
+# std of a unit normal truncated to [-2, 2]: flax's lecun_normal divides by it
+_TRUNCATED_STD = 0.87962566103423978
+_HEAD_LAYER_NAMES = ("deconv4", "head_deconv")
+
+
+@dataclass(frozen=True)
+class TrainState:
+    """Step counter, float32 module parameters (by ``state_dict`` name),
+    the Adam state (``torch.optim.Adam.state_dict()``) and the seed the
+    step's random draws derive from."""
+
+    step: int
+    params: dict[str, torch.Tensor]
+    opt_state: dict
+    seed: int
+
+    def replace(self, **kw) -> "TrainState":
+        return dataclasses.replace(self, **kw)
+
+
+def create_optimizer(cfg: Config, params) -> torch.optim.Adam:
+    """Adam at ``cfg.learning_rate`` with betas (0.9, 0.999) and eps 1e-8,
+    ``optax.adam``'s defaults (pytorch/train_pytorch.py:111)."""
+    return torch.optim.Adam(params, lr=cfg.learning_rate)
+
+
+def _lecun_normal(rng: np.random.Generator, shape: tuple, fan_in: int) -> np.ndarray:
+    """flax's default kernel init: a normal truncated to +-2 std, scaled to
+    variance 1 / fan_in."""
+    z = rng.standard_normal(shape)
+    while (bad := np.abs(z) > 2.0).any():
+        z[bad] = rng.standard_normal(int(bad.sum()))
+    return (z * (np.sqrt(1.0 / fan_in) / _TRUNCATED_STD)).astype(np.float32)
+
+
+def _init_params(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded float32 parameters of a conv model, on the CPU, as flax
+    initialises them: kernels lecun-normal over the fan-in (input channels x
+    kernel taps, for a transposed conv too), biases zero."""
+    rng = np.random.default_rng(seed)
+    params: dict[str, torch.Tensor] = {}
+    for name, m in model.named_modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = m.in_channels * int(np.prod(m.kernel_size))
+            params[f"{name}.weight"] = torch.from_numpy(
+                _lecun_normal(rng, tuple(m.weight.shape), fan_in))
+            params[f"{name}.bias"] = torch.zeros(m.bias.shape)
+    if set(params) != {n for n, _ in model.named_parameters()}:
+        raise NotImplementedError(
+            f"training {type(model).__name__} is not ported: the port trains "
+            "the conv models (BasicNet); the ViT's training forward is ROADMAP "
+            "Queue A item 6, the other families item 10")
+    return params
+
+
+def create_train_state(
+    model: nn.Module, cfg: Config, seed: int = 0, *, device: torch.device | str
+) -> TrainState:
+    """Seeded float32 parameters on ``device`` (the output head zeroed if
+    ``cfg.head_zero_init``) and a fresh Adam state. ``model`` gives the
+    geometry only; it may live on the meta device."""
+    params = {k: v.to(device) for k, v in _init_params(model, seed).items()}
+    if cfg.head_zero_init:
+        params = zero_output_head(params)
+    opt_state = create_optimizer(cfg, list(params.values())).state_dict()
+    return TrainState(step=0, params=params, opt_state=opt_state, seed=seed)
+
+
+def zero_output_head(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Zero the final heatmap layer's weight and bias ('deconv4' in the torch
+    flavour, 'head_deconv' in the tf one), so training starts from the
+    all-zeros prediction."""
+    return {k: torch.zeros_like(v) if k.split(".")[-2] in _HEAD_LAYER_NAMES else v
+            for k, v in params.items()}
+
+
+def make_loss_fn(cfg: Config) -> Callable:
+    """Float32 MSE of the maps (pytorch/train_pytorch.py:110), or the
+    decoded-coordinate pointwise loss (tensorflow/Network.py:536-547) for
+    ``loss_function`` "pointwise" and the ``*_TO_POINTS`` /
+    ``*_POINTS_LOSS`` model types."""
+    use_pointwise = cfg.loss_function in (
+        "pointwise", "point_wise_loss"
+    ) or cfg.model_type in (
+        C.MODEL_18_POINTS_PER_WING_VIT_TO_POINTS,
+        C.HEAD_TAIL_PER_CAM_POINTS_LOSS,
+    )
+
+    def loss_fn(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        pred, target = pred.float(), target.float()
+        if use_pointwise:
+            return peaks.pointwise_loss(target, pred)
+        return torch.square(pred - target).mean()
+
+    return loss_fn
+
+
+def step_generator(
+    seed: int, step: int, microbatch: int, device: torch.device | str
+) -> torch.Generator:
+    """The generator of one microbatch's draws: a function of (seed, step,
+    microbatch) only."""
+    s = np.random.SeedSequence([seed, step, microbatch]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s))
+
+
+def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
+    """``grads(params, data, ids, generator) -> (loss, {name: grad})`` of one
+    microbatch: the train step's body before the update.
+
+    ``data`` is the dataset dict on the device (``box`` (N, H, W, C), and
+    ``peaks`` (N, K, 2) with ``peak_vals`` (N, K), or ``confmaps``
+    (N, H, W, K)); ``ids`` (B,) sample indices. With augmentation and
+    peaks, the images are warped (in the compute dtype) and the targets
+    rendered at the moved peaks; without augmentation the targets are
+    rendered at the stored peaks; with ``confmaps`` only, images and maps
+    are warped together. Camera-matrix data (``P``, ``P_inv``) raises."""
+    loss_fn = make_loss_fn(cfg)
+    order = min(int(cfg.interpolation_order), 3)
+    warp_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    views = augmentation_views(cfg.model_type)
+    aug = dict(rotation_range=cfg.rotation_range, xy_shifts=cfg.xy_shifts,
+               zoom_range=cfg.zoom_range, do_horizontal_flip=cfg.horizontal_flip,
+               do_vertical_flip=cfg.vertical_flip, shear_range=cfg.shear_range,
+               order=order)
+
+    def batch(data: dict, ids: torch.Tensor, gen: torch.Generator):
+        box = data["box"][ids]
+        if cfg.do_augmentations and "peaks" in data:
+            box, confmaps, _ = affine.augment_views_and_peaks(
+                gen, box.to(warp_dtype), data["peaks"][ids], data["peak_vals"][ids],
+                num_views=views, sigma=cfg.sigma, **aug)
+        elif "peaks" in data:
+            confmaps = confmaps_from_peaks(
+                data["peaks"][ids], tuple(box.shape[1:3]), cfg.sigma
+            ) * data["peak_vals"][ids][:, None, None, :]
+        else:
+            confmaps = data["confmaps"][ids]
+            if cfg.do_augmentations:
+                box, confmaps = affine.augment_pair(gen, box, confmaps,
+                                                    num_views=views, **aug)
+        if cfg.do_augmentations and cfg.wings_masks_dilation > 0:
+            box = random_mask_redilation(
+                gen, box, cfg.wings_masks_dilation,
+                num_views=layout_views(cfg.model_type),
+                num_time_channels=1 if cfg.single_time_channel else 3,
+                masks_per_view=layout_masks_per_view(cfg.model_type))
+        return box, confmaps
+
+    def grads(params: dict, data: dict, ids, gen: torch.Generator):
+        if "P" in data:
+            raise NotImplementedError(
+                "camera-matrix batches (P, P_inv) are ROADMAP Queue A item 10")
+        ids = torch.as_tensor(ids, device=data["box"].device).long()
+        box, confmaps = batch(data, ids, gen)
+        live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        model.train()
+        pred = functional_call(model, live, (box,), {"generator": gen})
+        loss = loss_fn(pred, confmaps)
+        g = torch.autograd.grad(loss, list(live.values()))
+        return loss.detach(), dict(zip(live, g))
+
+    return grads
+
+
+def _copy_opt_state(opt_state: dict) -> dict:
+    """A copy whose tensors the next update may change in place."""
+    return {
+        "state": {i: {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+                  for i, s in opt_state["state"].items()},
+        "param_groups": [dict(g) for g in opt_state["param_groups"]],
+    }
+
+
+def make_train_step(model: nn.Module, cfg: Config) -> Callable:
+    """``step(state, data, idx, lr_scale=1.0) -> (state, loss)``: one Adam
+    update over ``idx.shape[0]`` microbatches.
+
+    ``data``: the dataset dict on the device (``DeviceDataset.data``, or a
+    ``HostDataset.step_payload`` window); ``idx``: (accum, B) sample
+    indices. The loss is the microbatches' mean, a device scalar; the
+    gradients are their mean, and the update is Adam's at ``learning_rate *
+    lr_scale``."""
+    grad_fn = make_grad_fn(model, cfg)
+
+    def train_step(state: TrainState, data: dict, idx, lr_scale: float = 1.0):
+        idx = torch.as_tensor(idx, device=data["box"].device)
+        accum = idx.shape[0]
+        loss_sum, grad_sum = None, None
+        for i in range(accum):
+            gen = step_generator(state.seed, state.step, i, data["box"].device)
+            loss, g = grad_fn(state.params, data, idx[i], gen)
+            if grad_sum is None:
+                loss_sum, grad_sum = loss, g
+            else:
+                loss_sum = loss_sum + loss
+                grad_sum = {k: grad_sum[k] + g[k] for k in grad_sum}
+        params = {k: v.detach().clone() for k, v in state.params.items()}
+        opt = create_optimizer(cfg, list(params.values()))
+        opt.load_state_dict(_copy_opt_state(state.opt_state))
+        for group in opt.param_groups:
+            group["lr"] = cfg.learning_rate * lr_scale
+        for k, p in params.items():
+            p.grad = grad_sum[k] / accum
+        opt.step()
+        for p in params.values():
+            p.grad = None
+        new_state = TrainState(step=state.step + 1, params=params,
+                               opt_state=opt.state_dict(), seed=state.seed)
+        return new_state, loss_sum / accum
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, cfg: Config) -> Callable:
+    """``eval(state, batch) -> (mse, l2)``: the loss of the eval forward and
+    the (B, K) pixel L2 of the decoded peaks (``cfg.eval_decode``), on the
+    device (pytorch/train_pytorch.py:150-213)."""
+    loss_fn = make_loss_fn(cfg)
+    predict = make_predict_fn(model)
+
+    def eval_step(state: TrainState, batch: dict):
+        pred = predict(state.params, batch["image"])
+        with torch.no_grad():
+            mse = loss_fn(pred, batch["confmaps"])
+            l2 = peaks.l2_distances(pred, batch["confmaps"].float(),
+                                    decode=cfg.eval_decode)
+        return mse, l2
+
+    return eval_step
+
+
+def make_predict_fn(model: nn.Module) -> Callable:
+    """``predict(params, images) -> maps``: the eval forward (no dropout) of
+    ``model`` with ``params``."""
+
+    def predict(params: dict, images: torch.Tensor) -> torch.Tensor:
+        model.eval()
+        with torch.no_grad():
+            return functional_call(model, params, (images,))
+
+    return predict
+
+
+class PlateauScheduler:
+    """Host-side ReduceLROnPlateau with torch's semantics (mode 'min',
+    factor, patience, relative threshold, cooldown, min_lr;
+    pytorch/train_pytorch.py:112-114): emits the ``lr_scale`` the train
+    step takes."""
+
+    def __init__(self, cfg: Config):
+        self.factor = cfg.reduce_lr_factor
+        self.patience = cfg.reduce_lr_patience
+        self.threshold = cfg.reduce_lr_min_delta
+        self.cooldown = cfg.reduce_lr_cooldown
+        self.min_lr = cfg.reduce_lr_min_lr
+        self.base_lr = cfg.learning_rate
+        self.best = float("inf")
+        self.num_bad = 0
+        self.cooldown_counter = 0
+        self.lr = self.base_lr
+
+    @property
+    def lr_scale(self) -> float:
+        return self.lr / self.base_lr
+
+    def step(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.num_bad = 0
+        elif self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.cooldown_counter = self.cooldown
+                self.num_bad = 0
+        return self.lr_scale
+
+    def state_dict(self) -> dict:
+        return {
+            "best": self.best, "num_bad": self.num_bad,
+            "cooldown_counter": self.cooldown_counter, "lr": self.lr,
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.best = d["best"]
+        self.num_bad = d["num_bad"]
+        self.cooldown_counter = d["cooldown_counter"]
+        self.lr = d["lr"]

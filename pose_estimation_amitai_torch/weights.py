@@ -12,6 +12,9 @@ checkpoints. Outputs:
   correlation and the torch-flavour stride-2 layer is ``ConvTranspose2d(k3,
   s2, padding=1, output_padding=1)`` on the flipped kernel, so one rule
   covers both.
+* :func:`basicnet_params_from_state_dict` — the other way: the port's
+  ``BasicNet`` parameters (those the train step updates) -> the flax tree as
+  numpy, which ``Predictor``, :func:`kernel_params` and the JAX package take.
 * :func:`kernel_params` (models/fast_infer.py) — the fused kernels take the
   flax HWIO layout as it is.
 * :func:`vit_state_dict` — the ``state_dict`` of the port's ``ViTPoseNet``
@@ -73,6 +76,27 @@ def basicnet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             dec[f"deconv{i}"]["kernel"])
         sd[f"decoder.deconv{i}.bias"] = _bias(dec[f"deconv{i}"]["bias"])
     return sd
+
+
+def basicnet_params_from_state_dict(sd: Mapping) -> dict:
+    """The port's ``BasicNet`` ``state_dict`` (or the train step's
+    parameters, any device and float dtype) -> the flax torch-flavour
+    ``BasicNet`` params tree, float32 numpy: the inverse of
+    :func:`basicnet_state_dict`."""
+    def f32(t) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    enc, dec = {}, {}
+    for i in range(1, 10):
+        w = f32(sd[f"encoder.conv{i}.weight"])  # (O, I, kh, kw)
+        enc[f"conv{i}"] = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
+                           "bias": f32(sd[f"encoder.conv{i}.bias"])}
+    for i in range(1, 5):
+        w = f32(sd[f"decoder.deconv{i}.weight"])  # (I, O, kh, kw), flipped
+        dec[f"deconv{i}"] = {
+            "kernel": np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1]),
+            "bias": f32(sd[f"decoder.deconv{i}.bias"])}
+    return {"encoder": enc, "decoder": dec}
 
 
 def _is_pipeline_layout(params) -> bool:

@@ -717,3 +717,92 @@ def test_encoder_stage_times_at_the_served_chunk(cuda, capsys):
               f"{times[0]:.3f} / {times[1]:.3f} / {times[2]:.3f} on "
               f"{torch.cuda.get_device_name(0)}")
     assert all(t < 12.0 for t in times), times
+
+
+# ---- training on the card ---------------------------------------------------
+
+def _train_setup(dev, **kw):
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(num_base_filters=8, **kw)
+    rng = np.random.default_rng(0)
+    data = {"box": torch.from_numpy(rng.random((8, 48, 48, 4), np.float32)),
+            "peaks": torch.from_numpy(rng.uniform(4, 44, (8, 6, 2)).astype(np.float32)),
+            "peak_vals": torch.ones(8, 6)}
+    model = build_model(cfg, (48, 48, 4), 6)
+    return cfg, model, {k: v.to(dev) for k, v in data.items()}, loop
+
+
+def test_training_forward_on_card_draws_dropout_on_card(cuda):
+    cfg, model, data, loop = _train_setup(cuda)
+    state = loop.create_train_state(model, cfg, device=cuda)
+    model.train()
+    from torch.func import functional_call
+
+    def fwd(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return functional_call(model, state.params, (data["box"],), {"generator": gen})
+
+    a = fwd(1)
+    assert a.is_cuda and a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+    assert torch.equal(a, fwd(1)) and not torch.equal(a, fwd(2))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_on_card_matches_cpu(cuda, accum):
+    """float32, TF32 off, dropout 0, targets from peaks: the card's step
+    against the CPU's, loss within 1e-4 relative, gradients within 1e-3 of
+    their max, parameters within 1e-6 wherever the gradients agree in sign,
+    beyond what the gradients' difference moves Adam's first update
+    (lr * g / (|g| + eps), chip_smoke.py's train phase)."""
+    cfg, model, data, loop = _train_setup(cuda, compute_dtype="float32", dropout_ratio=0.0,
+                                          do_augmentations=False, accumulation_steps=accum)
+    idx = np.arange(4 * accum, dtype=np.int32).reshape(accum, 4)
+    step, grad_fn = loop.make_train_step(model, cfg), loop.make_grad_fn(model, cfg)
+    out = {}
+    torch.backends.cudnn.deterministic = True  # the step's gradients are grad_fn's
+    try:
+        for dev, d in ((cuda, data), ("cpu", {k: v.cpu() for k, v in data.items()})):
+            st = loop.create_train_state(model, cfg, device=dev)
+            g = [grad_fn(st.params, d, i, torch.Generator(device=dev))[1] for i in idx]
+            new, loss = step(st, d, idx)
+            out[str(dev)] = (float(loss),
+                             {k: sum(x[k] for x in g).cpu() / accum for k in g[0]},
+                             {k: v.cpu() for k, v in new.params.items()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, gg, pg), (lc, gc, pc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for k in gc:
+        same = torch.sign(gg[k]) == torch.sign(gc[k])
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * float(gc[k].abs().max()), k
+        eps = 1e-8
+        explained = cfg.learning_rate * eps * (gg[k] - gc[k]).abs() / (
+            (gg[k].abs() + eps) * (gc[k].abs() + eps))
+        assert float(((pg[k] - pc[k]).abs() - explained)[same].max()) <= 1e-6, k
+
+
+def test_train_steps_on_card_resume_exactly(cuda, tmp_path):
+    from pose_estimation_amitai_torch.train import checkpoint
+
+    cfg, model, data, loop = _train_setup(cuda, wings_masks_dilation=3)
+    step = loop.make_train_step(model, cfg)
+    idx = [np.random.default_rng(i).integers(0, 8, (1, 4)).astype(np.int32) for i in range(4)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = loop.create_train_state(model, cfg, device=cuda)
+        part = whole
+        for i in range(4):
+            whole, _ = step(whole, data, idx[i])
+        for i in range(2):
+            part, _ = step(part, data, idx[i])
+        checkpoint.save_checkpoint(str(tmp_path), part, 0, 0.0)
+        part, _ = checkpoint.restore_checkpoint(
+            str(tmp_path), loop.create_train_state(model, cfg, seed=5, device=cuda))
+        for i in range(2, 4):
+            part, _ = step(part, data, idx[i])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(torch.equal(whole.params[k], part.params[k]) for k in whole.params)
+    assert all(v.is_cuda for v in part.params.values())

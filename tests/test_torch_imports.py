@@ -38,13 +38,23 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.ops.int8_conv",
             "pose_estimation_amitai_torch.models.quantized",
             "pose_estimation_amitai_torch.models.vit",
-            "pose_estimation_amitai_torch.weights"} <= set(mods)
+            "pose_estimation_amitai_torch.weights",
+            "pose_estimation_amitai_torch.ops.affine",
+            "pose_estimation_amitai_torch.ops.gaussian",
+            "pose_estimation_amitai_torch.ops.morphology",
+            "pose_estimation_amitai_torch.data.synthetic",
+            "pose_estimation_amitai_torch.data.preprocess",
+            "pose_estimation_amitai_torch.data.pipeline",
+            "pose_estimation_amitai_torch.train.loop",
+            "pose_estimation_amitai_torch.train.checkpoint"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'pose_estimation_amitai_tpu'))\n"
         "assert not bad, bad\n"
+        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in ('h5py', 'msgpack'))\n"
+        "assert not lazy, lazy\n"
         "print('ok', len(sys.modules))\n"
     )
     r = _run(code, dict(os.environ))

@@ -147,6 +147,8 @@ def test_tf_flavour_refused():
 
 
 def test_training_forward_refused():
+    """A training-mode forward with dropout draws from the generator the
+    train step passes; without one it is refused."""
     net = BasicNet(4, 6, filters=8, dtype=torch.float32)  # train mode by default
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(ValueError, match="needs a generator"):
         net(torch.zeros((1, 16, 16, 4)))

@@ -76,3 +76,11 @@ def test_model_setup_gives_full_width(model):
     want = net.state_dict()
     assert sd.keys() == want.keys()
     assert all(sd[k].shape == want[k].shape for k in sd)
+
+
+def test_train_profile_takes_no_routes_and_needs_cuda():
+    with pytest.raises(SystemExit):
+        profile_routes.main(["--model", "train", "--routes", "fused"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="CUDA"):
+            profile_routes.main(["--model", "train"])
