@@ -64,10 +64,17 @@ Phases, each printing one JSON line ({"phase": ...}):
              module, the attention launches counted (12 and 48);
 10. probes - the probe kernels as the two experiment scripts' mains run
              them, and the bisect script's other cases, each equal to its
-             plain version, each timed beside the one PyTorch call that
-             computes the same function where there is one (clone for the
-             four copies, torch.mul for grid_scale, torch.add(b, a, alpha=2)
-             for int8_vector_arith, held equal first);
+             plain version (full_epilogue on weights packed once, before the
+             timing), every probe of probes.cu on its 16-byte kernel (the
+             by-kernel counters), each timed per call (what a caller sees,
+             host dispatch included) and on the device alone (the calls
+             captured in a CUDA graph and replayed), beside the byte-wise
+             kernel it replaced on the same tensors and the one PyTorch call
+             that computes the same function where there is one (clone for
+             the four copies, torch.mul for grid_scale, torch.add(b, a,
+             alpha=2) for int8_vector_arith, held equal first); then the
+             host's launch path for int8_vector_arith through copies that
+             each take one more of its costs out, timed in turns;
 11. train  - flagship training at Config()'s defaults (filters 64, batch 8,
              bf16 compute over float32 parameters, augmentation with the
              gather warp, dropout 0.5, Adam 1e-3) through the port's entry
@@ -104,7 +111,11 @@ weights' chunk. The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
-served shape took. Last
+served shape took. The two probe rows carry the same two fields (the
+byte-wise kernels, and for full_epilogue its im2col weights packed at every
+call; ``kernel`` lists each probe's), beside ``device_ms``,
+``previous_device_ms`` and ``library_device_ms``, the device times from
+CUDA-graph replays (``device_method``). Last
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 nonzero without the ok line.
 """
@@ -1132,52 +1143,181 @@ def phase_vit4cam(torch, device_name: str, smi: str) -> None:
     emit(result)
 
 
+def graph_ms(torch, fn, reps: int, replays: int = 5) -> float:
+    """Mean device milliseconds of ``fn()`` with no host dispatch in the
+    window: ``reps`` calls captured in one CUDA graph (the wrappers launch on
+    the current stream, which is the capture stream), the graph replayed
+    ``replays`` times between two CUDA events. A replay counts no launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
+
+
+LAUNCH_REPS = 200  # calls a turn when timing the launch path's costs
+
+
+def launch_path_costs(torch, hp, a, b) -> dict:
+    """Per-call milliseconds of int8_vector_arith(a, b) on its 16-byte kernel
+    through copies of the launch path, each with one more host cost taken
+    out, timed in turns in one run: (1) the byte-wise kernels' earlier path
+    (the library and its function looked up at every call, a
+    torch.cuda.device context, a Stream object built for the raw stream);
+    (2) the function resolved once; (3) and no device context (the C entry
+    guards the device); (4) and the raw stream from PyTorch's getter: the
+    wrapper's own path without its rule and counters; (5) the wrapper; (6)
+    the ctypes call alone on a preallocated output; (7) torch.add(b, a,
+    alpha=2)."""
+    from pose_estimation_amitai_torch.ops import _build, hopper_conv
+
+    fns = hp._fns()
+    code, dev = hp.KERNEL_CODES["vec16"], a.get_device()
+    out = torch.empty_like(a)
+    raw = fns.stream(dev)
+
+    def looked_up_each_call():
+        hp._check("a", a, torch.int8, a.dim())
+        hopper_conv.check_operand("b", b, tuple(a.shape), torch.int8, a.device)
+        o = torch.empty_like(a)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            args = (lambda o: (a.data_ptr(), b.data_ptr(), o.data_ptr(), a.numel()))(o)
+            getattr(_build.load("probes"), "pe_probe_int8_axpb")(code, *args, dev, stream)
+        return o
+
+    def resolved_once():
+        hp._check("a", a, torch.int8, a.dim())
+        hopper_conv.check_operand("b", b, tuple(a.shape), torch.int8, a.device)
+        o = torch.empty_like(a)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            fns.int8_axpb(code, a.data_ptr(), b.data_ptr(), o.data_ptr(), a.numel(), dev, stream)
+        return o
+
+    def no_device_context():
+        hp._check("a", a, torch.int8, a.dim())
+        hopper_conv.check_operand("b", b, tuple(a.shape), torch.int8, a.device)
+        o = torch.empty_like(a)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        fns.int8_axpb(code, a.data_ptr(), b.data_ptr(), o.data_ptr(), a.numel(), dev, stream)
+        return o
+
+    def raw_stream():
+        hp._check("a", a, torch.int8, a.dim())
+        hopper_conv.check_operand("b", b, tuple(a.shape), torch.int8, a.device)
+        o = torch.empty_like(a)
+        fns.int8_axpb(code, a.data_ptr(), b.data_ptr(), o.data_ptr(), a.numel(), dev,
+                      fns.stream(dev))
+        return o
+
+    def ctypes_alone():
+        fns.int8_axpb(code, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), dev, raw)
+        return out
+
+    variants = {"looked_up_each_call": looked_up_each_call,
+                "function_resolved_once": resolved_once,
+                "and_no_device_context": no_device_context,
+                "and_raw_stream": raw_stream,
+                "wrapper": lambda: hp.int8_vector_arith(a, b),
+                "ctypes_call_alone": ctypes_alone,
+                "torch_add": lambda: torch.add(b, a, alpha=2)}
+    want = hp.int8_vector_arith_plain(a, b)
+    for name, fn in variants.items():  # each computes the probe's answer
+        got = fn()
+        torch.cuda.synchronize()
+        check(bool(torch.equal(got, want)), f"launch path {name} differs from plain")
+    order = list(variants) + list(reversed(variants))  # in turns, there and back
+    times = {name: [] for name in variants}
+    for name in order:
+        times[name].append(time_ms(torch, variants[name], LAUNCH_REPS))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
 def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
     """The probe kernels on the two experiment scripts' inputs, each equal to
     its plain version: the bisect script's five cases and its two full-conv
-    sizes, and the six probes of the Mosaic script's main. Returns the two
-    rows of the kernels line."""
+    sizes, and the six probes of the Mosaic script's main. Each is timed per
+    call (``ms``: CUDA events around 20 back-to-back calls, what a caller
+    sees, host dispatch included) and on the device alone (``device_ms``:
+    the 20 calls captured in a CUDA graph and replayed), beside the kernel it
+    replaced on the same tensors (``previous_ms``: the byte-wise kernels; for
+    full_epilogue the im2col weights packed at every call) and the one
+    PyTorch call of the same function where there is one (``library_ms``,
+    ``library_device_ms``). Returns the two rows of the kernels line."""
     from pose_estimation_amitai_torch.ops import hopper_probes as hp
     from pose_estimation_amitai_torch.ops import hopper_qconv as hq
 
     x = hp.run_case_input("cuda")
     full = {g: hp.run_full_inputs(g, "cuda") for g in (1, 4)}
+    # the weights packed once, before anything is timed, as device_layers
+    # packs a served stage's
+    packed = {g: (xg, hq.pack_qconv_weights(hp._hwio(w)), m, bias)
+              for g, (xg, w, m, bias) in full.items()}
     a = torch.arange(8 * 128, device="cuda").to(torch.int8).reshape(8, 128)
     b = torch.ones((8, 128), dtype=torch.int8, device="cuda")
     ones = {n: torch.ones((n, 8, 128), device="cuda") for n in (8, 16, 32, 64)}
     xi = torch.ones((16, 8, 128), dtype=torch.int8, device="cuda")
-    # (name, kernel, plain, the one PyTorch call of the same function or None)
+    # (name, kernel, plain, the one PyTorch call of the same function or
+    # None, the kernel before on the same tensors, the by-kernel counter)
+    def bisect_spec(probe, library):
+        name = probe.__name__
+        return (name, lambda: probe(x), lambda: getattr(hp, name + "_plain")(x), library,
+                lambda: getattr(hp, name + "_on")("byte", x), probe.launches_by_kernel)
+
     bisect_specs = [
-        ("k_copy", lambda: hp.k_copy(x), lambda: hp.k_copy_plain(x), x.clone),
-        ("k_stage", lambda: hp.k_stage(x), lambda: hp.k_stage_plain(x), x.clone),
-        ("k_dyn_read", lambda: hp.k_dyn_read(x), lambda: hp.k_dyn_read_plain(x), x.clone),
-        ("k_reshape", lambda: hp.k_reshape(x), lambda: hp.k_reshape_plain(x), x.clone),
-        ("k_concat_dot", lambda: hp.k_concat_dot(x), lambda: hp.k_concat_dot_plain(x), None),
+        bisect_spec(hp.k_copy, x.clone), bisect_spec(hp.k_stage, x.clone),
+        bisect_spec(hp.k_dyn_read, x.clone), bisect_spec(hp.k_reshape, x.clone),
+        bisect_spec(hp.k_concat_dot, None),
     ] + [
-        (f"full_epilogue_grid{g}", lambda g=g: hp.full_epilogue(*full[g]),
-         lambda g=g: hp.full_epilogue_plain(*full[g]), None) for g in full
+        (f"full_epilogue_grid{g}", lambda g=g: hp.full_epilogue(*packed[g]),
+         lambda g=g: hp.full_epilogue_plain(*full[g]), None,
+         lambda g=g: hp.full_epilogue(*full[g]), hq.quantized_conv3x3.launches_by_kernel)
+        for g in full
     ]
     # a * 2 + b wrapping in int8 is one PyTorch call; held equal before timing
     check(bool(torch.equal(torch.add(b, a, alpha=2), hp.int8_vector_arith_plain(a, b))),
           "torch.add(b, a, alpha=2) differs from int8_vector_arith_plain")
     mosaic_specs = [
         ("int8_vector_arith", lambda: hp.int8_vector_arith(a, b),
-         lambda: hp.int8_vector_arith_plain(a, b), lambda: torch.add(b, a, alpha=2)),
+         lambda: hp.int8_vector_arith_plain(a, b), lambda: torch.add(b, a, alpha=2),
+         lambda: hp.int8_vector_arith_on("byte", a, b), hp.int8_vector_arith.launches_by_kernel),
     ] + [
         (f"grid_{n}", lambda n=n: hp.grid_scale(ones[n]),
-         lambda n=n: hp.grid_scale_plain(ones[n]), lambda n=n: torch.mul(ones[n], 2.0))
+         lambda n=n: hp.grid_scale_plain(ones[n]), lambda n=n: torch.mul(ones[n], 2.0),
+         lambda n=n: hp.grid_scale_on("byte", ones[n]), hp.grid_scale.launches_by_kernel)
         for n in ones
     ] + [
         ("int8_int32_grid_16", lambda: hp.int8_vector_in_grid(xi),
-         lambda: hp.int8_vector_in_grid_plain(xi), None),
+         lambda: hp.int8_vector_in_grid_plain(xi), None,
+         lambda: hp.int8_vector_in_grid_on("byte", xi),
+         hp.int8_vector_in_grid.launches_by_kernel),
     ]
 
     # ---- the probes, once each as the scripts run them: counters zeroed
     # just before, read just after ----
     for fn in hp.PROBES:
         fn.launches = 0
+        fn.launches_by_kernel.update(dict.fromkeys(hp.KERNEL_CODES, 0))
     full_before = hq.quantized_conv3x3.launches
-    outs = {name: kernel() for name, kernel, _, _ in bisect_specs + mosaic_specs}
+    outs, kernels = {}, {}
+    for name, kernel, _, _, _, counter in bisect_specs + mosaic_specs:
+        outs[name], kernels[name] = took(counter, kernel)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in hp.PROBES}
     launches["full_epilogue"] = hq.quantized_conv3x3.launches - full_before
@@ -1186,16 +1326,22 @@ def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
                        "k_concat_dot": 1, "full_epilogue": 2, "int8_vector_arith": 1,
                        "grid_scale": 4, "int8_vector_in_grid": 1},
           f"probe launch counts {launches}")
+    want_kernels = {name: "mma_s8" if name.startswith("full") else "vec16" for name in kernels}
+    check(kernels == want_kernels,
+          f"the probes took {kernels}: at C = 64, aligned, every probe of "
+          "probes.cu belongs on its 16-byte kernel")
     # the scripts' own expectations
     check(bool(torch.equal(outs["int8_vector_arith"], (a.int() * 2 + 1).to(torch.int8))),
           "int8 a * 2 + b did not wrap")
     check(all(bool((outs[f"grid_{n}"] == 2.0).all()) for n in ones), "a grid probe is not 2.0")
     check(bool((outs["int8_int32_grid_16"] == 2).all()), "int8_int32_grid_16 is not 2")
 
-    def compare(name, kernel_fn, plain_fn, library_fn) -> dict:
+    def compare(name, kernel_fn, plain_fn, library_fn, previous_fn, _) -> dict:
         got, want = outs[name], plain_fn()
         check(got.shape == want.shape and got.dtype == want.dtype
               and bool(torch.equal(got, want)), f"probe {name} differs from plain")
+        check(bool(torch.equal(previous_fn(), want)),
+              f"probe {name}: the kernel before differs from plain")
         conv = "dot" in name or "full" in name
         ops = 2.0 * 9 * want.numel() * want.shape[-1] if conv else 0.0
         reads = 2 if name == "int8_vector_arith" else 1  # inputs of the output's size
@@ -1203,11 +1349,17 @@ def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
         k_ms, p_ms, l_ms = compare_timed(torch, kernel_fn, plain_fn, 20, library_fn)
         return {"probe": name, "shape": list(want.shape),
                 "dtype": str(want.dtype).removeprefix("torch."), "max_abs_err": 0.0,
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": l_ms}
+                "kernel": kernels[name],
+                "ms": k_ms, "device_ms": graph_ms(torch, kernel_fn, 20),
+                "previous_ms": time_ms(torch, previous_fn, 20),
+                "previous_device_ms": graph_ms(torch, previous_fn, 20),
+                "plain_ms": p_ms, "library_ms": l_ms,
+                "library_device_ms": graph_ms(torch, library_fn, 20) if library_fn else None,
+                "bound_ms": bnd[0], "bound_by": bnd[1]}
 
     bisect = [compare(*spec) for spec in bisect_specs]
     mosaic = [compare(*spec) for spec in mosaic_specs]
+    launch_path = launch_path_costs(torch, hp, a, b)
     csrc = "pose_estimation_amitai_torch/csrc/probes.cu"
     rows = []
     for name, cases, replaces, names in (
@@ -1225,16 +1377,24 @@ def phase_probes(torch, device_name: str, smi: str) -> list[dict]:
             "max_abs_err": 0.0, "tolerance": "outputs equal",
             # summed over the probes, one launch each
             "ms": sum(c["ms"] for c in cases),
+            "device_ms": sum(c["device_ms"] for c in cases),
+            "previous_ms": sum(c["previous_ms"] for c in cases),
+            "previous_device_ms": sum(c["previous_device_ms"] for c in cases),
+            "device_method": "cuda_graph",
+            "kernel": [c["kernel"] for c in cases],
             "plain_ms": sum(c["plain_ms"] for c in cases),
             "bound_ms": sum(c["bound_ms"] for c in cases),
             "bound_by": max(cases, key=lambda c: c["bound_ms"])["bound_by"],
             # summed over those probes, beside the kernels' time on them
             "library_ms": sum(c["library_ms"] for c in lib),
+            "library_device_ms": sum(c["library_device_ms"] for c in lib),
             "library_probes": [c["probe"] for c in lib],
             "ms_of_library_probes": sum(c["ms"] for c in lib),
+            "device_ms_of_library_probes": sum(c["device_ms"] for c in lib),
         })
     emit({"phase": "probes", "device": device_name, "nvidia_smi": smi,
-          "launches": launches, "bisect": bisect, "mosaic": mosaic})
+          "launches": launches, "device_method": "cuda_graph",
+          "bisect": bisect, "mosaic": mosaic, "launch_path_ms": launch_path})
     return rows
 
 

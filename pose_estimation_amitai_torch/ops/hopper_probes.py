@@ -15,7 +15,8 @@ Counterparts of the Pallas probes of ``scripts/exp_im2col_bisect.py``
   (9 * C, C) weights, clipped to +-127;
 * :func:`full_epilogue` — ``full_kernel``: the single int8 conv of
   ``hopper_qconv.quantized_conv3x3`` with a requant of 64 on (9 * C, C)
-  weights, whatever the batch (the script's grid 1 and 4);
+  weights, im2col int8 or packed by ``pack_qconv_weights``, whatever the
+  batch (the script's grid 1 and 4);
 * :func:`int8_vector_arith` — ``a * 2 + b`` in int8, wrapping;
 * :func:`grid_scale` — ``x * 2.0`` on (n, rows, cols) float32, one block
   per slab (``probe_grid``);
@@ -26,11 +27,21 @@ On a CUDA tensor each launches ``csrc/probes.cu`` (``full_epilogue``:
 ``csrc/qconv_stage.cu``); on a CPU tensor it runs its ``*_plain`` version.
 Nothing falls back from one to the other. Every kernel equals its plain
 version, every element.
+
+Each probe of ``csrc/probes.cu`` has two kernels, and a rule on the operands
+chooses: ``"vec16"`` moves 16 bytes a thread (the staged ones need C a
+multiple of 16, all need 16-byte aligned operands), ``"byte"`` one element
+a thread and takes every operand. :func:`probe_kernel_for` is the staged
+probes' rule, :func:`flat_kernel_for` the others'. ``<probe>_on(kernel,
+...)`` runs the kernel the caller names: the rule's, or ``"byte"``. Each
+launch adds one to ``<probe>.launches`` and to
+``<probe>.launches_by_kernel[kernel]``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -40,7 +51,8 @@ from .hopper_conv import check_operand
 from .hopper_qconv import quantized_conv3x3, quantized_conv3x3_plain
 from .int8_conv import conv_s32
 
-MAX_C = 64  # channels of a staged tile (16 x 32 pixels + halo in 48 KB)
+KERNEL_CODES = {"byte": 0, "vec16": 1}  # csrc/probes.cu: KERNEL_BYTE, KERNEL_VEC16
+MAX_C = 64  # channels of a staged tile
 BAND = 4  # rows of a band of k_dyn_read and k_reshape
 
 
@@ -81,7 +93,10 @@ def k_concat_dot_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
-    """(9 * C, Cout) im2col weights, row = tap * C + ci -> (3, 3, C, Cout)."""
+    """(9 * C, Cout) im2col weights, row = tap * C + ci -> (3, 3, C, Cout);
+    packed int32 weights as they are."""
+    if w.dtype == torch.int32:
+        return w
     return w.reshape(3, 3, w.shape[0] // 9, w.shape[1])
 
 
@@ -104,22 +119,57 @@ def int8_vector_in_grid_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# which kernel
+# ---------------------------------------------------------------------------
+def probe_kernel_for(x: torch.Tensor) -> str:
+    """The kernel of a staged probe (:func:`k_stage`, :func:`k_dyn_read`,
+    :func:`k_reshape`, :func:`k_concat_dot`) on the (B, H, W, C) int8 ``x``:
+    ``"vec16"`` where C is a multiple of 16 and ``x`` starts on a 16-byte
+    boundary (so does every pixel then), else ``"byte"``."""
+    return "vec16" if x.shape[-1] % 16 == 0 and x.data_ptr() % 16 == 0 else "byte"
+
+
+def flat_kernel_for(*operands: torch.Tensor) -> str:
+    """The kernel of :func:`k_copy` and of the Mosaic script's probes:
+    ``"vec16"`` where every operand starts on a 16-byte boundary (a scalar
+    head and tail take any length), else ``"byte"``."""
+    for t in operands:
+        if t.data_ptr() % 16:
+            return "byte"
+    return "vec16"
+
+
+def _check_kernel(wrapper, kernel: str, ruled: str) -> None:
+    if kernel != "byte" and kernel != ruled:
+        raise ValueError(f"{wrapper.__name__}: kernel {kernel!r} does not take "
+                         f"these operands (the rule names {ruled!r})")
+
+
+# ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("probes")
-    if lib.pe_probe_copy.argtypes is None:
+_FNS = None  # the library's typed entry points, resolved at the first launch
+
+
+def _fns() -> SimpleNamespace:
+    """``csrc/probes.cu``'s entry points with their argument types, and
+    PyTorch's getter of a device's current raw stream (CUDA builds only)."""
+    global _FNS
+    if _FNS is None:
+        lib = _build.load("probes")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn, args in (
-            (lib.pe_probe_copy, [p, p, ll, p]),
-            (lib.pe_probe_staged, [i, p, p, i, i, i, i, i, p]),
-            (lib.pe_probe_int8_axpb, [p, p, p, ll, p]),
-            (lib.pe_probe_grid_scale, [p, p, i, i, p]),
-            (lib.pe_probe_int8_in_grid, [p, p, i, i, p]),
-        ):
-            fn.argtypes = args
+        fns = {}
+        for name, args in (("copy", [p, p, ll]),
+                           ("staged", [i, p, p, i, i, i, i, i]),
+                           ("int8_axpb", [p, p, p, ll]),
+                           ("grid_scale", [p, p, i, i]),
+                           ("int8_in_grid", [p, p, i, i])):
+            fn = getattr(lib, "pe_probe_" + name)
+            fn.argtypes = [i, *args, i, p]  # kernel, ..., device, stream
             fn.restype = ctypes.c_int
-    return lib
+            fns[name] = fn
+        _FNS = SimpleNamespace(stream=torch._C._cuda_getCurrentRawStream, **fns)
+    return _FNS
 
 
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype, dim: int) -> None:
@@ -131,31 +181,51 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, dim: int) -> None:
         raise ValueError(f"{name}: must be contiguous, non-empty, {dim}-D")
 
 
-def _launch(wrapper, symbol: str, like: torch.Tensor, args) -> torch.Tensor:
-    """Run ``lib.<symbol>(*args(out), stream)`` on like's device and stream;
-    count the launch on ``wrapper``."""
-    out = torch.empty_like(like)
-    with torch.cuda.device(like.device):
-        stream = torch.cuda.current_stream(like.device).cuda_stream
-        rc = getattr(_lib(), symbol)(*args(out), stream)
+def _launch(wrapper, kernel: str, entry: str, like: torch.Tensor, *args) -> None:
+    """Run ``pe_probe_<entry>(kernel, *args, device, stream)`` on like's
+    device and its current stream; count the launch on ``wrapper``."""
+    fns = _fns()
+    dev = like.get_device()
+    rc = getattr(fns, entry)(KERNEL_CODES[kernel], *args, dev, fns.stream(dev))
     if rc != 0:
-        raise RuntimeError(f"{wrapper.__name__} kernel: CUDA error {rc}")
+        raise RuntimeError(f"{wrapper.__name__} kernel {kernel}: CUDA error {rc}")
     wrapper.launches += 1
-    return out
+    wrapper.launches_by_kernel[kernel] += 1
 
 
 def k_copy(x: torch.Tensor) -> torch.Tensor:
     """Identity copy of an int8 tensor."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return k_copy_plain(x)
+    return _k_copy(flat_kernel_for(x), x)
+
+
+def k_copy_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    """:func:`k_copy` on the kernel the caller names: ``flat_kernel_for(x)``
+    or ``"byte"``. Raises for any other name and for a CPU tensor."""
+    _check_kernel(k_copy, kernel, flat_kernel_for(x))
+    return _k_copy(kernel, x)
+
+
+def _k_copy(kernel: str, x: torch.Tensor) -> torch.Tensor:
     _check("x", x, torch.int8, x.dim())
-    return _launch(k_copy, "pe_probe_copy", x,
-                   lambda o: (x.data_ptr(), o.data_ptr(), x.numel()))
+    out = torch.empty_like(x)
+    _launch(k_copy, kernel, "copy", x, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
 
 
 def _staged(wrapper, mode: int, x: torch.Tensor, plain) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return plain(x)
+    return _staged_run(wrapper, mode, probe_kernel_for(x), x)
+
+
+def _staged_on(wrapper, mode: int, kernel: str, x: torch.Tensor) -> torch.Tensor:
+    _check_kernel(wrapper, kernel, probe_kernel_for(x))
+    return _staged_run(wrapper, mode, kernel, x)
+
+
+def _staged_run(wrapper, mode: int, kernel: str, x: torch.Tensor) -> torch.Tensor:
     _check("x", x, torch.int8, 4)
     b, h, w, c = x.shape
     if c > MAX_C or (mode == 3 and c % 4):
@@ -163,8 +233,12 @@ def _staged(wrapper, mode: int, x: torch.Tensor, plain) -> torch.Tensor:
                          + (", a multiple of 4" if mode == 3 else ""))
     if b > 65535:
         raise ValueError(f"batch {b} outside 1..65535")
-    return _launch(wrapper, "pe_probe_staged", x, lambda o: (
-        mode, x.data_ptr(), o.data_ptr(), b, h, w, c, BAND))
+    if h * w * c >= 2 ** 31:
+        raise ValueError("the kernels index a frame in 32 bits")
+    out = torch.empty_like(x)
+    _launch(wrapper, kernel, "staged", x,
+            mode, x.data_ptr(), out.data_ptr(), b, h, w, c, BAND)
+    return out
 
 
 def k_stage(x: torch.Tensor) -> torch.Tensor:
@@ -173,10 +247,20 @@ def k_stage(x: torch.Tensor) -> torch.Tensor:
     return _staged(k_stage, 0, x, k_stage_plain)
 
 
+def k_stage_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    """:func:`k_stage` on ``probe_kernel_for(x)`` or ``"byte"``; raises for
+    any other name and for a CPU tensor. So do the other ``*_on``."""
+    return _staged_on(k_stage, 0, kernel, x)
+
+
 def k_dyn_read(x: torch.Tensor) -> torch.Tensor:
     """As :func:`k_stage`, read in bands at a run-time row offset, each with
     its column halo, interior columns kept."""
     return _staged(k_dyn_read, 1, x, k_dyn_read_plain)
+
+
+def k_dyn_read_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    return _staged_on(k_dyn_read, 1, kernel, x)
 
 
 def k_reshape(x: torch.Tensor) -> torch.Tensor:
@@ -185,30 +269,51 @@ def k_reshape(x: torch.Tensor) -> torch.Tensor:
     return _staged(k_reshape, 2, x, k_reshape_plain)
 
 
+def k_reshape_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    return _staged_on(k_reshape, 2, kernel, x)
+
+
 def k_concat_dot(x: torch.Tensor) -> torch.Tensor:
     """9-tap dilation-2 SAME int8 conv of (B, H, W, C), all-ones (9 * C, C)
     weights, clipped to +-127."""
     return _staged(k_concat_dot, 3, x, k_concat_dot_plain)
 
 
+def k_concat_dot_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    return _staged_on(k_concat_dot, 3, kernel, x)
+
+
 def full_epilogue(x, w, mult, bias) -> torch.Tensor:
     """``full_kernel``: int8 conv, dequant, LeakyReLU 0.1, requant ``* 64``,
-    on im2col weights (9 * C, Cout). The kernel is ``quantized_conv3x3``'s;
-    its launches count there."""
-    if x.device.type == "cpu":
+    on im2col weights (9 * C, Cout) int8 or on the same packed once by
+    ``pack_qconv_weights`` ((9, C / 4, Cout) int32, which nothing repacks).
+    The kernel is ``quantized_conv3x3``'s; its launches count there."""
+    if x.is_cpu:
         return full_epilogue_plain(x, w, mult, bias)
-    check_operand("w", w, (9 * x.shape[-1], w.shape[-1]), torch.int8, x.device)
+    if w.dtype != torch.int32:  # packed weights are checked by quantized_conv3x3
+        check_operand("w", w, (9 * x.shape[-1], w.shape[-1]), torch.int8, x.device)
     return quantized_conv3x3(x, _hwio(w), mult, bias, inv_out=64.0)
 
 
 def int8_vector_arith(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a * 2 + b`` on int8 tensors of one shape, wrapping."""
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return int8_vector_arith_plain(a, b)
+    return _int8_vector_arith(flat_kernel_for(a, b), a, b)
+
+
+def int8_vector_arith_on(kernel: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _check_kernel(int8_vector_arith, kernel, flat_kernel_for(a, b))
+    return _int8_vector_arith(kernel, a, b)
+
+
+def _int8_vector_arith(kernel: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     _check("a", a, torch.int8, a.dim())
     check_operand("b", b, tuple(a.shape), torch.int8, a.device)
-    return _launch(int8_vector_arith, "pe_probe_int8_axpb", a, lambda o: (
-        a.data_ptr(), b.data_ptr(), o.data_ptr(), a.numel()))
+    out = torch.empty_like(a)
+    _launch(int8_vector_arith, kernel, "int8_axpb", a,
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel())
+    return out
 
 
 def _slabs(x: torch.Tensor) -> tuple[int, int]:
@@ -218,21 +323,43 @@ def _slabs(x: torch.Tensor) -> tuple[int, int]:
 
 def grid_scale(x: torch.Tensor) -> torch.Tensor:
     """``x * 2.0`` on float32 (n, rows, cols): a grid of n blocks."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return grid_scale_plain(x)
+    return _grid_scale(flat_kernel_for(x), x)
+
+
+def grid_scale_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    _check_kernel(grid_scale, kernel, flat_kernel_for(x))
+    return _grid_scale(kernel, x)
+
+
+def _grid_scale(kernel: str, x: torch.Tensor) -> torch.Tensor:
     _check("x", x, torch.float32, 3)
-    return _launch(grid_scale, "pe_probe_grid_scale", x, lambda o: (
-        x.data_ptr(), o.data_ptr(), *_slabs(x)))
+    out = torch.empty_like(x)
+    _launch(grid_scale, kernel, "grid_scale", x,
+            x.data_ptr(), out.data_ptr(), *_slabs(x))
+    return out
 
 
 def int8_vector_in_grid(x: torch.Tensor) -> torch.Tensor:
     """``int8(((int32)x * 3 + 7) >> 2)`` on int8 (n, rows, cols): a grid of
     n blocks."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return int8_vector_in_grid_plain(x)
+    return _int8_vector_in_grid(flat_kernel_for(x), x)
+
+
+def int8_vector_in_grid_on(kernel: str, x: torch.Tensor) -> torch.Tensor:
+    _check_kernel(int8_vector_in_grid, kernel, flat_kernel_for(x))
+    return _int8_vector_in_grid(kernel, x)
+
+
+def _int8_vector_in_grid(kernel: str, x: torch.Tensor) -> torch.Tensor:
     _check("x", x, torch.int8, 3)
-    return _launch(int8_vector_in_grid, "pe_probe_int8_in_grid", x, lambda o: (
-        x.data_ptr(), o.data_ptr(), *_slabs(x)))
+    out = torch.empty_like(x)
+    _launch(int8_vector_in_grid, kernel, "int8_in_grid", x,
+            x.data_ptr(), out.data_ptr(), *_slabs(x))
+    return out
 
 
 # every probe that launches a kernel of csrc/probes.cu
@@ -240,3 +367,4 @@ PROBES = (k_copy, k_stage, k_dyn_read, k_reshape, k_concat_dot,
           int8_vector_arith, grid_scale, int8_vector_in_grid)
 for _fn in PROBES:
     _fn.launches = 0
+    _fn.launches_by_kernel = dict.fromkeys(KERNEL_CODES, 0)

@@ -335,6 +335,11 @@ def test_full_epilogue_kernel_equals_plain(cuda, grid_b):
     torch.cuda.synchronize()
     assert hq.quantized_conv3x3.launches == before + 1
     assert torch.equal(got, hp.full_epilogue_plain(*args))
+    x, w, m, b = args  # the weights packed once: no pack launch in the call
+    packed = hq.pack_qconv_weights(hp._hwio(w))
+    packs = hq.pack_qconv_weights.launches
+    assert torch.equal(hp.full_epilogue(x, packed, m, b), got)
+    assert hq.pack_qconv_weights.launches == packs
 
 
 def test_mosaic_probe_kernels_equal_plain(cuda):
@@ -352,6 +357,86 @@ def test_mosaic_probe_kernels_equal_plain(cuda):
         hp.grid_scale(xi)
     with pytest.raises(ValueError, match="at most 64"):
         hp.k_stage(_int8(rng, 1, 8, 8, 65))
+
+
+def _offset_view(t, offset=1):
+    """A contiguous copy of ``t`` that starts ``offset`` bytes past a 16-byte
+    boundary."""
+    step = t.element_size()
+    buf = torch.empty(t.numel() * step + 16 + offset, dtype=torch.int8, device=t.device)
+    start = (-buf.data_ptr()) % 16 + offset
+    view = buf[start:start + t.numel() * step].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset % 16
+    return view
+
+
+def _probe_kernels(fn, call):
+    """(call(), the kernels it launched by ``fn.launches_by_kernel``), with
+    ``fn.launches`` checked to count the same launches."""
+    before, launches = dict(fn.launches_by_kernel), fn.launches
+    out = call()
+    torch.cuda.synchronize()
+    ran = tuple(k for k in fn.launches_by_kernel
+                for _ in range(fn.launches_by_kernel[k] - before[k]))
+    assert fn.launches == launches + len(ran)
+    return out, ran
+
+
+@pytest.mark.parametrize("shape", [(1, 192, 192, 64), (2, 37, 50, 48), (3, 16, 32, 16),
+                                   (2, 9, 11, 12), "unaligned"])
+@pytest.mark.parametrize("name", ["k_stage", "k_dyn_read", "k_reshape", "k_concat_dot"])
+def test_staged_probe_on_both_kernels_equals_plain(cuda, name, shape):
+    """The rule's kernel and the byte-wise one, each equal to plain; where
+    the rule names the byte-wise kernel (C off 16, an unaligned frame) the
+    16-byte one is refused."""
+    rng = np.random.default_rng(7)
+    lim = 2 if name == "k_concat_dot" else 127
+    x = _offset_view(_int8(rng, 2, 13, 21, 32, lim=lim)) if shape == "unaligned" \
+        else _int8(rng, *shape, lim=lim)
+    fn, on = getattr(hp, name), getattr(hp, name + "_on")
+    want = getattr(hp, name + "_plain")(x)
+    expect = "vec16" if shape not in ("unaligned", (2, 9, 11, 12)) else "byte"
+    assert hp.probe_kernel_for(x) == expect
+    got, ran = _probe_kernels(fn, lambda: fn(x))
+    assert ran == (expect,) and torch.equal(got, want)
+    got, ran = _probe_kernels(fn, lambda: on("byte", x))
+    assert ran == ("byte",) and torch.equal(got, want)
+    if expect == "byte":
+        with pytest.raises(ValueError, match="does not take"):
+            on("vec16", x)
+    if name == "k_concat_dot":  # sums short of the clip
+        assert (want.abs() < 127).float().mean().item() > 0.1
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("name", ["k_copy", "int8_vector_arith", "grid_scale",
+                                  "int8_vector_in_grid"])
+def test_flat_probe_with_a_tail_on_both_kernels_equals_plain(cuda, name, aligned):
+    """Sizes off 16 bytes (a scalar tail; slabs that start off a 16-byte
+    boundary: a scalar head), the script's probes at their own sizes."""
+    rng = np.random.default_rng(3)
+    if name == "grid_scale":
+        ops = [torch.from_numpy(rng.standard_normal((5, 7, 9)).astype(np.float32)).cuda()]
+    elif name == "int8_vector_in_grid":
+        ops = [_int8(rng, 6, 5, 13, lim=127)]
+    elif name == "int8_vector_arith":
+        ops = [_int8(rng, 3, 333, lim=127), _int8(rng, 3, 333, lim=127)]
+    else:
+        ops = [_int8(rng, 2, 37, 50, 3, lim=127)]
+    assert ops[0].numel() * ops[0].element_size() % 16
+    if not aligned:
+        ops = [_offset_view(t, offset=4 if t.dtype == torch.float32 else 3) for t in ops]
+    fn, on = getattr(hp, name), getattr(hp, name + "_on")
+    want = getattr(hp, name + "_plain")(*ops)
+    expect = "vec16" if aligned else "byte"
+    assert hp.flat_kernel_for(*ops) == expect
+    got, ran = _probe_kernels(fn, lambda: fn(*ops))
+    assert ran == (expect,) and torch.equal(got, want)
+    got, ran = _probe_kernels(fn, lambda: on("byte", *ops))
+    assert ran == ("byte",) and torch.equal(got, want)
+    with pytest.raises(ValueError, match="does not take"):
+        on("vec16" if not aligned else "dp4a", *ops)
 
 
 @pytest.mark.parametrize("four", [False, True])

@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from pose_estimation_amitai_torch.ops import hopper_probes as hp
+from pose_estimation_amitai_torch.ops import hopper_qconv as hq
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,6 +82,8 @@ def test_full_epilogue_matches_pallas_body(bisect, grid_b):
     diff = np.abs(plain.numpy().astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
     np.testing.assert_array_equal(hp.full_epilogue(x, w, m, b).numpy(), plain.numpy())
+    packed = hq.pack_qconv_weights(hp._hwio(w))  # packed once, as the card's run does
+    np.testing.assert_array_equal(hp.full_epilogue(x, packed, m, b).numpy(), plain.numpy())
 
 
 def test_run_full_inputs_are_the_scripts():
@@ -137,3 +140,85 @@ def test_int8_vector_in_grid_shifts_arithmetically():
         jnp.int8))
     np.testing.assert_array_equal(hp.int8_vector_in_grid_plain(full).numpy(), want)
     assert want[0, 0, 0] == -95  # floor(-377 / 4): a truncating shift gives -94
+
+
+def test_full_epilogue_takes_packed_weights():
+    """Weights packed once by ``pack_qconv_weights``: the same answer as the
+    im2col int8 weights they came from, on a ragged frame."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-80, 80, (2, 11, 13, 64)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-90, 90, (9 * 64, 24)).astype(np.int8))
+    m = torch.from_numpy(rng.uniform(5e-4, 2e-3, 24).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(-0.1, 0.1, 24).astype(np.float32))
+    packed = hq.pack_qconv_weights(hp._hwio(w))
+    assert packed.dtype == torch.int32 and packed.shape == (9, 16, 24)
+    assert hp._hwio(packed) is packed
+    want = hp.full_epilogue_plain(x, w, m, b)
+    assert 10 < want.float().abs().mean() and want.abs().max() == 127
+    assert torch.equal(hp.full_epilogue_plain(x, packed, m, b), want)
+    assert torch.equal(hp.full_epilogue(x, packed, m, b), want)
+
+
+def _offset_view(t, offset):
+    """A contiguous copy of ``t`` starting ``offset`` bytes past a 16-byte
+    boundary."""
+    buf = torch.zeros(t.numel() * t.element_size() + 32, dtype=torch.int8)
+    start = (-buf.data_ptr()) % 16 + offset
+    view = buf[start:start + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == offset
+    return view
+
+
+@pytest.mark.parametrize("c, offset, kernel", [
+    (64, 0, "vec16"), (48, 0, "vec16"), (16, 0, "vec16"), (12, 0, "byte"), (4, 0, "byte"),
+    (64, 1, "byte"), (64, 8, "byte"),
+])
+def test_probe_kernel_for_names_by_channels_and_alignment(c, offset, kernel):
+    """The staged probes' rule: the 16-byte kernel takes C a multiple of 16
+    on a frame that starts on a 16-byte boundary; the byte-wise one the rest."""
+    x = _offset_view(torch.ones((2, 5, 7, c), dtype=torch.int8), offset)
+    assert hp.probe_kernel_for(x) == kernel
+
+
+@pytest.mark.parametrize("offsets, kernel", [((0,), "vec16"), ((0, 0), "vec16"),
+                                             ((3,), "byte"), ((0, 4), "byte")])
+def test_flat_kernel_for_names_by_alignment(offsets, kernel):
+    """The other probes' rule: every operand on a 16-byte boundary, whatever
+    its length (the kernel takes a tail), or the byte-wise kernel."""
+    ops = [_offset_view(torch.ones((3, 37), dtype=torch.int8), o) for o in offsets]
+    assert hp.flat_kernel_for(*ops) == kernel
+
+
+@pytest.mark.parametrize("name, shape, dtype", [
+    ("k_copy", (2, 5, 7, 3), torch.int8), ("k_stage", (1, 8, 8, 12), torch.int8),
+    ("k_dyn_read", (1, 8, 8, 12), torch.int8), ("k_reshape", (1, 8, 8, 4), torch.int8),
+    ("k_concat_dot", (1, 8, 8, 12), torch.int8), ("int8_vector_arith", (8, 33), torch.int8),
+    ("grid_scale", (4, 8, 9), torch.float32), ("int8_vector_in_grid", (4, 8, 9), torch.int8),
+])
+def test_on_entry_points_refuse_a_kernel_the_rule_does_not_give(name, shape, dtype):
+    """``<probe>_on`` takes the rule's kernel or ``"byte"`` and nothing else,
+    before it looks at the device; the CPU tensor is then refused, since
+    the CPU runs the plain version through the probe itself."""
+    on = getattr(hp, name + "_on")
+    x = torch.ones(shape, dtype=dtype)
+    ops = (x, x) if name == "int8_vector_arith" else (x,)
+    if name in ("k_copy", "int8_vector_arith", "grid_scale", "int8_vector_in_grid"):
+        ops = tuple(_offset_view(t, 4) for t in ops)  # off 16 bytes: the rule says byte
+    ruled = (hp.flat_kernel_for(*ops) if len(shape) != 4 or name == "k_copy"
+             else hp.probe_kernel_for(*ops))
+    assert ruled == "byte"
+    for wrong in ("vec16", "mma", "dp4a"):
+        with pytest.raises(ValueError, match="does not take"):
+            on(wrong, *ops)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        on("byte", *ops)
+    assert torch.equal(getattr(hp, name)(*ops), getattr(hp, name + "_plain")(*ops))
+
+
+def test_probe_counters_count_by_kernel():
+    """Every probe counts its launches by kernel, one key a kernel of
+    ``csrc/probes.cu``, summing to its total."""
+    for fn in hp.PROBES:
+        assert set(fn.launches_by_kernel) == set(hp.KERNEL_CODES) == {"byte", "vec16"}
+        assert fn.launches == sum(fn.launches_by_kernel.values())
