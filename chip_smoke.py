@@ -95,7 +95,29 @@ Phases, each printing one JSON line ({"phase": ...}):
              one 256-frame chunk with the encoder-stage and decoder counters
              zeroed just before and read just after (every conv on a
              tensor-core kernel), its maps within 5% of max of the trained
-             module's eval forward.
+             module's eval forward;
+12. trainer - the Trainer at Config() (filters 64, batch 8, augmentation
+             and dropout on) on the train phase's 16 synthetic frames: 3
+             epochs of 10 updates, then a second Trainer resuming the run
+             directory to 5 epochs (it must start at epoch 3 with the step
+             and Adam state restored); the run directory's files (the PNGs
+             reported as skipped where matplotlib is missing); the epoch
+             loop's time by the host clock around train() (synchronised),
+             each epoch's, a validation pass's, and the step rate beside the
+             train phase's bare step; then Predictor.from_checkpoint on the
+             resumed run directory with use_fused=True: 256 frames with the
+             encoder-stage and decoder counters zeroed just before and read
+             just after, its maps within 5% of max of the module route on
+             the same run directory;
+13. multicam - ALL_CAMS_18_POINTS MultiCamNet at full width (filters 64,
+             192x192x16 -> 72, torch flavour, bf16) through the Trainer: 2
+             epochs of 5 updates, batch 8, per-view augmentation; its run
+             directory served on 64 frames folded and unfolded, in float32
+             with TF32 off (within 1e-4 of max) and in bf16 (within 1% of
+             max, the argmax equal wherever the top-two gap exceeds 2e-4);
+             then one forward each of TwoWingsNet, C2FPerWing and the tf
+             flavour MultiCamNet with attention fusion, at full width and
+             batch 8: finite maps of the right shapes.
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
@@ -107,7 +129,8 @@ that computes the same function, where there is one (the attention kernel:
 that have one, named in ``library_probes``, beside ``ms_of_library_probes``,
 the kernels' time on the same probes), else null. The encoder-stage and
 decoder rows also carry ``train_launches``, their launches on the trained
-weights' chunk. The rows of the kernels that
+weights' chunk, and ``trainer_launches``, theirs on the Trainer's run
+directory served through ``Predictor.from_checkpoint``. The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
@@ -171,6 +194,18 @@ TRAIN_GRAD_RTOL = 1e-3  # each gradient tensor, of its largest element
 # TRAIN_GRAD_RTOL of zero, relative
 TRAIN_PARAM_ATOL = 1e-6
 ADAM_EPS = 1e-8  # torch.optim.Adam's and optax.adam's default
+# the trainer phase: Trainer at Config() on the train phase's 16 frames
+TRAINER_EPOCHS = (3, 5)  # the first run's epochs, the resumed run's
+TRAINER_UPDATES = 10  # batches_per_epoch (accumulation 1)
+VAL_REPS = 3  # timed validation passes after the run
+# the multicam phase: ALL_CAMS_18_POINTS at full width
+MULTICAM_EPOCHS = 2
+MULTICAM_UPDATES = 5
+MULTICAM_FRAMES = 64  # served folded and unfolded, one chunk each
+MULTICAM_F32_RTOL = 1e-4  # folded vs unfolded maps, float32 (TF32 off), of max
+MULTICAM_BF16_RTOL = 1e-2  # folded vs unfolded maps, bf16, of max
+MULTICAM_GAP = 2e-4  # argmax equal wherever the top-two gap exceeds this
+ZOO_BATCH = 8  # one forward of each other new model, full width
 
 
 def emit(obj: dict) -> None:
@@ -1607,6 +1642,242 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
     return result
 
 
+def phase_trainer(torch, device_name: str, smi: str, step_ms: float) -> dict:
+    """The Trainer at Config() through a run and a resume on the card; its
+    run directory served through the encoder-stage and decoder kernels."""
+    import os
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config, viz
+    from pose_estimation_amitai_torch.data import make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.train.trainer import LOSSES_HEADER, RUN_SUBFOLDERS, Trainer
+
+    t_phase = time.perf_counter()
+    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                   image_size=192, seed=SEED)
+    k = TRAIN_POINTS // 2 + 2
+    with tempfile.TemporaryDirectory() as out:
+        cfg = Config(base_output_path=out, epochs=TRAINER_EPOCHS[0],
+                     batches_per_epoch=TRAINER_UPDATES)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, arrays=arrays, device="cuda")
+        t_init = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = tr.train()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        steps = TRAINER_EPOCHS[0] * TRAINER_UPDATES
+        check(tr.state.step == steps, f"the trainer took {tr.state.step} steps, not {steps}")
+        check(len(history["train_loss"]) == TRAINER_EPOCHS[0]
+              and bool(np.isfinite(history["train_loss"] + history["val_loss"]
+                                   + history["l2"]).all()), f"history {history}")
+        val_ms = []
+        for _ in range(VAL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.evaluate()
+            torch.cuda.synchronize()
+            val_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # the run directory: JAX's artifacts with .pt for .msgpack
+        rp = tr.run_path
+        files = sorted(os.listdir(rp))
+        want = {"configuration.json", "losses.csv", "history.csv", "history.mat",
+                "checkpoint.pt", "checkpoint_meta.json", "best_model.pt", "initial_model.pt",
+                "final_confmaps_model.pt", "training code", *RUN_SUBFOLDERS}
+        check(want <= set(files), f"run directory lacks {sorted(want - set(files))}")
+        with open(os.path.join(rp, "losses.csv")) as f:
+            rows = [line.strip().split(",") for line in f]
+        check(rows[0] == LOSSES_HEADER and len(rows) == 1 + TRAINER_EPOCHS[0],
+              f"losses.csv {rows}")
+        pngs = [f for _, _, fs in os.walk(rp) for f in fs if f.endswith(".png")]
+        if viz.available():
+            check(bool(pngs) and not tr.pngs_skipped, "matplotlib is there but no PNG")
+        else:
+            check(tr.pngs_skipped and not pngs, f"PNGs without matplotlib: {pngs}")
+
+        # resume to the later epoch count
+        tr2 = Trainer(cfg.replace(epochs=TRAINER_EPOCHS[1], resume_from=rp), arrays=arrays,
+                      device="cuda")
+        check(tr2.start_epoch == TRAINER_EPOCHS[0] and tr2.state.step == steps
+              and len(tr2.state.opt_state["state"]) == len(tr2.state.params),
+              f"resumed at epoch {tr2.start_epoch}, step {tr2.state.step}")
+        history2 = tr2.train()
+        check(len(history2["train_loss"]) == TRAINER_EPOCHS[1] - TRAINER_EPOCHS[0]
+              and bool(np.isfinite(history2["train_loss"]).all())
+              and tr2.state.step == TRAINER_EPOCHS[1] * TRAINER_UPDATES,
+              f"resumed run {history2}, step {tr2.state.step}")
+
+        # the resumed run directory, served through the kernels
+        served_dir = tr2.run_path
+        frames = torch.cat([tr.dataset.data["box"], tr.dataset.data["box"].flip(1)]).cpu().numpy()
+        pred = Predictor.from_checkpoint(cfg, served_dir, (192, 192, 4), k, use_fused=True,
+                                         device="cuda", chunk_size=CHUNK, return_heatmaps=True)
+        check(pred.serving_path == "fused", f"serving_path {pred.serving_path}")
+        pred(frames[:1])  # warm-up
+        # ---- the served chunk: counters zeroed just before, read just after ----
+        zero_conv_counters(hc, hd)
+        maps, pts = pred(frames)
+        launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                    "fused_decoder": hd.fused_decoder.launches}
+        convs = dict(hc.fused_encoder_stage.convs_by_kernel)
+        up2 = dict(hd.fused_decoder.up2_by_kernel)
+        # -----------------------------------------------------------------------
+        check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1}
+              and convs == {"fma": 0, "mma": 8, "mma_c4": 1} and up2 == {"fma": 0, "mma": 2},
+              f"the run directory's chunk took {launches}, {convs}, {up2}")
+        check(maps.shape == (len(frames), 192, 192, k) == (CHUNK, 192, 192, k)
+              and bool(np.isfinite(pts).all()), f"served {maps.shape}")
+        module = Predictor.from_checkpoint(cfg, served_dir, (192, 192, 4), k, device="cuda",
+                                           chunk_size=CHUNK, return_heatmaps=True)
+        check(module.serving_path == "module", f"serving_path {module.serving_path}")
+        want_maps, _ = module(frames)
+        top = float(np.abs(want_maps).max())
+        serve_err = float(np.abs(maps - want_maps).max())
+        check(serve_err <= ROUTE_RTOL * top,
+              f"fused vs module on the run directory: {serve_err} > {ROUTE_RTOL} * {top}")
+        served_file = os.path.basename(
+            next(os.path.join(served_dir, n) for n in ("best_model.pt", "checkpoint.pt")
+                 if os.path.isfile(os.path.join(served_dir, n))))
+
+    epoch_ms = [s * 1e3 for s in history["epoch_seconds"]]
+    loop_steps_per_s = steps / t_train
+    result = {
+        "phase": "trainer", "device": device_name, "nvidia_smi": smi,
+        "model": "BasicNet MODEL_18_POINTS_PER_WING at Config(): filters 64, batch 8, "
+                 "bf16 compute, augmentation, dropout 0.5, 192x192x4 -> 18",
+        "epochs": list(TRAINER_EPOCHS), "updates_per_epoch": TRAINER_UPDATES,
+        "init_seconds": t_init, "train_seconds": t_train,
+        "loop_ms_per_epoch": t_train * 1e3 / TRAINER_EPOCHS[0],
+        "epoch_ms": epoch_ms, "validation_ms": val_ms,
+        "loop_steps_per_s": loop_steps_per_s,
+        "train_phase_step_ms": step_ms, "train_phase_steps_per_s": 1e3 / step_ms,
+        "epoch_ms_beyond_steps": float(np.mean(epoch_ms[1:])) - TRAINER_UPDATES * step_ms,
+        "history": history, "resumed_history": history2,
+        "resumed_at_epoch": TRAINER_EPOCHS[0], "pngs_skipped": tr.pngs_skipped,
+        "run_files": files,
+        "served": {"file": served_file, "launches": launches, "encoder_convs_by_kernel": convs,
+                   "decoder_up2_by_kernel": up2, "max_abs_err_vs_module": serve_err,
+                   "max_abs_maps": top, "rtol": ROUTE_RTOL},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
+def top_two_gap(maps: np.ndarray) -> np.ndarray:
+    """(N, K) gap between each map's largest and second largest values."""
+    flat = maps.reshape(maps.shape[0], -1, maps.shape[-1])
+    top2 = np.partition(flat, -2, axis=1)[:, -2:, :]
+    return top2[:, 1, :] - top2[:, 0, :]
+
+
+def phase_multicam(torch, device_name: str, smi: str) -> dict:
+    """MultiCamNet at full width through the Trainer; its run directory
+    served folded and unfolded; one forward of each other new model."""
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.data import make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.ops.peaks import find_peaks
+    from pose_estimation_amitai_torch.train import loop
+    from pose_estimation_amitai_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                   image_size=192, seed=SEED)
+    shape, k = (192, 192, 16), 4 * (TRAIN_POINTS // 2 + 2)
+    with tempfile.TemporaryDirectory() as out:
+        cfg = Config(model_type=C.ALL_CAMS_18_POINTS, base_output_path=out,
+                     epochs=MULTICAM_EPOCHS, batches_per_epoch=MULTICAM_UPDATES)
+        tr = Trainer(cfg, arrays=arrays, device="cuda")
+        check(tuple(tr.dataset.data["box"].shape[1:]) == shape
+              and tr.dataset.data["confmaps"].shape[-1] == k,
+              f"multicam samples {tuple(tr.dataset.data['box'].shape)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = tr.train()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        check(tr.state.step == MULTICAM_EPOCHS * MULTICAM_UPDATES
+              and bool(np.isfinite(history["train_loss"] + history["val_loss"]).all()),
+              f"multicam history {history}")
+        box = tr.dataset.data["box"]
+        frames = torch.cat([box, box.flip(1)])[:MULTICAM_FRAMES].cpu().numpy()
+        check(len(frames) == MULTICAM_FRAMES, f"{len(frames)} frames")
+
+        routes = {}
+        for dt in ("float32", "bfloat16"):
+            for fold in (True, False):
+                pred = Predictor.from_checkpoint(
+                    cfg.replace(compute_dtype=dt), tr.run_path, shape, k, device="cuda",
+                    chunk_size=MULTICAM_FRAMES, return_heatmaps=True)
+                check(pred.serving_path == "module" and pred.model.fold_views,
+                      f"multicam served on {pred.serving_path}")
+                pred.model.fold_views = fold
+                pred(frames[:1])  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                maps, pts = pred(frames)
+                routes[(dt, fold)] = (maps, pts, (time.perf_counter() - t0) * 1e3)
+                check(maps.shape == (MULTICAM_FRAMES, 192, 192, k)
+                      and bool(np.isfinite(maps).all()), f"multicam maps {maps.shape}")
+        served = {}
+        for dt, rtol in (("float32", MULTICAM_F32_RTOL), ("bfloat16", MULTICAM_BF16_RTOL)):
+            (a, pa, ms_f), (b, pb, ms_u) = routes[(dt, True)], routes[(dt, False)]
+            top = float(np.abs(a).max())
+            err = float(np.abs(a - b).max())
+            check(err <= rtol * top, f"{dt}: folded vs unfolded {err} > {rtol} * {top}")
+            clear = top_two_gap(a) > MULTICAM_GAP
+            flips = int((np.any(pa[:, :2] != pb[:, :2], axis=1) & clear).sum())
+            check(flips == 0, f"{dt}: {flips} argmax differ where the top-two gap > {MULTICAM_GAP}")
+            served[dt] = {"max_abs_err": err, "max_abs_maps": top, "rtol": rtol,
+                          "clear_maps": int(clear.sum()), "maps": int(clear.size),
+                          "argmax_flips_where_clear": flips,
+                          "folded_ms": ms_f, "unfolded_ms": ms_u}
+
+        # one forward of each other new model, full width, batch 8
+        forwards = {}
+        zoo = [(C.TWO_WINGS_TOGATHER, {}, (192, 192, 5), 34),
+               (C.C2F_PER_WING, {}, (192, 192, 4), 17),
+               (C.ALL_CAMS_18_POINTS, {"arch_flavor": "tf", "do_attention": True}, shape, k)]
+        for mt, extra, in_shape, out_k in zoo:
+            zcfg = Config(model_type=mt, **extra)
+            with torch.device("meta"):
+                model = build_model(zcfg, in_shape, out_k)
+            state = loop.create_train_state(model, zcfg, seed=SEED, device="cuda")
+            x = torch.rand((ZOO_BATCH, *in_shape), generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED), device="cuda")
+            y = loop.make_predict_fn(model)(state.params, x)
+            check(tuple(y.shape) == (ZOO_BATCH, *in_shape[:2], out_k)
+                  and y.dtype == torch.float32 and bool(torch.isfinite(y).all()),
+                  f"{type(model).__name__}: {tuple(y.shape)}")
+            forwards[f"{type(model).__name__} {mt} {zcfg.arch_flavor}"] = {
+                "in": list(in_shape), "out": list(y.shape),
+                "peaks": list(find_peaks(y).shape)}
+
+    result = {
+        "phase": "multicam", "device": device_name, "nvidia_smi": smi,
+        "model": "MultiCamNet ALL_CAMS_18_POINTS torch flavour, filters 64, batch 8, bf16, "
+                 "per-view augmentation, dropout 0.5, 192x192x16 -> 72",
+        "epochs": MULTICAM_EPOCHS, "updates_per_epoch": MULTICAM_UPDATES,
+        "train_seconds": t_train,
+        "steps_per_s": MULTICAM_EPOCHS * MULTICAM_UPDATES / t_train,
+        "epoch_ms": [s * 1e3 for s in history["epoch_seconds"]],
+        "history": history, "served": served, "forwards": forwards,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1632,12 +1903,15 @@ def main() -> int:
     phase_vit4cam(torch, name, smi)
     probe_rows = phase_probes(torch, name, smi)
     tr = phase_train(torch, name, smi)
+    trn = phase_trainer(torch, name, smi, tr["step_ms"])
+    phase_multicam(torch, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in tr["served"]["launches"]:  # the trained weights' chunk
             r["train_launches"] = tr["served"]["launches"][r["name"]]
+            r["trainer_launches"] = trn["served"]["launches"][r["name"]]
     rows += probe_rows
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")

@@ -1,7 +1,8 @@
 """Batched inference: frames -> heatmaps -> keypoints -> 3D (PyTorch port).
 
 Counterpart of ``pose_estimation_amitai_tpu/infer.py`` for the families
-ported so far: the flagship per-wing ``BasicNet``, and the ViT families
+ported so far: the CNN family (the flagship per-wing ``BasicNet``, coarse
+and C2F, ``TwoWingsNet``, ``MultiCamNet``), and the ViT families
 (``ViTPoseNet``, ``ViT4Cameras``):
 
 * ``Predictor`` — chunked forward (tail zero-padded, padded rows dropped)
@@ -16,7 +17,8 @@ ported so far: the flagship per-wing ``BasicNet``, and the ViT families
   kernel;
 * ``predict_movie`` — keeps up to ``prefetch`` chunks in flight;
 * ``lift_to_3d`` — decoded per-camera peaks + cropZone + DLT cameras ->
-  multi-view triangulated 3D points.
+  multi-view triangulated 3D points;
+* ``evaluate_l2`` — pixel-L2 statistics of decoded against true peaks.
 
 Public arrays keep the JAX contracts: NHWC frames (N, H, W, C) in, numpy
 (N, 3, K) [x, y, val] peaks (and (N, H, W, K) maps) out.
@@ -70,7 +72,8 @@ class Predictor:
         (``serving_path == "fused"``): the torch-flavour ``BasicNet`` with
         3x3 kernels at dilation 2 through the stage and decoder kernels
         (``model`` stays None), a ViT with every attention core on the
-        attention kernel; otherwise, and for other ``BasicNet`` geometries,
+        attention kernel; otherwise, for other ``BasicNet`` geometries and
+        for the other CNN models (as JAX, which fuses the flagship only),
         the ``nn.Module`` forward (``"module"``).
         ``use_quantized``: calibrated int8 serving of the flagship
         geometry, scales from float32 forwards of ``calibration_frames``
@@ -160,7 +163,7 @@ class Predictor:
             self.model = model.to_empty(device=self.device).eval()
             self.model.load_state_dict(
                 weights.vit_state_dict(params) if is_vit
-                else weights.basicnet_state_dict(params))
+                else weights.flax_to_state_dict(params, self.model))
             if self.device.type == "cuda" and not is_vit:
                 # NHWC frames permute to channels-last NCHW views; keep the
                 # weights in the same format so cuDNN needs no transposes
@@ -203,12 +206,16 @@ class Predictor:
         num_output_channels: int = 18,
         **kw,
     ) -> "Predictor":
-        """Build from a flax msgpack params snapshot or full checkpoint
-        (``weights.load_flax_checkpoint``; no jax). ``device`` is required
+        """Build from a checkpoint: a run directory (the port's
+        ``best_model.pt``, else its ``checkpoint.pt``, else the JAX
+        package's ``best_model.msgpack`` or ``checkpoint.msgpack``), a
+        ``.pt`` file the port's trainer wrote (any ``save_params``
+        snapshot), or a flax msgpack file (``weights.load_checkpoint``; no
+        jax, and no msgpack for the ``.pt`` files). ``device`` is required
         as for the constructor."""
         if isinstance(cfg, str):
             cfg = Config.from_json(cfg)
-        params, batch_stats = weights.load_flax_checkpoint(checkpoint_path)
+        params, batch_stats = weights.load_checkpoint(checkpoint_path)
         kw.setdefault("batch_stats", batch_stats)
         return cls(cfg, params, image_shape, num_output_channels, **kw)
 
@@ -340,3 +347,20 @@ def lift_to_3d(
         full = geometry.uncrop_points(f32(points_2d), f32(cropzone))
         pts = geometry.triangulate_multiview(f32(camera_matrices), full)
     return pts.cpu().numpy()
+
+
+def evaluate_l2(predictor: Predictor, frames, confmaps) -> dict:
+    """Pixel-L2 statistics of the predicted against the ground-truth peaks
+    (the argmax of each map stack; pytorch/train_pytorch.py:199-213): mean,
+    std, max and the per-point means, over (N, K) distances."""
+    pred_pts = predictor(frames)[:, :2, :]  # (N, 2, K)
+    with torch.inference_mode():
+        true_pts = peaks.find_peaks_with_vals(
+            torch.as_tensor(np.asarray(confmaps, np.float32)))[:, :2, :].numpy()
+    d = np.linalg.norm(pred_pts - true_pts, axis=1)  # (N, K)
+    return {
+        "l2_mean": float(d.mean()),
+        "l2_std": float(d.std()),
+        "l2_max": float(d.max()),
+        "l2_per_point": d.mean(axis=0).tolist(),
+    }

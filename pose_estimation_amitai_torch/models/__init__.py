@@ -2,13 +2,13 @@
 ``nn.Module``.
 
 Counterpart of ``pose_estimation_amitai_tpu/models/__init__.py``
-``build_model``. Three families build so far: the types the JAX registry
-sends to ``BasicNet`` (its default branch, tensorflow/Network.py:59-60)
-build the port's ``BasicNet``; the four single-view ViT types build
-``ViTPoseNet`` and the three 4-camera ViT types ``ViT4Cameras``
-(models/vit.py). Every type the JAX registry maps to another architecture
-raises ``NotImplementedError`` naming its ROADMAP item, never falling
-through to ``BasicNet``.
+``build_model``. The CNN family builds (models/cnn.py: ``BasicNet``, its
+default branch, tensorflow/Network.py:59-60, ``CoarsePerWing``,
+``C2FPerWing``, ``TwoWingsNet``; models/multicam.py: ``MultiCamNet``), as do
+the four single-view ViT types (``ViTPoseNet``) and the three 4-camera ViT
+types (``ViT4Cameras``, models/vit.py). Every type the JAX registry maps to
+an architecture not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item, never falling through to ``BasicNet``.
 """
 
 from __future__ import annotations
@@ -20,10 +20,13 @@ from torch import nn
 
 from .. import constants as C
 from ..config import Config
-from .cnn import BasicNet
+from .cnn import BasicNet, C2FPerWing, CoarsePerWing, TwoWingsNet
+from .multicam import LatentSelfAttention, MultiCamNet
 from .vit import ViT4Cameras, ViTPoseNet
 
-__all__ = ["BasicNet", "ViTPoseNet", "ViT4Cameras", "build_model",
+__all__ = ["BasicNet", "CoarsePerWing", "C2FPerWing", "TwoWingsNet",
+           "MultiCamNet", "LatentSelfAttention", "ViTPoseNet", "ViT4Cameras",
+           "build_model",
            "vit_single_kwargs", "needs_camera_matrices", "augmentation_views",
            "layout_views", "layout_masks_per_view"]
 
@@ -42,12 +45,6 @@ _DISENTANGLED = {C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
 # model types the JAX registry maps to architectures not ported yet (JAX
 # models/__init__.py build_model), with the architecture and ROADMAP item
 _NOT_PORTED: dict[str, str] = {
-    **{mt: "MultiCamNet (ROADMAP Queue A item 10)" for mt in (
-        C.ALL_CAMS, C.ALL_CAMS_18_POINTS, C.ALL_CAMS_ALL_POINTS,
-        C.HEAD_TAIL_ALL_CAMS, C.ALL_CAMS_AND_3_GOOD_CAMS)},
-    C.TWO_WINGS_TOGATHER: "TwoWingsNet (ROADMAP Queue A item 10)",
-    C.C2F_PER_WING: "C2FPerWing (ROADMAP Queue A item 10)",
-    C.COARSE_PER_WING: "CoarsePerWing (ROADMAP Queue A item 10)",
     **{mt: "FourCamDisentangled (ROADMAP Queue A item 10)" for mt in (
         C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
         C.ALL_CAMS_DISENTANGLED_PER_WING_VIT)},
@@ -144,8 +141,9 @@ def build_model(
       serving: serving-only switches of the ViT families, set at
         construction where flax would ``clone``: ``normalize_output``,
         ``fast_softmax``, ``fused_serving``, ``fused_attention``,
-        ``ref_token_grid`` (single-view), ``fold_views`` (4-camera). Any
-        for a ``BasicNet`` type raises ``TypeError``.
+        ``ref_token_grid`` (single-view), ``fold_views`` (4-camera ViT
+        and ``MultiCamNet``). Any other for a CNN type raises
+        ``TypeError``.
     """
     mt = cfg.model_type
     if mt in _NOT_PORTED:
@@ -160,15 +158,29 @@ def build_model(
         return ViT4Cameras(
             image_size[-1], image_size[0],
             **_vit_arch_kwargs(cfg, num_output_channels), **serving)
-    if serving:
-        raise TypeError(f"BasicNet takes no serving switches, got {sorted(serving)}")
-    return BasicNet(
-        in_channels=image_size[-1],
+    cnn_kw: dict[str, Any] = dict(
         out_channels=num_output_channels,
         filters=cfg.num_base_filters,
         kernel_size=cfg.kernel_size,
         dilation=cfg.dilation_rate,
+        dropout=cfg.dropout_ratio,
+        num_blocks=cfg.num_blocks,
         flavor=cfg.arch_flavor,
         dtype=_dtype(cfg),
-        dropout=cfg.dropout_ratio,
     )
+    cin = image_size[-1]
+    if mt in _MULTICAM_4 or mt == C.ALL_CAMS_AND_3_GOOD_CAMS:
+        return MultiCamNet(cin, num_cams=layout_views(mt),
+                           do_attention=cfg.do_attention, **cnn_kw, **serving)
+    if serving:
+        raise TypeError(f"a CNN model takes no serving switches, got {sorted(serving)}")
+    if mt == C.TWO_WINGS_TOGATHER:
+        return TwoWingsNet(cin, **cnn_kw)
+    if mt == C.C2F_PER_WING:
+        # the frozen coarse stage regresses the same target set
+        # (tensorflow/Network.py:169-198)
+        return C2FPerWing(cin, coarse_out_channels=num_output_channels, **cnn_kw)
+    if mt == C.COARSE_PER_WING:
+        del cnn_kw["num_blocks"], cnn_kw["flavor"]
+        return CoarsePerWing(cin, **cnn_kw)
+    return BasicNet(cin, **cnn_kw)

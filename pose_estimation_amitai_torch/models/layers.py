@@ -1,22 +1,37 @@
-"""Atrous CNN encoder / transposed-conv decoder, torch flavour (PyTorch port).
+"""Atrous CNN encoder / transposed-conv decoder, both flavours (PyTorch port).
 
 Counterpart of ``pose_estimation_amitai_tpu/models/layers.py``
-``EncoderAtrous``/``DecoderUp`` with ``flavor='torch'`` (reference:
-pytorch/CNNs.py:9-157): LeakyReLU 0.1, residual skips between consecutive
-convs, 2x2 max-pool + LeakyReLU after encoder stages 1-2, and a
-stride-2 / 1 / 1 / 2 ConvTranspose2d decoder with the reference's
-``padding=1, output_padding=1`` crop. The modules work on NCHW tensors;
-``BasicNet`` (models/cnn.py) keeps the public NHWC contract.
+``EncoderAtrous``/``DecoderUp``:
 
-Parameter names follow the flax tree (conv1..conv9, deconv1..deconv4) so the
-weight bridge (weights.py) maps one onto the other by name. Each conv casts
-its weight and bias to the activations' dtype where it applies them, as
-flax's ``dtype=bf16, param_dtype=float32`` does: the train step passes
-float32 parameters to a bf16 module (``torch.func.functional_call``), and a
-module that holds parameters in its compute dtype computes as it always did.
-In training mode the encoder applies dropout where the JAX one does, after
-each pooled stage and after stage 3, drawing from the ``torch.Generator``
-the caller passes.
+* ``flavor='torch'`` (reference: pytorch/CNNs.py:9-157): LeakyReLU 0.1,
+  residual skips between consecutive convs, 2x2 max-pool + LeakyReLU after
+  encoder stages 1-2, and a stride-2 / 1 / 1 / 2 transposed-conv decoder
+  with the reference's ``padding=1, output_padding=1`` crop;
+* ``flavor='tf'`` (reference: tensorflow/Network.py:416-474): LeakyReLU
+  0.01, no skips, ``num_blocks`` stages of [conv, conv, linear conv, 2x2
+  max-pool, ReLU, dropout], a three-conv bottleneck, then ``num_blocks - 1``
+  blocks of [stride-2 deconv, conv, conv] and a linear stride-2 deconv head.
+  Its deconvs follow flax's ``ConvTranspose(padding="SAME")``, which crops
+  the full transposed output on the bottom/right, not the torch one's
+  top/left.
+
+Every conv pads as flax's ``"SAME"`` does, even kernel sizes included: a
+conv ``(k - 1) * d // 2`` low and the rest high; a transposed conv by
+``lax.conv_transpose``'s rule (:func:`deconv_same_pads`). Where the two
+sides differ the conv pads explicitly (``F.pad``) and the transposed conv
+crops its output.
+
+The modules work on NCHW tensors; the models (models/cnn.py,
+models/multicam.py) keep the public NHWC contract. Parameter names follow
+the flax tree (conv1..conv9, deconv1..deconv4; block{b}_conv{i},
+bottleneck_conv{i}, block{b}_deconv, head_deconv) so the weight bridge
+(weights.py) maps one onto the other by name. Each conv casts its weight and
+bias to the activations' dtype where it applies them, as flax's
+``dtype=bf16, param_dtype=float32`` does: the train step passes float32
+parameters to a bf16 module (``torch.func.functional_call``), and a module
+that holds parameters in its compute dtype computes as it always did. In
+training mode the encoder applies dropout where the JAX one does, drawing
+from the ``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -25,24 +40,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+TF_ALPHA = 0.01  # tensorflow/Network.py:11
 TORCH_ALPHA = 0.1  # pytorch/CNNs.py:21
+FLAVORS = ("torch", "tf")
 
 
-def leaky(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, TORCH_ALPHA)
+def leaky(x: torch.Tensor, alpha: float = TORCH_ALPHA) -> torch.Tensor:
+    return F.leaky_relu(x, alpha)
 
 
-def _check_flavor(flavor: str, kernel_size: int) -> None:
-    if flavor != "torch":
-        raise NotImplementedError(
-            f"arch_flavor={flavor!r}: the port has the torch flavour only; "
-            "the tf flavour is ROADMAP Queue A item 2"
-        )
-    if kernel_size % 2 == 0:
-        raise NotImplementedError(
-            f"kernel_size={kernel_size}: even kernels (asymmetric SAME pads) "
-            "are not ported (ROADMAP Queue A item 2)"
-        )
+def _check_flavor(flavor: str) -> None:
+    if flavor not in FLAVORS:
+        raise ValueError(f"arch_flavor={flavor!r}; expected one of {FLAVORS}")
 
 
 def _check_eval(module: nn.Module) -> None:
@@ -53,14 +62,68 @@ def _check_eval(module: nn.Module) -> None:
         )
 
 
+def conv_same_pads(k: int, dilation: int = 1) -> tuple[int, int]:
+    """(low, high) padding of a stride-1 ``"SAME"`` conv, flax's rule."""
+    total = dilation * (k - 1)
+    return total // 2, total - total // 2
+
+
+def deconv_same_pads(k: int, stride: int) -> tuple[int, int]:
+    """(low, high) padding of the lhs-dilated input in flax's
+    ``ConvTranspose(padding="SAME")`` (``lax._conv_transpose_padding``)."""
+    pad_len = k + stride - 2
+    low = k - 1 if stride > k - 1 else -(-pad_len // 2)
+    return low, pad_len - low
+
+
+class Conv(nn.Conv2d):
+    """A stride-1 ``"SAME"`` conv; asymmetric pads (even kernels) go through
+    ``F.pad``."""
+
+    def __init__(self, cin: int, cout: int, k: int, dilation: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        lo, hi = conv_same_pads(k, dilation)
+        super().__init__(cin, cout, k, padding=lo if lo == hi else 0,
+                         dilation=dilation, dtype=dtype)
+        self.pads = None if lo == hi else (lo, hi, lo, hi)
+
+
+class Deconv(nn.ConvTranspose2d):
+    """A transposed conv whose input is padded (low, high) after
+    lhs-dilation, as ``lax.conv_transpose`` pads it, with the flax kernel
+    flipped in space (weights.py). ``ConvTranspose2d`` pads ``k - 1 - p``
+    low and ``k - 1 - p + output_padding`` high; pads it cannot express
+    (fewer high than low, as flax's SAME at stride 2) take
+    ``padding = k - 1 - low`` and drop ``crop`` rows and columns at the
+    bottom/right of its output."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int,
+                 pads: tuple[int, int], dtype: torch.dtype = torch.float32):
+        lo, hi = k - 1 - pads[0], k - 1 - pads[1]  # crops of the full output
+        if 0 <= lo - hi < stride:
+            padding, output_padding, crop = lo, lo - hi, 0
+        elif hi > lo:
+            padding, output_padding, crop = lo, 0, hi - lo
+        else:
+            raise ValueError(f"transposed-conv pads {pads} at kernel {k}, stride {stride}")
+        super().__init__(cin, cout, k, stride=stride, padding=padding,
+                         output_padding=output_padding, dtype=dtype)
+        self.crop = crop
+
+
 def conv(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` with the weight and bias cast to ``x``'s dtype (a no-op
-    where they have it already)."""
+    where they have it already) and the layer's explicit pads or crop."""
     w, b = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
     if isinstance(layer, nn.ConvTranspose2d):
-        return F.conv_transpose2d(x, w, b, layer.stride, layer.padding,
-                                  layer.output_padding, layer.groups,
-                                  layer.dilation)
+        y = F.conv_transpose2d(x, w, b, layer.stride, layer.padding,
+                               layer.output_padding, layer.groups,
+                               layer.dilation)
+        crop = getattr(layer, "crop", 0)
+        return y[..., : y.shape[-2] - crop, : y.shape[-1] - crop] if crop else y
+    pads = getattr(layer, "pads", None)
+    if pads is not None:
+        x = F.pad(x, pads)
     return F.conv2d(x, w, b, layer.stride, layer.padding, layer.dilation,
                     layer.groups)
 
@@ -82,30 +145,49 @@ def drop(
     return x * (u < keep) / keep
 
 
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    # flax max_pool(2, 2, SAME) == ceil_mode for odd sizes
+    return F.max_pool2d(x, 2, 2, ceil_mode=True)
+
+
 class EncoderAtrous(nn.Module):
-    """Dilated-conv encoder, /4 downsample: 3 stages of 3 convs at
-    filters, 2x, 4x, dropout ``dropout`` per stage in training mode
-    (pytorch/CNNs.py:73-88)."""
+    """Dilated-conv encoder. torch flavour: /4 downsample, 3 stages of 3
+    convs at filters, 2x, 4x (pytorch/CNNs.py:73-88). tf flavour:
+    /2**num_blocks, ``num_blocks`` stages at filters * 2**b, a bottleneck at
+    filters * 2**num_blocks (tensorflow/Network.py:416-447). Dropout
+    ``dropout`` after each stage in training mode."""
 
     def __init__(
         self, in_channels: int, filters: int = 64, kernel_size: int = 3,
         dilation: int = 2, flavor: str = "torch",
         dtype: torch.dtype = torch.float32, dropout: float = 0.5,
+        num_blocks: int = 2,
     ):
         super().__init__()
-        _check_flavor(flavor, kernel_size)
+        _check_flavor(flavor)
+        self.flavor = flavor
         self.dropout = dropout
+        self.num_blocks = num_blocks
+
+        def add(name: str, cin: int, cout: int) -> None:
+            self.add_module(name, Conv(cin, cout, kernel_size, dilation, dtype))
+
         chans = in_channels
-        for stage, mult in enumerate((1, 2, 4)):
-            f = filters * mult
+        if flavor == "torch":
+            for stage, mult in enumerate((1, 2, 4)):
+                f = filters * mult
+                for i in range(3):
+                    add(f"conv{3 * stage + i + 1}", chans if i == 0 else f, f)
+                chans = f
+        else:
+            for block in range(num_blocks):
+                f = filters * 2**block
+                for i in range(3):
+                    add(f"block{block}_conv{i + 1}", chans if i == 0 else f, f)
+                chans = f
+            f = filters * 2**num_blocks
             for i in range(3):
-                self.add_module(
-                    f"conv{3 * stage + i + 1}",
-                    nn.Conv2d(
-                        chans if i == 0 else f, f, kernel_size,
-                        padding="same", dilation=dilation, dtype=dtype,
-                    ),
-                )
+                add(f"bottleneck_conv{i + 1}", chans if i == 0 else f, f)
             chans = f
         self.out_channels = chans
 
@@ -113,51 +195,77 @@ class EncoderAtrous(nn.Module):
         self, x: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         rate = self.dropout if self.training else 0.0
-        for stage in range(3):
-            c1, c2, c3 = (getattr(self, f"conv{3 * stage + i}") for i in (1, 2, 3))
-            x1 = leaky(conv(c1, x))
-            x2 = leaky(conv(c2, x1)) + x1
-            x3 = leaky(conv(c3, x2)) + x2
-            if stage < 2:
-                # flax max_pool(2, 2, SAME) == ceil_mode for odd sizes
-                x3 = leaky(F.max_pool2d(x3, 2, 2, ceil_mode=True))
-            x = drop(x3, rate, generator)
-        return x
+        if self.flavor == "torch":
+            for stage in range(3):
+                c1, c2, c3 = (getattr(self, f"conv{3 * stage + i}") for i in (1, 2, 3))
+                x1 = leaky(conv(c1, x))
+                x2 = leaky(conv(c2, x1)) + x1
+                x3 = leaky(conv(c3, x2)) + x2
+                if stage < 2:
+                    x3 = leaky(_pool(x3))
+                x = drop(x3, rate, generator)
+            return x
+        for block in range(self.num_blocks):
+            x = leaky(conv(getattr(self, f"block{block}_conv1"), x), TF_ALPHA)
+            x = leaky(conv(getattr(self, f"block{block}_conv2"), x), TF_ALPHA)
+            x = conv(getattr(self, f"block{block}_conv3"), x)  # linear
+            x = drop(F.relu(_pool(x)), rate, generator)
+        for i in range(3):
+            x = leaky(conv(getattr(self, f"bottleneck_conv{i + 1}"), x), TF_ALPHA)
+        return drop(x, rate, generator)
 
 
 class DecoderUp(nn.Module):
-    """Transposed-conv decoder: (C, h, w) -> (out_channels, 4h, 4w).
-    deconv/2x -> two same-size deconvs with skips -> deconv/2x head,
-    LeakyReLU(0.1) on every layer including the head
-    (pytorch/CNNs.py:151-157)."""
+    """Transposed-conv decoder: (C, h, w) -> (out_channels, 2**n h, 2**n w).
+
+    torch flavour (n = 2): deconv/2x -> two same-size deconvs with skips ->
+    deconv/2x head, LeakyReLU(0.1) on every layer including the head
+    (pytorch/CNNs.py:151-157). tf flavour (n = num_blocks): per block
+    deconv/2x + 2 convs at filters * 2**b (LeakyReLU 0.01), a linear
+    deconv/2x head (tensorflow/Network.py:449-474). ``in_channels`` is what
+    flax reads from the input."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_size: int = 3,
         flavor: str = "torch", dtype: torch.dtype = torch.float32,
+        filters: int = 64, num_blocks: int = 2,
     ):
         super().__init__()
-        _check_flavor(flavor, kernel_size)
-        half = in_channels // 2
+        _check_flavor(flavor)
+        self.flavor = flavor
+        self.num_blocks = num_blocks
         k = kernel_size
 
-        def up(cin: int, cout: int) -> nn.ConvTranspose2d:
-            # the reference's crop: padding=1, output_padding=1 for any k
-            return nn.ConvTranspose2d(
-                cin, cout, k, stride=2, padding=1, output_padding=1,
-                dtype=dtype,
-            )
+        def up(cin: int, cout: int) -> Deconv:
+            # torch: the reference's crop, padding=1, output_padding=1 for
+            # any k (JAX pads (k - 2, k - 1)); tf: flax's SAME
+            pads = (k - 2, k - 1) if flavor == "torch" else deconv_same_pads(k, 2)
+            return Deconv(cin, cout, k, 2, pads, dtype)
 
-        def same(c: int) -> nn.ConvTranspose2d:
-            return nn.ConvTranspose2d(c, c, k, padding=(k - 1) // 2,
-                                      dtype=dtype)
-
-        self.deconv1 = up(in_channels, half)
-        self.deconv2 = same(half)
-        self.deconv3 = same(half)
-        self.deconv4 = up(half, out_channels)
+        if flavor == "torch":
+            half = in_channels // 2
+            self.deconv1 = up(in_channels, half)
+            self.deconv2 = Deconv(half, half, k, 1, deconv_same_pads(k, 1), dtype)
+            self.deconv3 = Deconv(half, half, k, 1, deconv_same_pads(k, 1), dtype)
+            self.deconv4 = up(half, out_channels)
+            return
+        chans = in_channels
+        for block in range(num_blocks - 1, 0, -1):
+            f = filters * 2**block
+            self.add_module(f"block{block}_deconv", up(chans, f))
+            self.add_module(f"block{block}_conv1", Conv(f, f, k, 1, dtype))
+            self.add_module(f"block{block}_conv2", Conv(f, f, k, 1, dtype))
+            chans = f
+        self.head_deconv = up(chans, out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = leaky(conv(self.deconv1, x))
-        x2 = leaky(conv(self.deconv2, x1)) + x1
-        x3 = leaky(conv(self.deconv3, x2)) + x2
-        return leaky(conv(self.deconv4, x3))
+        if self.flavor == "torch":
+            x1 = leaky(conv(self.deconv1, x))
+            x2 = leaky(conv(self.deconv2, x1)) + x1
+            x3 = leaky(conv(self.deconv3, x2)) + x2
+            return leaky(conv(self.deconv4, x3))
+        for block in range(self.num_blocks - 1, 0, -1):
+            x = leaky(conv(getattr(self, f"block{block}_deconv"), x), TF_ALPHA)
+            x = leaky(conv(getattr(self, f"block{block}_conv1"), x), TF_ALPHA)
+            x = leaky(conv(getattr(self, f"block{block}_conv2"), x), TF_ALPHA)
+        return conv(self.head_deconv, x)  # linear output head

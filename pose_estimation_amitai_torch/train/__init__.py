@@ -1,6 +1,6 @@
-"""Training layer of the port: the train and eval steps, and checkpoints
-with true resume. (The ``Trainer`` and its run directory are ROADMAP Queue
-A item 8.)"""
+"""Training layer of the port: the train and eval steps, checkpoints with
+true resume, and the ``Trainer`` with its run directory (train/trainer.py,
+imported on use)."""
 
 from . import checkpoint  # noqa: F401
 from .loop import (  # noqa: F401

@@ -34,6 +34,7 @@ from torch.func import functional_call
 from .. import constants as C
 from ..config import Config
 from ..models import augmentation_views, layout_masks_per_view, layout_views
+from ..models.multicam import DenseGeneral
 from ..ops import affine, peaks
 from ..ops.gaussian import confmaps_from_peaks
 from ..ops.morphology import random_mask_redilation
@@ -76,33 +77,49 @@ def _lecun_normal(rng: np.random.Generator, shape: tuple, fan_in: int) -> np.nda
 def _init_params(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded float32 parameters of a conv model, on the CPU, as flax
     initialises them: kernels lecun-normal over the fan-in (input channels x
-    kernel taps, for a transposed conv too), biases zero."""
+    kernel taps, for a transposed conv too; the contracting dims of an
+    attention projection), biases zero."""
     rng = np.random.default_rng(seed)
     params: dict[str, torch.Tensor] = {}
     for name, m in model.named_modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.in_channels * int(np.prod(m.kernel_size))
-            params[f"{name}.weight"] = torch.from_numpy(
-                _lecun_normal(rng, tuple(m.weight.shape), fan_in))
-            params[f"{name}.bias"] = torch.zeros(m.bias.shape)
+        elif isinstance(m, DenseGeneral):
+            fan_in = m.fan_in
+        else:
+            continue
+        params[f"{name}.weight"] = torch.from_numpy(
+            _lecun_normal(rng, tuple(m.weight.shape), fan_in))
+        params[f"{name}.bias"] = torch.zeros(m.bias.shape)
     if set(params) != {n for n, _ in model.named_parameters()}:
         raise NotImplementedError(
             f"training {type(model).__name__} is not ported: the port trains "
-            "the conv models (BasicNet); the ViT's training forward is ROADMAP "
-            "Queue A item 6, the other families item 10")
+            "the CNN family; the ViT's training forward is ROADMAP Queue A "
+            "item 6, the other families item 10")
     return params
+
+
+def frozen_names(model: nn.Module, params) -> set[str]:
+    """Parameters the train step leaves as they are: those under the
+    model's ``frozen_prefixes`` (C2F's coarse stage, JAX's
+    ``stop_gradient``)."""
+    prefixes = getattr(model, "frozen_prefixes", ())
+    return {k for k in params if k.startswith(prefixes)} if prefixes else set()
 
 
 def create_train_state(
     model: nn.Module, cfg: Config, seed: int = 0, *, device: torch.device | str
 ) -> TrainState:
     """Seeded float32 parameters on ``device`` (the output head zeroed if
-    ``cfg.head_zero_init``) and a fresh Adam state. ``model`` gives the
-    geometry only; it may live on the meta device."""
+    ``cfg.head_zero_init``) and a fresh Adam state over the parameters that
+    train (not :func:`frozen_names`). ``model`` gives the geometry only; it
+    may live on the meta device."""
     params = {k: v.to(device) for k, v in _init_params(model, seed).items()}
     if cfg.head_zero_init:
         params = zero_output_head(params)
-    opt_state = create_optimizer(cfg, list(params.values())).state_dict()
+    frozen = frozen_names(model, params)
+    opt_state = create_optimizer(
+        cfg, [v for k, v in params.items() if k not in frozen]).state_dict()
     return TrainState(step=0, params=params, opt_state=opt_state, seed=seed)
 
 
@@ -146,7 +163,8 @@ def step_generator(
 
 def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
     """``grads(params, data, ids, generator) -> (loss, {name: grad})`` of one
-    microbatch: the train step's body before the update.
+    microbatch: the train step's body before the update. The gradients are
+    those of the parameters that train (frozen ones have none).
 
     ``data`` is the dataset dict on the device (``box`` (N, H, W, C), and
     ``peaks`` (N, K, 2) with ``peak_vals`` (N, K), or ``confmaps``
@@ -193,12 +211,14 @@ def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
                 "camera-matrix batches (P, P_inv) are ROADMAP Queue A item 10")
         ids = torch.as_tensor(ids, device=data["box"].device).long()
         box, confmaps = batch(data, ids, gen)
-        live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        frozen = frozen_names(model, params)
+        live = {k: v.detach().requires_grad_(k not in frozen) for k, v in params.items()}
         model.train()
         pred = functional_call(model, live, (box,), {"generator": gen})
         loss = loss_fn(pred, confmaps)
-        g = torch.autograd.grad(loss, list(live.values()))
-        return loss.detach(), dict(zip(live, g))
+        trained = [k for k in live if k not in frozen]
+        g = torch.autograd.grad(loss, [live[k] for k in trained])
+        return loss.detach(), dict(zip(trained, g))
 
     return grads
 
@@ -220,7 +240,8 @@ def make_train_step(model: nn.Module, cfg: Config) -> Callable:
     ``HostDataset.step_payload`` window); ``idx``: (accum, B) sample
     indices. The loss is the microbatches' mean, a device scalar; the
     gradients are their mean, and the update is Adam's at ``learning_rate *
-    lr_scale``."""
+    lr_scale``. Frozen parameters (:func:`frozen_names`) pass to the new
+    state as they are."""
     grad_fn = make_grad_fn(model, cfg)
 
     def train_step(state: TrainState, data: dict, idx, lr_scale: float = 1.0):
@@ -235,16 +256,17 @@ def make_train_step(model: nn.Module, cfg: Config) -> Callable:
             else:
                 loss_sum = loss_sum + loss
                 grad_sum = {k: grad_sum[k] + g[k] for k in grad_sum}
-        params = {k: v.detach().clone() for k, v in state.params.items()}
-        opt = create_optimizer(cfg, list(params.values()))
+        params = {k: v.detach().clone() if k in grad_sum else v
+                  for k, v in state.params.items()}
+        opt = create_optimizer(cfg, [params[k] for k in grad_sum])
         opt.load_state_dict(_copy_opt_state(state.opt_state))
         for group in opt.param_groups:
             group["lr"] = cfg.learning_rate * lr_scale
-        for k, p in params.items():
-            p.grad = grad_sum[k] / accum
+        for k, g in grad_sum.items():
+            params[k].grad = g / accum
         opt.step()
-        for p in params.values():
-            p.grad = None
+        for k in grad_sum:
+            params[k].grad = None
         new_state = TrainState(step=state.step + 1, params=params,
                                opt_state=opt.state_dict(), seed=state.seed)
         return new_state, loss_sum / accum

@@ -1,33 +1,31 @@
-"""Weight bridge: flax ``BasicNet`` and ViT params -> the port's tensors.
+"""Weight bridge: flax params trees <-> the port's ``state_dict``.
 
-Input everywhere is a flax ``params`` tree as nested dicts of arrays
-(anything ``np.asarray`` takes), the layout the JAX package trains and
-checkpoints. Outputs:
+The flax side is a ``params`` tree as nested dicts of arrays (anything
+``np.asarray`` takes), the layout the JAX package trains and checkpoints.
 
-* :func:`basicnet_state_dict` — the port's ``BasicNet`` ``state_dict``.
-  Conv kernels go HWIO -> OIHW. Every decoder kernel is a flax
-  ConvTranspose; the port's layers are ``ConvTranspose2d``, which correlate
-  with the kernel flipped in space, so flax kernels are flipped and laid out
-  (I, O, kh, kw). A flax stride-1 ConvTranspose(SAME) is an unflipped SAME
-  correlation and the torch-flavour stride-2 layer is ``ConvTranspose2d(k3,
-  s2, padding=1, output_padding=1)`` on the flipped kernel, so one rule
-  covers both.
-* :func:`basicnet_params_from_state_dict` — the other way: the port's
-  ``BasicNet`` parameters (those the train step updates) -> the flax tree as
-  numpy, which ``Predictor``, :func:`kernel_params` and the JAX package take.
+* :func:`flax_to_state_dict` — one walk for every ported model (the CNN
+  family of models/cnn.py and models/multicam.py, the ViTs): the port's
+  modules carry the flax tree's names, so each leaf is renamed and laid out
+  by its kind. Conv kernels go HWIO -> OIHW. A flax ConvTranspose is a
+  correlation of the lhs-dilated input with its kernel as it is; the port's
+  layers are ``ConvTranspose2d``, which correlate with the kernel flipped in
+  space, so flax kernels are flipped and laid out (I, O, kh, kw), and each
+  layer pads as flax does (models/layers.py ``Deconv``). Dense kernels
+  transpose, DenseGeneral kernels keep their layout, LayerNorm ``scale``
+  becomes ``weight``.
+* :func:`state_dict_to_flax` — the other way: the port's parameters (those
+  the train step updates) -> the flax tree as numpy, which ``Predictor``,
+  :func:`kernel_params` and the JAX package take.
+  :func:`basicnet_state_dict`, :func:`basicnet_params_from_state_dict` and
+  :func:`vit_state_dict` are these two under their earlier names.
 * :func:`kernel_params` (models/fast_infer.py) — the fused kernels take the
   flax HWIO layout as it is.
-* :func:`vit_state_dict` — the ``state_dict`` of the port's ``ViTPoseNet``
-  or ``ViT4Cameras`` (either flavour): the port's modules carry the flax
-  tree's names, so the tree is walked and each leaf renamed. Dense
-  ``kernel`` (in, out) -> ``Linear.weight`` (out, in); the patch-embed conv
-  HWIO -> OIHW; deconvs flipped and permuted as above; LayerNorm ``scale``
-  -> ``weight``; ``pos_embedding`` as it is.
 
-:func:`load_flax_checkpoint` reads what ``train/checkpoint.py`` writes
-(flax msgpack) with a lazy ``import msgpack`` and no jax;
-:func:`init_basicnet_params` and :func:`init_vit_params` make seeded
-flax-layout trees with numpy.
+:func:`load_checkpoint` reads a checkpoint by what is on disk: the port's
+``torch.save`` files (train/checkpoint.py) or, with a lazy ``import
+msgpack`` and no jax, the flax msgpack files of the JAX package
+(:func:`load_flax_checkpoint`). :func:`init_basicnet_params` and
+:func:`init_vit_params` make seeded flax-layout trees with numpy.
 """
 
 from __future__ import annotations
@@ -62,41 +60,112 @@ def _bias(b: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(b, np.float32))
 
 
-def basicnet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """flax torch-flavour ``BasicNet`` params -> the port's ``state_dict``
-    (float32; ``load_state_dict`` casts to the module's dtype)."""
+def _leaf_to_torch(path: str, name: str, leaf: Any) -> tuple[str, torch.Tensor]:
+    """One flax leaf at module ``path`` -> (``state_dict`` key, tensor)."""
+    if name == "kernel":
+        k = np.asarray(leaf, np.float32)
+        if k.ndim == 4:
+            w = (deconv_kernel_to_torch(k) if "deconv" in path
+                 else conv_kernel_to_torch(k))
+        elif k.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+            w = torch.from_numpy(np.ascontiguousarray(k.T))
+        else:  # DenseGeneral: the port keeps flax's layout
+            w = _bias(k)
+        return f"{path}.weight", w
+    if name == "scale":  # LayerNorm
+        return f"{path}.weight", _bias(leaf)
+    return (f"{path}.{name}" if path else name), _bias(leaf)  # bias, pos_embedding
+
+
+def _check_keys(sd: Mapping, model: torch.nn.Module, what: str) -> None:
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    missing = sorted(set(want) - set(sd))
+    unknown = sorted(set(sd) - set(want))
+    wrong = [f"{k}: {tuple(sd[k].shape)} vs {want[k]}" for k in want
+             if k in sd and tuple(sd[k].shape) != want[k]]
+    parts = ([f"missing {', '.join(missing[:5])}"] if missing else []) + (
+        [f"unknown {', '.join(unknown[:5])}"] if unknown else []) + (
+        [f"shapes {'; '.join(wrong[:5])}"] if wrong else [])
+    if parts:
+        raise ValueError(f"{what} does not match {type(model).__name__}: "
+                         + "; ".join(parts))
+
+
+def flax_to_state_dict(
+    params: Mapping, model: torch.nn.Module | None = None
+) -> dict[str, torch.Tensor]:
+    """A flax params tree of any ported model -> the port's ``state_dict``
+    (float32; ``load_state_dict`` casts to each parameter's dtype).
+
+    The port's modules carry the flax tree's names, so the tree is walked
+    and each leaf renamed and laid out by its kind: a Conv kernel HWIO ->
+    OIHW; a ConvTranspose kernel (a module whose path names a ``deconv``)
+    flipped in space and laid out (I, O, kh, kw); a Dense kernel (in, out)
+    -> ``Linear.weight`` (out, in); a DenseGeneral kernel (the attention
+    projections of models/multicam.py) as it is; a LayerNorm ``scale`` ->
+    ``weight``; biases and ``pos_embedding`` as they are. With ``model``,
+    the keys and shapes are held against its ``state_dict`` and a
+    difference raises ``ValueError`` naming the keys."""
     sd: dict[str, torch.Tensor] = {}
-    enc, dec = params["encoder"], params["decoder"]
-    for i in range(1, 10):
-        sd[f"encoder.conv{i}.weight"] = conv_kernel_to_torch(
-            enc[f"conv{i}"]["kernel"])
-        sd[f"encoder.conv{i}.bias"] = _bias(enc[f"conv{i}"]["bias"])
-    for i in range(1, 5):
-        sd[f"decoder.deconv{i}.weight"] = deconv_kernel_to_torch(
-            dec[f"deconv{i}"]["kernel"])
-        sd[f"decoder.deconv{i}.bias"] = _bias(dec[f"deconv{i}"]["bias"])
+
+    def walk(prefix: str, node: Mapping) -> None:
+        for name, leaf in node.items():
+            if isinstance(leaf, Mapping):
+                walk(f"{prefix}.{name}" if prefix else name, leaf)
+            else:
+                key, value = _leaf_to_torch(prefix, name, leaf)
+                sd[key] = value
+
+    walk("", params)
+    if model is not None:
+        _check_keys(sd, model, "the flax params tree")
     return sd
+
+
+def state_dict_to_flax(sd: Mapping, model: torch.nn.Module | None = None) -> dict:
+    """The port's ``state_dict`` (or the train step's parameters, any device
+    and float dtype) -> the flax params tree, float32 numpy: the inverse of
+    :func:`flax_to_state_dict`. With ``model``, the keys and shapes are held
+    against its ``state_dict`` first."""
+    if model is not None:
+        _check_keys(sd, model, "the state_dict")
+    tree: dict = {}
+    for key, t in sd.items():
+        *path, name = key.split(".")
+        a = t.detach().float().cpu().numpy()
+        if name == "weight":
+            if a.ndim == 4 and "deconv" in ".".join(path):  # (I, O, kh, kw), flipped
+                a, name = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
+            elif a.ndim == 4:  # (O, I, kh, kw)
+                a, name = a.transpose(2, 3, 1, 0), "kernel"
+            elif a.ndim == 2:
+                a, name = a.T, "kernel"
+            elif a.ndim == 1:
+                name = "scale"
+            else:
+                name = "kernel"
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree
+
+
+def basicnet_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
+    """flax ``BasicNet`` params (either flavour) -> the port's
+    ``state_dict``: :func:`flax_to_state_dict`."""
+    return flax_to_state_dict(params)
 
 
 def basicnet_params_from_state_dict(sd: Mapping) -> dict:
     """The port's ``BasicNet`` ``state_dict`` (or the train step's
-    parameters, any device and float dtype) -> the flax torch-flavour
-    ``BasicNet`` params tree, float32 numpy: the inverse of
-    :func:`basicnet_state_dict`."""
-    def f32(t) -> np.ndarray:
-        return t.detach().float().cpu().numpy()
-
-    enc, dec = {}, {}
-    for i in range(1, 10):
-        w = f32(sd[f"encoder.conv{i}.weight"])  # (O, I, kh, kw)
-        enc[f"conv{i}"] = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0)),
-                           "bias": f32(sd[f"encoder.conv{i}.bias"])}
-    for i in range(1, 5):
-        w = f32(sd[f"decoder.deconv{i}.weight"])  # (I, O, kh, kw), flipped
-        dec[f"deconv{i}"] = {
-            "kernel": np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1]),
-            "bias": f32(sd[f"decoder.deconv{i}.bias"])}
-    return {"encoder": enc, "decoder": dec}
+    parameters) -> the flax ``BasicNet`` params tree, float32 numpy:
+    :func:`state_dict_to_flax`, the inverse of :func:`basicnet_state_dict`.
+    A key outside ``encoder.`` and ``decoder.`` raises ``KeyError``."""
+    stray = [k for k in sd if k.split(".")[0] not in ("encoder", "decoder")]
+    if stray:
+        raise KeyError(f"not a BasicNet state_dict: {', '.join(stray[:5])}")
+    return state_dict_to_flax(sd)
 
 
 def _is_pipeline_layout(params) -> bool:
@@ -107,35 +176,13 @@ def _is_pipeline_layout(params) -> bool:
 
 def vit_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
     """flax ``ViTPoseNet`` or ``ViT4Cameras`` params (torch or tf flavour)
-    -> the port's ``state_dict`` (float32; ``load_state_dict`` casts to each
-    parameter's dtype). Keys are the flax paths joined with dots."""
+    -> the port's ``state_dict``: :func:`flax_to_state_dict`, which the
+    stacked-blocks layout of pipeline training does not fit."""
     if _is_pipeline_layout(params):
         raise NotImplementedError(
             "pipeline-layout ViT checkpoints (stacked blocks) come with the "
             "parallel strategies, ROADMAP Queue A item 14")
-    sd: dict[str, torch.Tensor] = {}
-
-    def walk(prefix: str, node: Mapping) -> None:
-        for name, leaf in node.items():
-            path = f"{prefix}.{name}" if prefix else name
-            if isinstance(leaf, Mapping):
-                walk(path, leaf)
-            elif name == "kernel":
-                k = np.asarray(leaf, np.float32)
-                if k.ndim == 2:  # Dense (in, out) -> Linear (out, in)
-                    w = torch.from_numpy(np.ascontiguousarray(k.T))
-                elif "deconv" in prefix:
-                    w = deconv_kernel_to_torch(k)
-                else:
-                    w = conv_kernel_to_torch(k)
-                sd[f"{prefix}.weight"] = w
-            elif name == "scale":  # LayerNorm
-                sd[f"{prefix}.weight"] = _bias(leaf)
-            else:  # bias, pos_embedding
-                sd[path] = _bias(leaf)
-
-    walk("", params)
-    return sd
+    return flax_to_state_dict(params)
 
 
 def init_vit_params(
@@ -278,6 +325,34 @@ def _ext_hook(code: int, data: bytes):
     if code == _EXT_NPSCALAR:
         return _ndarray_from_bytes(data)[()]
     raise ValueError(f"flax msgpack ext type {code} is not an array")
+
+
+# what a run directory may hold, in the order they are read
+CHECKPOINT_NAMES = ("best_model.pt", "checkpoint.pt", "best_model.msgpack",
+                    "checkpoint.msgpack")
+
+
+def load_checkpoint(path: str) -> tuple[dict, dict]:
+    """``(params, batch_stats)`` as flax-layout numpy trees from a
+    checkpoint, the reader picked by what is on disk: in a run directory the
+    first of :data:`CHECKPOINT_NAMES` present (the port's ``.pt`` files
+    before the JAX package's msgpack ones; ``FileNotFoundError`` naming all
+    four where none is); a file named ``*.pt`` (the port's checkpoints and
+    ``save_params`` snapshots, state_dict-named) through
+    :func:`state_dict_to_flax`; any other file through
+    :func:`load_flax_checkpoint`. A failed read raises; the other format is
+    never tried."""
+    if os.path.isdir(path):
+        found = [n for n in CHECKPOINT_NAMES if os.path.isfile(os.path.join(path, n))]
+        if not found:
+            raise FileNotFoundError(
+                f"{path}: none of {', '.join(CHECKPOINT_NAMES)} in this run directory")
+        path = os.path.join(path, found[0])
+    if path.endswith(".pt"):
+        from .train.checkpoint import load_params
+
+        return state_dict_to_flax(load_params(path)), {}
+    return load_flax_checkpoint(path)
 
 
 def load_flax_checkpoint(path: str) -> tuple[dict, dict]:

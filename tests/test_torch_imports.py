@@ -46,14 +46,20 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.data.preprocess",
             "pose_estimation_amitai_torch.data.pipeline",
             "pose_estimation_amitai_torch.train.loop",
-            "pose_estimation_amitai_torch.train.checkpoint"} <= set(mods)
+            "pose_estimation_amitai_torch.train.checkpoint",
+            "pose_estimation_amitai_torch.train.trainer",
+            "pose_estimation_amitai_torch.models.multicam",
+            "pose_estimation_amitai_torch.viz",
+            "pose_estimation_amitai_torch.cli",
+            "pose_estimation_amitai_torch.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'pose_estimation_amitai_tpu'))\n"
         "assert not bad, bad\n"
-        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in ('h5py', 'msgpack'))\n"
+        "lazy = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "              ('h5py', 'msgpack', 'matplotlib'))\n"
         "assert not lazy, lazy\n"
         "print('ok', len(sys.modules))\n"
     )

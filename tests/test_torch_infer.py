@@ -183,6 +183,112 @@ def test_load_flax_checkpoint_from_an_empty_run_directory(tmp_path):
         tinfer.Predictor.from_checkpoint(CFG, str(tmp_path), SHAPE, K, device="cpu")
 
 
+def _block_msgpack(monkeypatch):
+    """Make ``import msgpack`` raise, as on a machine without it."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "msgpack", None)
+    with pytest.raises(ImportError):
+        import msgpack  # noqa: F401
+
+
+@pytest.mark.parametrize("target", ["run_dir", "checkpoint.pt", "snapshot"])
+def test_from_checkpoint_serves_the_ports_own_checkpoints(tmp_path, setup, monkeypatch,
+                                                         target):
+    """C3: the port's trainer writes torch.save files (best_model.pt,
+    checkpoint.pt, save_params snapshots); from_checkpoint serves them, with
+    msgpack unimportable, through the weight bridge, equal to a Predictor
+    built from the same parameters in memory."""
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import checkpoint as tckpt
+    from pose_estimation_amitai_torch.train import loop as tloop
+
+    frames, _ = setup
+    _block_msgpack(monkeypatch)
+    model = build_model(CFG, SHAPE, K)
+    state = tloop.create_train_state(model, CFG, seed=4, device="cpu")
+    best = state.replace(params={k: v + 0.01 for k, v in state.params.items()})
+    tckpt.save_checkpoint(str(tmp_path), state, epoch=0, val_loss=1.0)
+    tckpt.save_checkpoint(str(tmp_path), best, epoch=0, val_loss=0.5, best=True)
+    tckpt.save_params(str(tmp_path / "weights.001-0.5.pt"), state.params)
+    path, params = {"run_dir": (str(tmp_path), best.params),
+                    "checkpoint.pt": (str(tmp_path / "checkpoint.pt"), state.params),
+                    "snapshot": (str(tmp_path / "weights.001-0.5.pt"), state.params)}[target]
+    pred = tinfer.Predictor.from_checkpoint(CFG, path, SHAPE, K, device="cpu", chunk_size=2,
+                                            return_heatmaps=True)
+    ref = tinfer.Predictor(CFG, weights.state_dict_to_flax(params), SHAPE, K, device="cpu",
+                           chunk_size=2, return_heatmaps=True)
+    for a, b in zip(pred(frames), ref(frames)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_from_checkpoint_prefers_pt_and_names_all_four(tmp_path, setup, monkeypatch):
+    """The reader is picked by what is on disk, the port's .pt files first;
+    a run directory with none of the four names raises naming them all."""
+    from pose_estimation_amitai_torch.train import checkpoint as tckpt
+
+    frames, params = setup
+    sd = weights.basicnet_state_dict(params)
+    jckpt.save_params(str(tmp_path / "best_model.msgpack"),
+                      jax.tree_util.tree_map(lambda v: jnp.asarray(v) * 2.0, params))
+    tckpt.save_params(str(tmp_path / "checkpoint.pt"), sd)
+    _block_msgpack(monkeypatch)
+    got, stats = weights.load_checkpoint(str(tmp_path))
+    assert stats == {}
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(params)):
+        np.testing.assert_array_equal(a, b)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError, match="best_model.pt, checkpoint.pt, "
+                                                "best_model.msgpack, checkpoint.msgpack"):
+        tinfer.Predictor.from_checkpoint(CFG, str(empty), SHAPE, K, device="cpu")
+    with pytest.raises(ImportError):  # a msgpack file needs msgpack: no other reader
+        weights.load_checkpoint(str(tmp_path / "best_model.msgpack"))
+
+
+@pytest.mark.parametrize("model_type, cin, k", [
+    (C.ALL_CAMS_18_POINTS, 16, 12), (C.TWO_WINGS_TOGATHER, 5, 8), (C.C2F_PER_WING, 4, 6)])
+def test_cnn_family_serves_on_module_and_matches_jax(model_type, cin, k):
+    """The CNN family serves on "module" whatever use_fused says (JAX fuses
+    the flagship only); maps and peaks as JAX's Predictor gives them; int8
+    serving raises naming item 11."""
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop as tloop
+
+    cfg = Config(model_type=model_type, num_base_filters=8, compute_dtype="float32",
+                 arch_flavor="tf" if model_type == C.C2F_PER_WING else "torch")
+    shape = (48, 48, cin)
+    state = tloop.create_train_state(build_model(cfg, shape, k), cfg, seed=5, device="cpu")
+    params = weights.state_dict_to_flax(
+        {n: v + 0.05 if n.endswith("bias") else v for n, v in state.params.items()})
+    frames = np.random.default_rng(1).random((3, *shape)).astype(np.float32)
+    want_maps, want_pts = jinfer.Predictor(
+        cfg, jax.tree_util.tree_map(jnp.asarray, params), shape, k, chunk_size=2,
+        return_heatmaps=True)(frames)
+    pred = tinfer.Predictor(cfg, params, shape, k, device="cpu", chunk_size=2,
+                            use_fused=True, return_heatmaps=True)
+    assert pred.serving_path == "module"
+    maps, pts = pred(frames)
+    np.testing.assert_allclose(maps, np.asarray(want_maps), atol=2e-5)
+    np.testing.assert_array_equal(pts[:, :2], np.asarray(want_pts)[:, :2])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tinfer.Predictor(cfg, params, shape, k, device="cpu", use_quantized=True,
+                         calibration_frames=frames)
+
+
+def test_evaluate_l2_matches_jax(setup):
+    frames, params = setup
+    maps = np.random.default_rng(7).random((5, *SHAPE[:2], K)).astype(np.float32)
+    got = tinfer.evaluate_l2(tinfer.Predictor(CFG, params, SHAPE, K, device="cpu",
+                                              chunk_size=2), frames, maps)
+    want = jinfer.evaluate_l2(jinfer.Predictor(
+        CFG, jax.tree_util.tree_map(jnp.asarray, params), SHAPE, K, chunk_size=2),
+        frames, maps)
+    assert got.keys() == want.keys()
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
+
+
 @pytest.mark.parametrize("kw, item", [
     # int8 serving is ported for the flagship geometry only
     ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),

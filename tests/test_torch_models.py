@@ -133,17 +133,45 @@ def test_build_model_basicnet_family(model_type):
     assert net.filters == 8 and net.out_channels == 6 and net.in_channels == 4
 
 
-@pytest.mark.parametrize("model_type", sorted(_NOT_PORTED))
+# the types the JAX registry maps to other architectures than BasicNet (the
+# ViTs aside); those still in _NOT_PORTED raise, the others build the JAX
+# registry's class (tests/test_torch_models_cnn.py holds them to flax)
+OTHER_ARCHITECTURES = sorted([
+    C.ALL_CAMS, C.ALL_CAMS_18_POINTS, C.ALL_CAMS_ALL_POINTS, C.HEAD_TAIL_ALL_CAMS,
+    C.ALL_CAMS_AND_3_GOOD_CAMS, C.TWO_WINGS_TOGATHER, C.C2F_PER_WING,
+    C.COARSE_PER_WING, C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
+    C.ALL_CAMS_DISENTANGLED_PER_WING_VIT, C.RESNET_18_POINTS_PER_WING, C.GPTNET,
+])
+
+
+@pytest.mark.parametrize("model_type", OTHER_ARCHITECTURES)
 def test_build_model_refuses_unported_types(model_type):
-    cfg = Config(model_type=model_type)
-    assert type(jax_build_model(cfg, (48, 48, 4), 6)).__name__ != "BasicNet"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-        build_model(cfg, (48, 48, 4), 6)
+    cfg = Config(model_type=model_type, num_base_filters=8)
+    want = type(jax_build_model(cfg, (48, 48, 16), 8)).__name__
+    assert want != "BasicNet"
+    if model_type in _NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
+            build_model(cfg, (48, 48, 16), 8)
+    else:
+        assert type(build_model(cfg, (48, 48, 16), 8)).__name__ == want
 
 
 def test_tf_flavour_refused():
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        build_model(Config(arch_flavor="tf"), (48, 48, 4), 6)
+    """The tf flavour builds (Queue A item 2, tests/test_torch_models_cnn.py),
+    but the fused kernels refuse it, as JAX's: Predictor serves it on the
+    module route whatever use_fused says."""
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(arch_flavor="tf", num_base_filters=8, compute_dtype="float32")
+    net = build_model(cfg, (48, 48, 4), 6)
+    assert type(net) is BasicNet and net.flavor == "tf"
+    state = loop.create_train_state(net, cfg, device="cpu")
+    pred = Predictor(cfg, weights.state_dict_to_flax(state.params), (48, 48, 4), 6,
+                     device="cpu", use_fused=True)
+    assert pred.serving_path == "module"
+    with pytest.raises(ValueError, match="arch_flavor"):
+        build_model(Config(arch_flavor="keras"), (48, 48, 4), 6)
 
 
 def test_training_forward_refused():
