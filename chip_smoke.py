@@ -117,7 +117,28 @@ Phases, each printing one JSON line ({"phase": ...}):
              max, the argmax equal wherever the top-two gap exceeds 2e-4);
              then one forward each of TwoWingsNet, C2FPerWing and the tf
              flavour MultiCamNet with attention fusion, at full width and
-             batch 8: finite maps of the right shapes.
+             batch 8: finite maps of the right shapes;
+14. zoo    - the BatchNorm families and the camera-matrix model at full
+             width (bf16 compute over float32 parameters) on the train
+             phase's 16 synthetic frames: (a) ResNetHeatmapNet
+             (RESNET_18_POINTS_PER_WING, tpu flavour, ResNet50 3-4-6-3,
+             192x192x4 -> 18) through the Trainer, 2 epochs of 5 updates,
+             batch 8, Config's augmentation; its bare step timed; one
+             float32 step on the card against the CPU (deterministic cuDNN:
+             loss, gradients of the largest, updated parameters beyond what
+             the gradients explain, running averages); its best_model.pt
+             through Predictor.from_checkpoint (running averages threaded)
+             on 256 + 256 + 100 frames and as a 612-frame movie, equal;
+             (b) GPTResNet (GPTNET, 192x192x4 -> 18): 3 + 10 steps at batch
+             8 (CUDA events), its trained variables served on the same 612
+             frames; (c) FourCamDisentangled (ALL_CAMS_DISENTANGLED_PER_WING_CNN,
+             filters 64, 192x192x16 -> 72, the 32 per-wing samples with their
+             crop-adjusted cameras) through the Trainer as (a), augmentation
+             on and each view's warp folded into its camera, the same
+             float32 card-vs-CPU step, then served through
+             Predictor(cameras=...) on the 32 tiled to 356 with their camera
+             rows (256 + a padded 100), the padded tail's peaks equal to the
+             same samples' inside the full chunk.
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
@@ -206,6 +227,12 @@ MULTICAM_F32_RTOL = 1e-4  # folded vs unfolded maps, float32 (TF32 off), of max
 MULTICAM_BF16_RTOL = 1e-2  # folded vs unfolded maps, bf16, of max
 MULTICAM_GAP = 2e-4  # argmax equal wherever the top-two gap exceeds this
 ZOO_BATCH = 8  # one forward of each other new model, full width
+ZOO_EPOCHS = 2  # the zoo phase's Trainer runs: epochs of ZOO_UPDATES updates
+ZOO_UPDATES = 5
+ZOO_WARMUP = 3  # bare steps before the ZOO_STEPS timed ones
+ZOO_STEPS = 10
+ZOO_SERVED = 356  # camera-model samples served: a full chunk and a padded 100
+ZOO_STATS_RTOL = 1e-4  # card vs CPU running averages, of each tensor's largest
 
 
 def emit(obj: dict) -> None:
@@ -1878,6 +1905,236 @@ def phase_multicam(torch, device_name: str, smi: str) -> dict:
     return result
 
 
+def card_vs_cpu_step(torch, model_type: str, data: dict, idx: np.ndarray,
+                     shape: tuple, k: int) -> dict:
+    """One float32 step (TF32 off, dropout 0, no augmentation, targets from
+    the peaks) of ``model_type`` at Config()'s widths from the same seeded
+    state on the card and on the CPU, under deterministic cuDNN: the loss,
+    the gradients (of the model's largest: a conv bias in front of a
+    train-mode BatchNorm has an exact gradient of 0, so its own largest is
+    float32 noise), the updated parameters beyond what the gradients'
+    difference explains (Adam's first update is lr * g / (|g| + eps)), and
+    the running averages (of each tensor's largest)."""
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(model_type=model_type, compute_dtype="float32", dropout_ratio=0.0,
+                 do_augmentations=False)
+    with torch.device("meta"):
+        model = build_model(cfg, shape, k)
+    grad_fn, step = loop.make_grad_fn(model, cfg), loop.make_train_step(model, cfg)
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dev, d in (("cuda", data), ("cpu", {key: v.cpu() for key, v in data.items()})):
+            st = loop.create_train_state(model, cfg, seed=SEED, device=dev)
+            loss, grads = grad_fn(st.params, d, idx[0], torch.Generator(device=dev),
+                                  st.batch_stats)
+            new, step_loss = step(st, d, idx[:1])
+            out[dev] = (float(loss), float(step_loss),
+                        {key: g.cpu().numpy() for key, g in grads.items()},
+                        {key: p.cpu().numpy() for key, p in new.params.items()},
+                        {key: v.cpu().numpy() for key, v in new.batch_stats.items()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, slg, gg, pg, sg), (lc, slc, gc, pc, sc) = out["cuda"], out["cpu"]
+    check(slg == lg and slc == lc, "the step's loss is not its gradient's loss")
+    check(bool(sc) and set(sg) == set(sc), f"running averages {sorted(sg)} vs {sorted(sc)}")
+    top = max(float(np.abs(g).max()) for g in gc.values())
+    grad_err, unexplained, flips = 0.0, 0.0, 0
+    for key in gc:
+        grad_err = max(grad_err, float(np.abs(gg[key] - gc[key]).max()) / top)
+        same = np.sign(gg[key]) == np.sign(gc[key])
+        flips += int((~same).sum())
+        check(float(np.abs(gc[key][~same]).max(initial=0.0)) <= TRAIN_GRAD_RTOL * top,
+              f"{model_type} {key}: a gradient sign differs away from zero")
+        explained = cfg.learning_rate * ADAM_EPS * np.abs(gg[key] - gc[key]) / (
+            (np.abs(gg[key]) + ADAM_EPS) * (np.abs(gc[key]) + ADAM_EPS))
+        d = np.abs(pg[key] - pc[key])[same]
+        unexplained = max(unexplained, float((d - explained[same]).max(initial=0.0)))
+    stats_err = max(float(np.abs(sg[key] - sc[key]).max() / np.abs(sc[key]).max())
+                    for key in sc)
+    result = {"loss_rel_err": abs(lg - lc) / abs(lc), "loss_rtol": TRAIN_LOSS_RTOL,
+              "grad_err_of_largest": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
+              "param_beyond_gradients": unexplained, "param_atol": TRAIN_PARAM_ATOL,
+              "stats_err_of_max": stats_err, "stats_rtol": ZOO_STATS_RTOL,
+              "sign_flips": flips, "running_averages": len(sc)}
+    check(result["loss_rel_err"] <= TRAIN_LOSS_RTOL, f"{model_type} card vs CPU loss {lg} vs {lc}")
+    check(grad_err <= TRAIN_GRAD_RTOL, f"{model_type} card vs CPU gradients: {grad_err}")
+    check(unexplained <= TRAIN_PARAM_ATOL, f"{model_type} card vs CPU parameters: {unexplained}")
+    check(stats_err <= ZOO_STATS_RTOL, f"{model_type} card vs CPU running averages: {stats_err}")
+    return result
+
+
+def bare_steps(torch, step, state, ds, cfg) -> tuple[object, float]:
+    """(state, milliseconds a step) of ZOO_WARMUP + ZOO_STEPS steps on the
+    dataset's ring, the timed ones by CUDA events."""
+    idx = [ds.step_indices(cfg.batch_size, 1) for _ in range(ZOO_WARMUP + ZOO_STEPS)]
+    losses = []
+    for i in range(ZOO_WARMUP):
+        state, loss = step(state, ds.data, idx[i])
+        losses.append(loss)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(ZOO_WARMUP, ZOO_WARMUP + ZOO_STEPS):
+        state, loss = step(state, ds.data, idx[i])
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite bare-step losses")
+    return state, start.elapsed_time(end) / ZOO_STEPS
+
+
+def zoo_trainer(torch, cfg, arrays) -> tuple[object, dict]:
+    """A Trainer run of ZOO_EPOCHS x ZOO_UPDATES at batch 8 on the card and
+    its bare step: (trainer, numbers)."""
+    from pose_estimation_amitai_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, arrays={key: v.copy() for key, v in arrays.items()}, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = tr.train()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    steps = ZOO_EPOCHS * ZOO_UPDATES
+    check(tr.state.step == steps and bool(np.isfinite(history["train_loss"]
+                                                      + history["val_loss"]).all()),
+          f"{cfg.model_type}: step {tr.state.step}, history {history}")
+    check(tr.state.batch_stats and all(v.is_cuda and v.dtype == torch.float32
+                                       for v in tr.state.batch_stats.values()),
+          f"{cfg.model_type}: running averages not float32 on the card")
+    _, step_ms = bare_steps(torch, tr.train_step, tr.state, tr.dataset, cfg)
+    return tr, {"loop_steps_per_s": steps / t_train, "train_seconds": t_train,
+                "epoch_ms": [x * 1e3 for x in history["epoch_seconds"]],
+                "history": history, "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+                "frames_per_s": 1e3 / step_ms * cfg.batch_size}
+
+
+def zoo_serve(pred, frames) -> dict:
+    """The requests and the movie through ``pred``: equal peaks, and the
+    rates."""
+    pred(frames[:1])  # warm-up
+    answers, movie, t_req, t_movie = serve(pred, frames)
+    check_peaks(answers, movie, len(frames), pred.num_output_channels)
+    return {"serving_path": pred.serving_path, "frames": len(frames),
+            "requests": list(REQUESTS), "requests_frames_per_s": len(frames) / t_req,
+            "movie_frames_per_s": len(frames) / t_movie, "movie_equals_requests": True}
+
+
+def phase_zoo(torch, device_name: str, smi: str) -> dict:
+    """ResNetHeatmapNet and FourCamDisentangled through the Trainer,
+    GPTResNet through the bare step, all at full width on the card, each
+    served through Predictor on its running averages."""
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config, weights
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop
+
+    t_phase = time.perf_counter()
+    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                   image_size=192, seed=SEED)
+    k = TRAIN_POINTS // 2 + 2
+    models = {}
+    with tempfile.TemporaryDirectory() as out:
+        common = dict(base_output_path=out, epochs=ZOO_EPOCHS, batches_per_epoch=ZOO_UPDATES)
+
+        # (a) ResNetHeatmapNet through the Trainer, then served
+        t0 = time.perf_counter()
+        cfg = Config(model_type=C.RESNET_18_POINTS_PER_WING, **common)
+        tr, res = zoo_trainer(torch, cfg, arrays)
+        check(type(tr.model).__name__ == "ResNetHeatmapNet" and tr.model.flavor == "tpu"
+              and len(tr.state.batch_stats) == 2 * 53, "ResNet50 tpu flavour, 53 BatchNorms")
+        idx = tr.dataset.step_indices(cfg.batch_size, 1)
+        res["float32_card_vs_cpu"] = card_vs_cpu_step(
+            torch, cfg.model_type, tr.dataset.data, idx, (192, 192, 4), k)
+        box = tr.dataset.data["box"].cpu().numpy()
+        frames = np.concatenate([box] * (-(-sum(REQUESTS) // len(box))))[: sum(REQUESTS)]
+        pred = Predictor.from_checkpoint(cfg, tr.run_path, (192, 192, 4), k, device="cuda",
+                                         chunk_size=CHUNK)
+        res["served"] = zoo_serve(pred, frames)
+        res["seconds"] = time.perf_counter() - t0
+        models["ResNetHeatmapNet"] = res
+        del tr, pred
+
+        # (b) GPTResNet: bare steps, then its variables served
+        t0 = time.perf_counter()
+        cfg = Config(model_type=C.GPTNET)
+        ds, _ = build_dataset(cfg, {key: v.copy() for key, v in arrays.items()}, device="cuda")
+        with torch.device("meta"):
+            model = build_model(cfg, (192, 192, 4), k)
+        state0 = loop.create_train_state(model, cfg, seed=SEED, device="cuda")
+        step = loop.make_train_step(model, cfg)
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter()
+        state, step_ms = bare_steps(torch, step, state0, ds, cfg)
+        t_loop = time.perf_counter() - t_loop
+        moved = [n for n in state.batch_stats
+                 if not torch.equal(state.batch_stats[n], state0.batch_stats[n])]
+        check(len(moved) == len(state.batch_stats) == 2 * 32,
+              f"GPTResNet: {len(moved)} of {len(state.batch_stats)} running averages moved")
+        pred = Predictor(cfg, weights.state_dict_to_flax(state.params, model), (192, 192, 4), k,
+                         device="cuda", chunk_size=CHUNK,
+                         batch_stats=weights.batch_stats_to_flax(state.batch_stats))
+        models["GPTResNet"] = {
+            "host_steps_per_s_with_warmup": (ZOO_WARMUP + ZOO_STEPS) / t_loop,
+            "step_ms": step_ms,
+            "steps_per_s": 1e3 / step_ms, "frames_per_s": 1e3 / step_ms * cfg.batch_size,
+            "served": zoo_serve(pred, frames), "seconds": time.perf_counter() - t0}
+        del ds, state, state0, pred
+
+        # (c) FourCamDisentangled through the Trainer, served with cameras
+        t0 = time.perf_counter()
+        cfg = Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN, **common)
+        check(cfg.do_augmentations and cfg.num_base_filters == 64, "Config()'s widths")
+        tr, res = zoo_trainer(torch, cfg, arrays)
+        data = tr.dataset.data
+        n, kc = data["box"].shape[0], data["confmaps"].shape[-1]
+        check(n == 2 * TRAIN_FRAMES and tuple(data["box"].shape[1:]) == (192, 192, 16)
+              and kc == 4 * k and tuple(data["P"].shape) == (n, 4, 3, 4),
+              f"disentangled samples {tuple(data['box'].shape)}, cameras {tuple(data['P'].shape)}")
+        idx = tr.dataset.step_indices(cfg.batch_size, 1)
+        res["float32_card_vs_cpu"] = card_vs_cpu_step(
+            torch, cfg.model_type, data, idx, (192, 192, 16), kc)
+        rows = np.arange(ZOO_SERVED) % n
+        samples = data["box"].cpu().numpy()[rows]
+        cams = (data["P"].cpu().numpy()[rows], data["P_inv"].cpu().numpy()[rows])
+        pred = Predictor.from_checkpoint(cfg, tr.run_path, (192, 192, 16), kc, device="cuda",
+                                         chunk_size=CHUNK, cameras=cams)
+        pred(samples[:1])  # warm-up
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter()
+        pts = pred(samples)
+        t_serve = time.perf_counter() - t_serve
+        check(pts.shape == (ZOO_SERVED, 3, kc) and bool(np.isfinite(pts).all()),
+              f"served {pts.shape}")
+        tail = np.arange(CHUNK, ZOO_SERVED)
+        differ = int(np.any(pts[tail, :2] != pts[tail % n, :2], axis=(1, 2)).sum())
+        check(differ == 0, f"{differ} padded-tail samples decode other peaks than in a full chunk")
+        res["served"] = {"serving_path": pred.serving_path, "samples": ZOO_SERVED,
+                         "chunks": [CHUNK, ZOO_SERVED - CHUNK],
+                         "samples_per_s": ZOO_SERVED / t_serve,
+                         "view_frames_per_s": 4 * ZOO_SERVED / t_serve,
+                         "tail_samples_differing": differ}
+        res["seconds"] = time.perf_counter() - t0
+        models["FourCamDisentangled"] = res
+        del tr, pred
+
+    result = {"phase": "zoo", "device": device_name, "nvidia_smi": smi,
+              "model": "full width, bf16 compute over float32 parameters, batch 8, "
+                       "16 synthetic 192x192 frames (seed 0): ResNetHeatmapNet tpu flavour "
+                       "ResNet50 192x192x4 -> 18; GPTResNet 192x192x4 -> 18; "
+                       "FourCamDisentangled filters 64 192x192x16 -> 72",
+              "models": models, "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1905,6 +2162,7 @@ def main() -> int:
     tr = phase_train(torch, name, smi)
     trn = phase_trainer(torch, name, smi, tr["step_ms"])
     phase_multicam(torch, name, smi)
+    phase_zoo(torch, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     for r in rows:

@@ -67,14 +67,19 @@ def _preprocessed(args):
             "--import-reference / --dim-head: reference checkpoints are "
             "ROADMAP Queue A item 13")
     cfg = Config.from_json(args.config).replace(data_path=args.data, debug_mode=False)
-    if needs_camera_matrices(cfg.model_type):
-        raise NotImplementedError(
-            f"model type {cfg.model_type!r}: camera-matrix models are ROADMAP "
-            "Queue A item 10")
     pre = Preprocessor(cfg)
     pre.do_preprocess()
-    box = pre.get_box().astype(np.float32)
-    confmaps = pre.get_confmaps().astype(np.float32)
+    cameras = None
+    if needs_camera_matrices(cfg.model_type):
+        # the samples and crop-adjusted cameras the trainer fed, both wings
+        # of each frame (the decomposed DLT cameras, as JAX's cli takes them)
+        from .data.pipeline import disentangled_samples
+
+        box, confmaps, *cameras = disentangled_samples(
+            cfg.replace(estimate_cameras=False), pre)
+    else:
+        box = pre.get_box().astype(np.float32)
+        confmaps = pre.get_confmaps().astype(np.float32)
     # eval defaults to the exact softmax: its numbers are the accuracy surface
     fast_sm = {"auto": None, "on": True, "off": False}[args.fast_softmax]
     predictor = Predictor.from_checkpoint(
@@ -87,6 +92,7 @@ def _preprocessed(args):
         use_quantized=args.quantized,
         calibration_frames=box[:32] if args.quantized else None,
         fast_softmax=fast_sm,
+        cameras=cameras,
     )
     return cfg, pre, box, confmaps, predictor
 

@@ -8,9 +8,16 @@ the host only makes index arrays, and the train step gathers, augments and
 renders targets on the device. The split and the epoch ring come from the
 same numpy generator as JAX's, so both packages draw the same indices.
 
-Not ported here: the camera-matrix arrays of the disentangled models and
-``estimate_cameras`` (ROADMAP Queue A item 10), and the mesh-sharded step's
-``microbatch_arrays`` (item 14).
+For the disentangled camera-matrix models the per-sample crop-adjusted
+cameras (reference: pytorch/Datagenerators.py:228-270, 382-413), or with
+``estimate_cameras`` per-frame DLT fits to the decoded targets
+(tensorflow/Custom_data_generator.py:216-241), are computed once on the
+host and ride beside the frames as ``P`` (N, 4, 3, 4) and ``P_inv`` (N, 4,
+4, 3); both wings of a frame become samples, where the reference draws one
+at random (:257-260).
+
+Not ported here: the mesh-sharded step's ``microbatch_arrays`` (ROADMAP
+Queue A item 14).
 """
 
 from __future__ import annotations
@@ -22,8 +29,11 @@ import torch
 
 from .. import constants as C
 from ..config import Config
+from ..ops import geometry
 from ..ops import peaks as peaks_ops
-from .preprocess import Preprocessor
+from .preprocess import Preprocessor, find_peaks_np
+
+CAMERA_KEYS = ("P", "P_inv")  # the disentangled models' per-sample cameras
 
 DECODE_CHUNK = 512  # frames a decode of the targets' peaks takes at once
 
@@ -111,23 +121,27 @@ class DeviceDataset:
             yield np.asarray(chunk, np.int32), len(chunk)
 
     def val_payloads(self, batch_size: int) -> Iterator[tuple[dict, int]]:
-        """Validation batches ``({"image", "confmaps"}, n)`` on the device.
-        The split is static, so it is gathered once and sliced per call."""
+        """Validation batches ``({"image", "confmaps"[, "P", "P_inv"]}, n)``
+        on the device. The split is static, so it is gathered once and
+        sliced per call."""
         if not hasattr(self, "_val_cache"):
-            ids = torch.as_tensor(self.val_inds, device=self.data["box"].device)
-            self._val_cache = {"image": self.data["box"][ids],
-                               "confmaps": self.data["confmaps"][ids]}
+            self._val_cache = self._take(self.val_inds)
         n = len(self.val_inds)
         for i in range(0, n, batch_size):
             stop = min(i + batch_size, n)
             yield ({k: v[i:stop].to(self.device) for k, v in self._val_cache.items()},
                    stop - i)
 
-    def gather(self, ids) -> dict[str, torch.Tensor]:
-        """``{"image", "confmaps"}`` of samples ``ids``, on the device."""
+    def _take(self, ids) -> dict[str, torch.Tensor]:
         ids = torch.as_tensor(np.asarray(ids), device=self.data["box"].device)
-        return {"image": self.data["box"][ids].to(self.device),
-                "confmaps": self.data["confmaps"][ids].to(self.device)}
+        out = {"image": self.data["box"][ids], "confmaps": self.data["confmaps"][ids]}
+        out.update({k: self.data[k][ids] for k in CAMERA_KEYS if k in self.data})
+        return out
+
+    def gather(self, ids) -> dict[str, torch.Tensor]:
+        """``{"image", "confmaps"}`` (and the cameras ``P``, ``P_inv``) of
+        samples ``ids``, on the device."""
+        return {k: v.to(self.device) for k, v in self._take(ids).items()}
 
     # -- train-step feeds ----------------------------------------------------
     def step_payload(self, idx: np.ndarray) -> tuple[dict, torch.Tensor]:
@@ -152,11 +166,124 @@ class HostDataset(DeviceDataset):
     def step_payload(self, idx: np.ndarray) -> tuple[dict, torch.Tensor]:
         flat = torch.as_tensor(np.asarray(idx).reshape(-1), dtype=torch.long)
         window = {k: self.data[k][flat].to(self.device)
-                  for k in ("box", "peaks", "peak_vals") if k in self.data}
+                  for k in ("box", "peaks", "peak_vals", *CAMERA_KEYS) if k in self.data}
         if "peaks" not in self.data:
             window["confmaps"] = self.data["confmaps"][flat].to(self.device)
         local = torch.arange(flat.numel(), dtype=torch.int32).reshape(idx.shape)
         return window, local.to(self.device)
+
+
+def _camera_matrix_arrays(pre: Preprocessor) -> tuple[np.ndarray, np.ndarray]:
+    """Per-frame crop-adjusted (P, P_inv) (F, 4, 3, 4) / (F, 4, 4, 3) of
+    the disentangled models (``CameraMatrixGenerator``,
+    pytorch/Datagenerators.py:382-413): each DLT camera decomposed once,
+    its principal point shifted by each frame's cropZone; the crop size is
+    the maps' (``confmaps_orig``)."""
+    Ks, Rs, ts = geometry.decompose_camera(torch.from_numpy(pre.camera_matrices))
+    P, P_inv = geometry.crop_adjusted_matrices(
+        Ks, Rs, ts, torch.as_tensor(np.asarray(pre.cropzone), dtype=torch.float32),
+        crop_size=int(pre.get_confmaps_orig().shape[2]))
+    return P.numpy(), P_inv.numpy()
+
+
+def estimate_cameras_from_peaks(
+    confmaps: np.ndarray, cropzone: np.ndarray, points_3d: np.ndarray,
+    crop_local: bool = False,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-frame, per-camera DLT cameras fitted to the decoded target peaks
+    (the TF ``CustomDataGenerator`` camera mode,
+    tensorflow/Custom_data_generator.py:216-241), and their numpy
+    pseudo-inverses.
+
+    Peaks clipped at the crop's border are dropped, unless fewer than 6
+    (the DLT's least) would remain; then all are used. The DLT's SVD runs
+    in float64 (the cameras are stored as float32): the system mixes
+    millimetre 3D points with pixel coordinates, and a float32 null vector
+    (JAX's) reprojects up to about a pixel from the exact fit on the
+    crop-local peaks, and further on the full-sensor ones. ``crop_local``: fit
+    the crop-local peaks in the flipped frame ``(x, H - y)`` that
+    :func:`..ops.geometry.crop_adjusted_matrices` gives (the reference's
+    convention; the crop offset lands in each frame's P); default: the
+    full-sensor coordinates.
+
+    Args:
+      confmaps: (F, cams, H, W, K) maps whose channels match ``points_3d``;
+        cropzone: (F, cams, 2); points_3d: (F, K, 3).
+
+    Returns (F, cams, 3, 4) cameras and (F, cams, 4, 3) pseudo-inverses.
+    """
+    frames, ncams = confmaps.shape[:2]
+    peaks2d = find_peaks_np(confmaps.reshape((-1,) + confmaps.shape[2:]))[:, :2, :]
+    peaks2d = np.transpose(peaks2d.reshape(frames, ncams, 2, -1), (0, 1, 3, 2))
+    k = min(points_3d.shape[1], peaks2d.shape[2])
+    h, w = confmaps.shape[2:4]
+    if crop_local:
+        full = peaks2d[:, :, :k].astype(np.float32)
+        full = np.stack([full[..., 0], h - full[..., 1]], axis=-1)
+    else:
+        full = geometry.uncrop_points(
+            torch.as_tensor(peaks2d[:, :, :k], dtype=torch.float32),
+            torch.as_tensor(np.asarray(cropzone), dtype=torch.float32)).numpy()
+    P = np.zeros((frames, ncams, 3, 4), np.float32)
+    P_inv = np.zeros((frames, ncams, 4, 3), np.float32)
+    for f in range(frames):
+        for c in range(ncams):
+            local = peaks2d[f, c, :k]
+            ok = ((local[:, 0] > 0) & (local[:, 0] < w - 1)
+                  & (local[:, 1] > 0) & (local[:, 1] < h - 1))
+            if ok.sum() < 6:
+                ok = np.ones(k, bool)
+            P[f, c] = geometry.estimate_projection_dlt(
+                torch.as_tensor(points_3d[f, :k][ok], dtype=torch.float64),
+                torch.as_tensor(full[f, c][ok], dtype=torch.float64)).numpy()
+            P_inv[f, c] = np.linalg.pinv(P[f, c])
+    return P, P_inv
+
+
+def _assemble_disentangled(pre: Preprocessor) -> tuple[np.ndarray, np.ndarray]:
+    """(2F, H, W, 16) frames and (2F, H, W, 4 (half + 2)) maps of the
+    disentangled models (``CameraMatrixGenerator.__getitem__``,
+    pytorch/Datagenerators.py:242-280): per wing, each camera gives its time
+    channels and that wing's mask, and that wing's map channels plus head
+    and tail; the four cameras side by side on the channels; the left wings'
+    samples first, then the right's."""
+    box_orig = pre.get_box_orig()  # (F, cams, H, W, T + 2)
+    cm_orig = pre.get_confmaps_orig()  # (F, cams, H, W, 2 half + 2)
+    ncams, t = box_orig.shape[1], pre.num_time_channels
+    head_tail = cm_orig[..., -2:]
+    left_cm, right_cm = np.array_split(cm_orig[..., :-2], 2, axis=-1)
+    left_cm = np.concatenate([left_cm, head_tail], axis=-1)
+    right_cm = np.concatenate([right_cm, head_tail], axis=-1)
+    left_box = box_orig[..., list(range(t)) + [t]]
+    right_box = box_orig[..., list(range(t)) + [t + 1]]
+
+    def cams_to_channels(x):  # (F, cams, H, W, c) -> (F, H, W, cams * c)
+        return np.concatenate([x[:, c] for c in range(ncams)], axis=-1)
+
+    box = np.concatenate([cams_to_channels(left_box), cams_to_channels(right_box)])
+    confmaps = np.concatenate([cams_to_channels(left_cm), cams_to_channels(right_cm)])
+    return box.astype(np.float32), confmaps.astype(np.float32)
+
+
+def disentangled_samples(
+    cfg: Config, pre: Preprocessor
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(frames, maps, P, P_inv) of a preprocessed disentangled dataset: the
+    two wing samples of each frame (:func:`_assemble_disentangled`) and
+    their cameras, decomposed from the DLT cameras or, with
+    ``cfg.estimate_cameras``, fitted to the decoded targets in the crop's
+    frame (the 3D points reordered to ``confmaps_orig``'s channels, whose
+    wing blocks come right-index first)."""
+    box, confmaps = _assemble_disentangled(pre)
+    if cfg.estimate_cameras:
+        pts = pre.points_3d
+        order = np.concatenate([pre.right_inds, pre.left_inds,
+                                [pts.shape[1] - 2, pts.shape[1] - 1]])
+        P, P_inv = estimate_cameras_from_peaks(
+            pre.get_confmaps_orig(), pre.cropzone, pts[:, order], crop_local=True)
+    else:
+        P, P_inv = _camera_matrix_arrays(pre)
+    return box, confmaps, np.concatenate([P, P]), np.concatenate([P_inv, P_inv])
 
 
 def build_dataset(
@@ -167,16 +294,16 @@ def build_dataset(
     device: torch.device | str,
 ) -> tuple[DeviceDataset, Preprocessor]:
     """Preprocess (``cfg.data_path``'s H5 file, or ``arrays``) and stage
-    the samples on ``device``."""
-    if cfg.model_type in (C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
-                          C.ALL_CAMS_DISENTANGLED_PER_WING_VIT):
-        raise NotImplementedError(
-            f"model type {cfg.model_type!r}: the camera-matrix arrays (and "
-            "estimate_cameras) of the disentangled models are ROADMAP Queue A "
-            "item 10")
+    the samples on ``device``; the disentangled types' with their cameras
+    (:func:`disentangled_samples`)."""
     pre = preprocessor or Preprocessor(cfg, arrays)
     pre.do_preprocess()
-    data = {"box": pre.get_box(), "confmaps": pre.get_confmaps()}
+    if cfg.model_type in (C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
+                          C.ALL_CAMS_DISENTANGLED_PER_WING_VIT):
+        box, confmaps, P, P_inv = disentangled_samples(cfg, pre)
+        data = {"box": box, "confmaps": confmaps, "P": P, "P_inv": P_inv}
+    else:
+        data = {"box": pre.get_box(), "confmaps": pre.get_confmaps()}
     nbytes = sum(np.asarray(v).nbytes for v in data.values())
     use_host = cfg.host_resident_data or (
         nbytes > cfg.device_dataset_budget_mb * 2**20

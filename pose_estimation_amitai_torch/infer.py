@@ -1,14 +1,16 @@
 """Batched inference: frames -> heatmaps -> keypoints -> 3D (PyTorch port).
 
-Counterpart of ``pose_estimation_amitai_tpu/infer.py`` for the families
-ported so far: the CNN family (the flagship per-wing ``BasicNet``, coarse
-and C2F, ``TwoWingsNet``, ``MultiCamNet``), and the ViT families
-(``ViTPoseNet``, ``ViT4Cameras``):
+Counterpart of ``pose_estimation_amitai_tpu/infer.py`` for every model
+family: the CNN family (the flagship per-wing ``BasicNet``, coarse and C2F,
+``TwoWingsNet``, ``MultiCamNet``), the ViT families (``ViTPoseNet``,
+``ViT4Cameras``), the BatchNorm families (``ResNetHeatmapNet``,
+``GPTResNet``: ``batch_stats``) and the disentangled camera-matrix model
+(``FourCamDisentangled``: ``cameras``, one row per sample):
 
-* ``Predictor`` — chunked forward (tail zero-padded, padded rows dropped)
-  and peak decode on the device. Routes (``serving_path``): ``"module"``,
-  the ``nn.Module`` forward (the port's counterpart of JAX's ``"flax"``
-  route), for every family; ``"fused"``, the hand-written Hopper kernels:
+* ``Predictor`` — chunked forward (tail zero-padded, its camera rows the
+  last sample's, padded rows dropped) and peak decode on the device. Routes
+  (``serving_path``): ``"module"``, the ``nn.Module`` forward (the port's
+  counterpart of JAX's ``"flax"`` route), for every family; ``"fused"``, the hand-written Hopper kernels:
   for the flagship ``BasicNet`` the encoder-stage and decoder kernels
   (models/fast_infer.py), for a ViT the same module with every attention
   core on the attention kernel (ops/hopper_attention.py);
@@ -32,7 +34,7 @@ from torch import nn
 
 from . import weights
 from .config import Config
-from .models import build_model
+from .models import build_model, needs_camera_matrices
 from .models.cnn import BasicNet
 from .models.fast_infer import basicnet_apply_fused, kernel_params
 from .models.vit import ViT4Cameras, ViTPoseNet
@@ -94,17 +96,18 @@ class Predictor:
         float32 softmax, ``True`` forces the bf16 chain. The attention
         kernel computes the exact softmax, so the ``fused`` route keeps the
         chain off, and ``use_fused`` with ``fast_softmax=True`` raises
-        ``ValueError``."""
+        ``ValueError``.
+
+        ``batch_stats``: the flax ``batch_stats`` tree of the BatchNorm
+        families (their running averages). ``cameras``: ``(P, P_inv)``,
+        (N, 4, 3, 4) and (N, 4, 4, 3), one row per sample of the frames the
+        predictor will be called on, which the disentangled model needs
+        (its call raises ``ValueError`` without them). These families serve
+        on the ``"module"`` route; ``use_fused`` is ignored for them, as
+        JAX ignores it."""
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is ROADMAP Queue A item 14")
-        if cameras is not None:
-            raise NotImplementedError(
-                "camera-matrix models (cameras) are ROADMAP Queue A item 10")
-        if batch_stats:
-            raise NotImplementedError(
-                "BatchNorm model families (batch_stats) are ROADMAP Queue A "
-                "item 10")
         if decode not in DECODES:
             raise ValueError(f"decode={decode!r}; expected one of {DECODES}")
         if chunk_size < 1:
@@ -115,6 +118,9 @@ class Predictor:
         self.return_heatmaps = return_heatmaps
         self.decode = decode
         self.num_output_channels = num_output_channels
+        self._needs_cams = needs_camera_matrices(cfg.model_type)
+        self.cameras = None if cameras is None else tuple(
+            np.asarray(c, np.float32) for c in cameras)
         with torch.device("meta"):  # the geometry only; no weights yet
             model = build_model(cfg, image_shape, num_output_channels)
         # the fused kernels and the int8 forwards serve the flagship
@@ -163,7 +169,7 @@ class Predictor:
             self.model = model.to_empty(device=self.device).eval()
             self.model.load_state_dict(
                 weights.vit_state_dict(params) if is_vit
-                else weights.flax_to_state_dict(params, self.model))
+                else weights.flax_to_state_dict(params, self.model, batch_stats or {}))
             if self.device.type == "cuda" and not is_vit:
                 # NHWC frames permute to channels-last NCHW views; keep the
                 # weights in the same format so cuDNN needs no transposes
@@ -215,13 +221,16 @@ class Predictor:
         as for the constructor."""
         if isinstance(cfg, str):
             cfg = Config.from_json(cfg)
-        params, batch_stats = weights.load_checkpoint(checkpoint_path)
+        with torch.device("meta"):  # which layers are transposed convs
+            model = build_model(cfg, image_shape, num_output_channels)
+        params, batch_stats = weights.load_checkpoint(checkpoint_path, model)
         kw.setdefault("batch_stats", batch_stats)
         return cls(cfg, params, image_shape, num_output_channels, **kw)
 
     # ------------------------------------------------------------------
-    def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, C) frames on the device -> (B, H, W, K) maps over this
+    def forward(self, frames: torch.Tensor, *cameras: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) frames on the device (and a camera model's (B, 4, 3,
+        4) P and (B, 4, 4, 3) P_inv) -> (B, H, W, K) maps over this
         predictor's serving route: float32, except a ViT's raw maps in
         argmax peaks-only serving, which stay in the compute dtype."""
         with torch.inference_mode():
@@ -229,10 +238,10 @@ class Predictor:
                 return self._quantized(frames).float()
             if self._kparams is not None:
                 return basicnet_apply_fused(self._kparams, frames)
-            return self.model(frames)
+            return self.model(frames, *cameras)
 
-    def _run(self, frames: torch.Tensor):
-        maps = self.forward(frames)
+    def _run(self, frames: torch.Tensor, *cameras: torch.Tensor):
+        maps = self.forward(frames, *cameras)
         with torch.inference_mode():
             if self.decode == "soft":
                 xy = peaks.find_peaks_soft_argmax(maps)  # (B, K, 2)
@@ -256,6 +265,19 @@ class Predictor:
             t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
         return t
 
+    def _stage_cameras(self, start: int, stop: int) -> tuple[torch.Tensor, ...]:
+        """The camera rows of samples [start, stop) on the device, padded to
+        chunk_size with the last row (a zero camera would feed the FTL
+        nothing sensible; the padded rows' outputs are dropped)."""
+        if not self._needs_cams:
+            return ()
+        out = []
+        for c in self.cameras:
+            t = torch.from_numpy(c[start:stop]).to(self.device, non_blocking=True)
+            pad = self.chunk_size - t.shape[0]
+            out.append(torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad else t)
+        return tuple(out)
+
     def __call__(self, frames):
         """Decode keypoints for (N, H, W, C) frames (numpy or tensor); N
         arbitrary.
@@ -265,10 +287,15 @@ class Predictor:
         """
         n = frames.shape[0]
         cs = self.chunk_size
+        if self._needs_cams and self.cameras is None:
+            raise ValueError(
+                f"{self.cfg.model_type} takes camera matrices: construct the "
+                "Predictor with cameras=(P, P_inv), one row per sample")
         outs, maps = [], []
         for i in range(0, n, cs):
             keep = min(cs, n - i)
-            res = self._run(self._stage(frames[i : i + cs]))
+            res = self._run(self._stage(frames[i : i + cs]),
+                            *self._stage_cameras(i, i + keep))
             if self.return_heatmaps:
                 m, p = res
                 maps.append(m[:keep].cpu().numpy())
@@ -287,10 +314,13 @@ class Predictor:
         chunk i + prefetch while the host waits for chunk i's small peak
         output, and device memory stays bounded at ``prefetch`` chunks
         whatever the movie's length. The ragged tail goes through
-        ``__call__``.
+        ``__call__``, as does a camera model's whole movie.
         """
         if self.return_heatmaps:
             raise ValueError("predict_movie decodes peaks only")
+        if self._needs_cams:
+            # the camera models take their per-sample rows chunk by chunk
+            return self(frames)
         n = frames.shape[0]
         cs = self.chunk_size
         n_full = n // cs

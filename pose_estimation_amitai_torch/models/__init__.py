@@ -5,10 +5,11 @@ Counterpart of ``pose_estimation_amitai_tpu/models/__init__.py``
 ``build_model``. The CNN family builds (models/cnn.py: ``BasicNet``, its
 default branch, tensorflow/Network.py:59-60, ``CoarsePerWing``,
 ``C2FPerWing``, ``TwoWingsNet``; models/multicam.py: ``MultiCamNet``), as do
-the four single-view ViT types (``ViTPoseNet``) and the three 4-camera ViT
-types (``ViT4Cameras``, models/vit.py). Every type the JAX registry maps to
-an architecture not ported yet raises ``NotImplementedError`` naming its
-ROADMAP item, never falling through to ``BasicNet``.
+the four single-view ViT types (``ViTPoseNet``), the three 4-camera ViT
+types (``ViT4Cameras``, models/vit.py), the ResNet families
+(``ResNetHeatmapNet``, ``GPTResNet``, models/resnet.py) and the two
+disentangled camera-matrix types (``FourCamDisentangled``,
+models/disentangled.py): every architecture of the JAX registry.
 """
 
 from __future__ import annotations
@@ -21,12 +22,14 @@ from torch import nn
 from .. import constants as C
 from ..config import Config
 from .cnn import BasicNet, C2FPerWing, CoarsePerWing, TwoWingsNet
+from .disentangled import FourCamDisentangled
 from .multicam import LatentSelfAttention, MultiCamNet
+from .resnet import GPTResNet, ResNetHeatmapNet
 from .vit import ViT4Cameras, ViTPoseNet
 
 __all__ = ["BasicNet", "CoarsePerWing", "C2FPerWing", "TwoWingsNet",
            "MultiCamNet", "LatentSelfAttention", "ViTPoseNet", "ViT4Cameras",
-           "build_model",
+           "ResNetHeatmapNet", "GPTResNet", "FourCamDisentangled", "build_model",
            "vit_single_kwargs", "needs_camera_matrices", "augmentation_views",
            "layout_views", "layout_masks_per_view"]
 
@@ -41,16 +44,6 @@ _MULTICAM_4 = {C.ALL_CAMS, C.ALL_CAMS_18_POINTS, C.ALL_CAMS_ALL_POINTS,
                C.HEAD_TAIL_ALL_CAMS}
 _DISENTANGLED = {C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
                  C.ALL_CAMS_DISENTANGLED_PER_WING_VIT}
-
-# model types the JAX registry maps to architectures not ported yet (JAX
-# models/__init__.py build_model), with the architecture and ROADMAP item
-_NOT_PORTED: dict[str, str] = {
-    **{mt: "FourCamDisentangled (ROADMAP Queue A item 10)" for mt in (
-        C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
-        C.ALL_CAMS_DISENTANGLED_PER_WING_VIT)},
-    C.RESNET_18_POINTS_PER_WING: "ResNetHeatmapNet (ROADMAP Queue A item 10)",
-    C.GPTNET: "GPTResNet (ROADMAP Queue A item 10)",
-}
 
 
 def needs_camera_matrices(model_type: str) -> bool:
@@ -146,10 +139,6 @@ def build_model(
         ``TypeError``.
     """
     mt = cfg.model_type
-    if mt in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model type {mt!r} builds {_NOT_PORTED[mt]}, not ported yet"
-        )
     if mt in _VIT_SINGLE:
         return ViTPoseNet(
             image_size[-1], image_size[0],
@@ -174,6 +163,15 @@ def build_model(
                            do_attention=cfg.do_attention, **cnn_kw, **serving)
     if serving:
         raise TypeError(f"a CNN model takes no serving switches, got {sorted(serving)}")
+    if mt in _DISENTANGLED:
+        return FourCamDisentangled(cin, **cnn_kw)
+    if mt == C.RESNET_18_POINTS_PER_WING:
+        return ResNetHeatmapNet(cin, num_output_channels, kernel_size=cfg.kernel_size,
+                                flavor=cfg.resnet_flavor, dtype=_dtype(cfg))
+    if mt == C.GPTNET:
+        # pytorch/Network.py:15-26 routes GPTNET to the residual
+        # encoder-decoder (NNs warehouse/NNs.py:70-136)
+        return GPTResNet(cin, num_output_channels, dtype=_dtype(cfg))
     if mt == C.TWO_WINGS_TOGATHER:
         return TwoWingsNet(cin, **cnn_kw)
     if mt == C.C2F_PER_WING:

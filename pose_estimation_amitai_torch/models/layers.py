@@ -49,6 +49,12 @@ def leaky(x: torch.Tensor, alpha: float = TORCH_ALPHA) -> torch.Tensor:
     return F.leaky_relu(x, alpha)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is where it is wider (float64): where flax
+    computes "in float32" it promotes to at least float32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _check_flavor(flavor: str) -> None:
     if flavor not in FLAVORS:
         raise ValueError(f"arch_flavor={flavor!r}; expected one of {FLAVORS}")
@@ -65,6 +71,17 @@ def _check_eval(module: nn.Module) -> None:
 def conv_same_pads(k: int, dilation: int = 1) -> tuple[int, int]:
     """(low, high) padding of a stride-1 ``"SAME"`` conv, flax's rule."""
     total = dilation * (k - 1)
+    return total // 2, total - total // 2
+
+
+def same_pads(size: int, k: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """(low, high) padding of flax's ``"SAME"`` on an axis of ``size`` at
+    any stride (``lax.padtype_to_pads``): ``ceil(size / stride)`` outputs,
+    the odd pad high. At stride 2 it depends on the size (a 7x7 conv on 192
+    rows pads (2, 3), a 3x3 max-pool on 96 pads (0, 1)); a conv and a
+    max-pool take it alike."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (k - 1) * dilation + 1 - size, 0)
     return total // 2, total - total // 2
 
 
@@ -114,7 +131,8 @@ class Deconv(nn.ConvTranspose2d):
 def conv(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)`` with the weight and bias cast to ``x``'s dtype (a no-op
     where they have it already) and the layer's explicit pads or crop."""
-    w, b = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
+    w = layer.weight.to(x.dtype)
+    b = None if layer.bias is None else layer.bias.to(x.dtype)
     if isinstance(layer, nn.ConvTranspose2d):
         y = F.conv_transpose2d(x, w, b, layer.stride, layer.padding,
                                layer.output_padding, layer.groups,

@@ -7,8 +7,10 @@ msgpack), named as JAX names them with the port's suffix --
 pytorch/train_pytorch.py:253-260), ``best_model.pt`` -- beside the same
 ``checkpoint_meta.json`` (epoch, val_loss, best_loss, scheduler). A restored
 state continues exactly where the saved one stopped: parameters, Adam
-state, step and seed are all there is, since the step's draws derive from
-(seed, step). Parameters of a JAX checkpoint load through
+state, step, seed and the BatchNorm running averages are all there is, since
+the step's draws derive from (seed, step). A weights-only snapshot
+(``save_params``) is the module's ``state_dict``: the parameters and, for
+the BatchNorm families, the running averages beside them. Parameters of a JAX checkpoint load through
 ``weights.load_flax_checkpoint`` and ``weights.basicnet_state_dict``.
 
 Files are written to a temporary name and moved into place
@@ -25,6 +27,7 @@ from typing import Any
 
 import torch
 
+from ..weights import split_stats
 from .loop import TrainState
 
 CHECKPOINT_NAME = "checkpoint.pt"
@@ -52,7 +55,8 @@ def _write(path: str, payload) -> str:
 
 def _state_payload(state: TrainState) -> dict:
     return _cpu({"step": state.step, "params": state.params,
-                 "opt_state": state.opt_state, "seed": state.seed})
+                 "opt_state": state.opt_state, "seed": state.seed,
+                 "batch_stats": state.batch_stats})
 
 
 def save_checkpoint(
@@ -81,10 +85,14 @@ def save_checkpoint(
     return path
 
 
-def save_params(path: str, params: dict[str, torch.Tensor]) -> str:
+def save_params(
+    path: str, params: dict[str, torch.Tensor],
+    batch_stats: dict[str, torch.Tensor] | None = None,
+) -> str:
     """Weights-only snapshot (the per-epoch weights of the reference,
-    tensorflow/CallBacks.py:122-128)."""
-    return _write(path, _cpu(params))
+    tensorflow/CallBacks.py:122-128): the parameters and the running
+    averages, one ``state_dict``."""
+    return _write(path, _cpu({**params, **(batch_stats or {})}))
 
 
 class AsyncCheckpointer:
@@ -105,9 +113,9 @@ class AsyncCheckpointer:
         self.wait()
         self._pending = self._pool.submit(save_checkpoint, *args, **kwargs)
 
-    def save_params(self, path: str, params) -> None:
+    def save_params(self, path: str, params, batch_stats=None) -> None:
         self.wait()
-        self._pending = self._pool.submit(save_params, path, params)
+        self._pending = self._pool.submit(save_params, path, params, batch_stats)
 
     def wait(self) -> None:
         """Block until the write in flight lands; re-raise its error."""
@@ -135,16 +143,24 @@ def _resolve(path: str, names: tuple[str, ...]) -> str:
     raise FileNotFoundError(f"{path}: none of {', '.join(names)} in this run directory")
 
 
-def load_params(
+def load_variables(
     path: str, device: torch.device | str = "cpu"
-) -> dict[str, torch.Tensor]:
-    """Parameters from a weights-only snapshot, a full checkpoint, or a run
-    directory (``best_model.pt`` preferred), on ``device``."""
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """(parameters, running averages) from a weights-only snapshot, a full
+    checkpoint, or a run directory (``best_model.pt`` preferred), on
+    ``device``; the averages are {} for the models without BatchNorm."""
     blob = torch.load(_resolve(path, (BEST_NAME, CHECKPOINT_NAME)),
                       map_location=device, weights_only=True)
     if isinstance(blob, dict) and {"params", "opt_state"} <= set(blob):
-        blob = blob["params"]
-    return blob
+        return blob["params"], blob.get("batch_stats", {})
+    return split_stats(blob)
+
+
+def load_params(
+    path: str, device: torch.device | str = "cpu"
+) -> dict[str, torch.Tensor]:
+    """The parameters of :func:`load_variables`."""
+    return load_variables(path, device)[0]
 
 
 def restore_checkpoint(
@@ -153,11 +169,14 @@ def restore_checkpoint(
     """The training state saved at ``path`` (a file, or a run directory's
     ``checkpoint.pt``), on the device of ``template``'s parameters, and the
     meta dict ({} where there is none). ``template`` (e.g. a fresh
-    ``create_train_state``) must have the same parameter names."""
+    ``create_train_state``) must have the same parameter and running
+    average names."""
     ckpt = _resolve(path, (CHECKPOINT_NAME,))
     device = next(iter(template.params.values())).device
     blob = torch.load(ckpt, map_location="cpu", weights_only=True)
-    if list(blob["params"]) != list(template.params):
+    stats = blob.get("batch_stats", {})
+    if list(blob["params"]) != list(template.params) or set(stats) != set(
+            template.batch_stats):
         raise ValueError(f"{ckpt}: its parameters are not the template's")
     opt_state = blob["opt_state"]
     # Adam's moments live with the parameters; its step counters on the host
@@ -167,7 +186,8 @@ def restore_checkpoint(
     state = TrainState(
         step=int(blob["step"]),
         params={k: v.to(device) for k, v in blob["params"].items()},
-        opt_state=opt_state, seed=int(blob["seed"]))
+        opt_state=opt_state, seed=int(blob["seed"]),
+        batch_stats={k: v.to(device) for k, v in stats.items()})
     meta_path = os.path.join(os.path.dirname(ckpt), META_NAME)
     meta: dict[str, Any] = {}
     if os.path.exists(meta_path):

@@ -12,18 +12,24 @@ them over ``accumulation_steps`` microbatches and applies one Adam update
 scaled by ``lr_scale``.
 
 The steps are functions of a :class:`TrainState` and return a new one; the
-old state is left as it was. Every random draw (augmentation, mask
-re-dilation, dropout) comes from a ``torch.Generator`` seeded from
-(seed, step, microbatch), as JAX folds the step into its key: the same
-state and step draw the same, a later step draws anew, and resuming needs
-no generator state beyond the seed and the step. The draws themselves are
-not JAX's.
+old state is left as it was. That holds for the BatchNorm families' running
+averages too: each microbatch's training forward gives new ones (flax's
+``mutable=["batch_stats"]``), threaded through the microbatches in order as
+JAX's ``scan`` carries them. Camera-matrix batches (``P``, ``P_inv``) feed
+the disentangled model, each view's augmentation warp folded into its
+camera.
+
+Every random draw (augmentation, mask re-dilation, dropout) comes from a
+``torch.Generator`` seeded from (seed, step, microbatch), as JAX folds the
+step into its key: the same state and step draw the same, a later step
+draws anew, and resuming needs no generator state beyond the seed and the
+step. The draws themselves are not JAX's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
@@ -34,8 +40,10 @@ from torch.func import functional_call
 from .. import constants as C
 from ..config import Config
 from ..models import augmentation_views, layout_masks_per_view, layout_views
+from ..models.layers import at_least_f32
 from ..models.multicam import DenseGeneral
-from ..ops import affine, peaks
+from ..models.norm import BatchNorm, collect_batch_stats
+from ..ops import affine, geometry, peaks
 from ..ops.gaussian import confmaps_from_peaks
 from ..ops.morphology import random_mask_redilation
 
@@ -47,13 +55,15 @@ _HEAD_LAYER_NAMES = ("deconv4", "head_deconv")
 @dataclass(frozen=True)
 class TrainState:
     """Step counter, float32 module parameters (by ``state_dict`` name),
-    the Adam state (``torch.optim.Adam.state_dict()``) and the seed the
-    step's random draws derive from."""
+    the Adam state (``torch.optim.Adam.state_dict()``), the seed the
+    step's random draws derive from, and the float32 BatchNorm running
+    averages by ``state_dict`` buffer name ({} for models without)."""
 
     step: int
     params: dict[str, torch.Tensor]
     opt_state: dict
     seed: int
+    batch_stats: dict[str, torch.Tensor] = field(default_factory=dict)
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -78,10 +88,14 @@ def _init_params(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """Seeded float32 parameters of a conv model, on the CPU, as flax
     initialises them: kernels lecun-normal over the fan-in (input channels x
     kernel taps, for a transposed conv too; the contracting dims of an
-    attention projection), biases zero."""
+    attention projection), biases zero, BatchNorm scales one."""
     rng = np.random.default_rng(seed)
     params: dict[str, torch.Tensor] = {}
     for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            params[f"{name}.weight"] = torch.ones(m.weight.shape)
+            params[f"{name}.bias"] = torch.zeros(m.bias.shape)
+            continue
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.in_channels * int(np.prod(m.kernel_size))
         elif isinstance(m, DenseGeneral):
@@ -90,13 +104,27 @@ def _init_params(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
             continue
         params[f"{name}.weight"] = torch.from_numpy(
             _lecun_normal(rng, tuple(m.weight.shape), fan_in))
-        params[f"{name}.bias"] = torch.zeros(m.bias.shape)
+        if m.bias is not None:
+            params[f"{name}.bias"] = torch.zeros(m.bias.shape)
     if set(params) != {n for n, _ in model.named_parameters()}:
         raise NotImplementedError(
-            f"training {type(model).__name__} is not ported: the port trains "
-            "the CNN family; the ViT's training forward is ROADMAP Queue A "
-            "item 6, the other families item 10")
+            f"training {type(model).__name__} is not ported: the ViT's training "
+            "forward is ROADMAP Queue A item 6")
     return params
+
+
+def init_batch_stats(
+    model: nn.Module, device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """flax's initial running averages of every BatchNorm of ``model``:
+    means 0, variances 1, float32 on ``device``."""
+    stats: dict[str, torch.Tensor] = {}
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            n = m.weight.shape[0]
+            stats[f"{name}.running_mean"] = torch.zeros(n, device=device)
+            stats[f"{name}.running_var"] = torch.ones(n, device=device)
+    return stats
 
 
 def frozen_names(model: nn.Module, params) -> set[str]:
@@ -111,16 +139,17 @@ def create_train_state(
     model: nn.Module, cfg: Config, seed: int = 0, *, device: torch.device | str
 ) -> TrainState:
     """Seeded float32 parameters on ``device`` (the output head zeroed if
-    ``cfg.head_zero_init``) and a fresh Adam state over the parameters that
-    train (not :func:`frozen_names`). ``model`` gives the geometry only; it
-    may live on the meta device."""
+    ``cfg.head_zero_init``), a fresh Adam state over the parameters that
+    train (not :func:`frozen_names`) and the initial running averages.
+    ``model`` gives the geometry only; it may live on the meta device."""
     params = {k: v.to(device) for k, v in _init_params(model, seed).items()}
     if cfg.head_zero_init:
         params = zero_output_head(params)
     frozen = frozen_names(model, params)
     opt_state = create_optimizer(
         cfg, [v for k, v in params.items() if k not in frozen]).state_dict()
-    return TrainState(step=0, params=params, opt_state=opt_state, seed=seed)
+    return TrainState(step=0, params=params, opt_state=opt_state, seed=seed,
+                      batch_stats=init_batch_stats(model, device))
 
 
 def zero_output_head(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -132,8 +161,8 @@ def zero_output_head(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]
 
 
 def make_loss_fn(cfg: Config) -> Callable:
-    """Float32 MSE of the maps (pytorch/train_pytorch.py:110), or the
-    decoded-coordinate pointwise loss (tensorflow/Network.py:536-547) for
+    """MSE of the maps in float32 at least (pytorch/train_pytorch.py:110), or
+    the decoded-coordinate pointwise loss (tensorflow/Network.py:536-547) for
     ``loss_function`` "pointwise" and the ``*_TO_POINTS`` /
     ``*_POINTS_LOSS`` model types."""
     use_pointwise = cfg.loss_function in (
@@ -144,7 +173,7 @@ def make_loss_fn(cfg: Config) -> Callable:
     )
 
     def loss_fn(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        pred, target = pred.float(), target.float()
+        pred, target = at_least_f32(pred), at_least_f32(target)
         if use_pointwise:
             return peaks.pointwise_loss(target, pred)
         return torch.square(pred - target).mean()
@@ -161,18 +190,19 @@ def step_generator(
     return torch.Generator(device=device).manual_seed(int(s))
 
 
-def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
-    """``grads(params, data, ids, generator) -> (loss, {name: grad})`` of one
-    microbatch: the train step's body before the update. The gradients are
-    those of the parameters that train (frozen ones have none).
+def model_args(batch: dict) -> tuple:
+    """A batch's positional model inputs: the frames, and the cameras of
+    the camera-matrix models (``P``, ``P_inv``)."""
+    if "P" in batch:
+        return (batch["image"], batch["P"], batch["P_inv"])
+    return (batch["image"],)
 
-    ``data`` is the dataset dict on the device (``box`` (N, H, W, C), and
-    ``peaks`` (N, K, 2) with ``peak_vals`` (N, K), or ``confmaps``
-    (N, H, W, K)); ``ids`` (B,) sample indices. With augmentation and
-    peaks, the images are warped (in the compute dtype) and the targets
-    rendered at the moved peaks; without augmentation the targets are
-    rendered at the stored peaks; with ``confmaps`` only, images and maps
-    are warped together. Camera-matrix data (``P``, ``P_inv``) raises."""
+
+def _microbatch_fn(model: nn.Module, cfg: Config) -> Callable:
+    """``micro(params, batch_stats, data, ids, generator) -> (loss, grads,
+    batch_stats)``: one microbatch's training forward and backward; the
+    running averages it returns are new tensors (those it was given stay as
+    they were)."""
     loss_fn = make_loss_fn(cfg)
     order = min(int(cfg.interpolation_order), 3)
     warp_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -181,11 +211,13 @@ def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
                zoom_range=cfg.zoom_range, do_horizontal_flip=cfg.horizontal_flip,
                do_vertical_flip=cfg.vertical_flip, shear_range=cfg.shear_range,
                order=order)
+    bn_names = {m: name for name, m in model.named_modules() if isinstance(m, BatchNorm)}
 
     def batch(data: dict, ids: torch.Tensor, gen: torch.Generator):
         box = data["box"][ids]
+        view_mats = None
         if cfg.do_augmentations and "peaks" in data:
-            box, confmaps, _ = affine.augment_views_and_peaks(
+            box, confmaps, view_mats = affine.augment_views_and_peaks(
                 gen, box.to(warp_dtype), data["peaks"][ids], data["peak_vals"][ids],
                 num_views=views, sigma=cfg.sigma, **aug)
         elif "peaks" in data:
@@ -194,7 +226,9 @@ def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
             ) * data["peak_vals"][ids][:, None, None, :]
         else:
             confmaps = data["confmaps"][ids]
-            if cfg.do_augmentations:
+            # a camera model is never warped here: with no per-view matrix
+            # to fold into P, its FTL would no longer match the pixels
+            if cfg.do_augmentations and "P" not in data:
                 box, confmaps = affine.augment_pair(gen, box, confmaps,
                                                     num_views=views, **aug)
         if cfg.do_augmentations and cfg.wings_masks_dilation > 0:
@@ -203,22 +237,56 @@ def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
                 num_views=layout_views(cfg.model_type),
                 num_time_channels=1 if cfg.single_time_channel else 3,
                 masks_per_view=layout_masks_per_view(cfg.model_type))
-        return box, confmaps
+        if "P" not in data:
+            return (box,), confmaps
+        P, P_inv = data["P"][ids], data["P_inv"][ids]
+        if view_mats is not None:
+            # each view's warp folded into its camera: the FTL geometry
+            # stays that of the warped pixels
+            P, P_inv = geometry.compose_affine_into_cameras(
+                view_mats, P, P_inv, crop_size=box.shape[-3])
+        return (box, P, P_inv), confmaps
 
-    def grads(params: dict, data: dict, ids, gen: torch.Generator):
-        if "P" in data:
-            raise NotImplementedError(
-                "camera-matrix batches (P, P_inv) are ROADMAP Queue A item 10")
+    def micro(params: dict, batch_stats: dict, data: dict, ids, gen: torch.Generator):
         ids = torch.as_tensor(ids, device=data["box"].device).long()
-        box, confmaps = batch(data, ids, gen)
+        args, confmaps = batch(data, ids, gen)
         frozen = frozen_names(model, params)
         live = {k: v.detach().requires_grad_(k not in frozen) for k, v in params.items()}
         model.train()
-        pred = functional_call(model, live, (box,), {"generator": gen})
+        with collect_batch_stats() as updates:
+            pred = functional_call(model, {**live, **batch_stats}, args, {"generator": gen})
         loss = loss_fn(pred, confmaps)
         trained = [k for k in live if k not in frozen]
         g = torch.autograd.grad(loss, [live[k] for k in trained])
-        return loss.detach(), dict(zip(trained, g))
+        new_stats = dict(batch_stats)
+        for m, (mean, var) in updates.items():
+            new_stats[f"{bn_names[m]}.running_mean"] = mean
+            new_stats[f"{bn_names[m]}.running_var"] = var
+        return loss.detach(), dict(zip(trained, g)), new_stats
+
+    return micro
+
+
+def make_grad_fn(model: nn.Module, cfg: Config) -> Callable:
+    """``grads(params, data, ids, generator, batch_stats=None) -> (loss,
+    {name: grad})`` of one microbatch: the train step's body before the
+    update. The gradients are those of the parameters that train (frozen
+    ones have none); a BatchNorm model takes its running averages.
+
+    ``data`` is the dataset dict on the device (``box`` (N, H, W, C), and
+    ``peaks`` (N, K, 2) with ``peak_vals`` (N, K), or ``confmaps``
+    (N, H, W, K); the cameras ``P``, ``P_inv`` of the camera-matrix
+    models); ``ids`` (B,) sample indices. With augmentation and peaks, the
+    images are warped (in the compute dtype), the targets rendered at the
+    moved peaks and each view's warp folded into its camera; without
+    augmentation the targets are rendered at the stored peaks; with
+    ``confmaps`` only, images and maps are warped together, except for a
+    camera model, which is not warped."""
+    micro = _microbatch_fn(model, cfg)
+
+    def grads(params: dict, data: dict, ids, gen: torch.Generator, batch_stats=None):
+        loss, g, _ = micro(params, batch_stats or {}, data, ids, gen)
+        return loss, g
 
     return grads
 
@@ -241,16 +309,17 @@ def make_train_step(model: nn.Module, cfg: Config) -> Callable:
     indices. The loss is the microbatches' mean, a device scalar; the
     gradients are their mean, and the update is Adam's at ``learning_rate *
     lr_scale``. Frozen parameters (:func:`frozen_names`) pass to the new
-    state as they are."""
-    grad_fn = make_grad_fn(model, cfg)
+    state as they are; the running averages are the last microbatch's."""
+    micro = _microbatch_fn(model, cfg)
 
     def train_step(state: TrainState, data: dict, idx, lr_scale: float = 1.0):
         idx = torch.as_tensor(idx, device=data["box"].device)
         accum = idx.shape[0]
         loss_sum, grad_sum = None, None
+        stats = state.batch_stats
         for i in range(accum):
             gen = step_generator(state.seed, state.step, i, data["box"].device)
-            loss, g = grad_fn(state.params, data, idx[i], gen)
+            loss, g, stats = micro(state.params, stats, data, idx[i], gen)
             if grad_sum is None:
                 loss_sum, grad_sum = loss, g
             else:
@@ -268,21 +337,23 @@ def make_train_step(model: nn.Module, cfg: Config) -> Callable:
         for k in grad_sum:
             params[k].grad = None
         new_state = TrainState(step=state.step + 1, params=params,
-                               opt_state=opt.state_dict(), seed=state.seed)
+                               opt_state=opt.state_dict(), seed=state.seed,
+                               batch_stats=stats)
         return new_state, loss_sum / accum
 
     return train_step
 
 
 def make_eval_step(model: nn.Module, cfg: Config) -> Callable:
-    """``eval(state, batch) -> (mse, l2)``: the loss of the eval forward and
-    the (B, K) pixel L2 of the decoded peaks (``cfg.eval_decode``), on the
-    device (pytorch/train_pytorch.py:150-213)."""
+    """``eval(state, batch) -> (mse, l2)``: the loss of the eval forward
+    (running averages, the batch's cameras) and the (B, K) pixel L2 of the
+    decoded peaks (``cfg.eval_decode``), on the device
+    (pytorch/train_pytorch.py:150-213)."""
     loss_fn = make_loss_fn(cfg)
     predict = make_predict_fn(model)
 
     def eval_step(state: TrainState, batch: dict):
-        pred = predict(state.params, batch["image"])
+        pred = predict(state.params, *model_args(batch), batch_stats=state.batch_stats)
         with torch.no_grad():
             mse = loss_fn(pred, batch["confmaps"])
             l2 = peaks.l2_distances(pred, batch["confmaps"].float(),
@@ -293,13 +364,15 @@ def make_eval_step(model: nn.Module, cfg: Config) -> Callable:
 
 
 def make_predict_fn(model: nn.Module) -> Callable:
-    """``predict(params, images) -> maps``: the eval forward (no dropout) of
-    ``model`` with ``params``."""
+    """``predict(params, images, *cameras, batch_stats=None) -> maps``: the
+    eval forward (no dropout, BatchNorm on ``batch_stats``, the running
+    averages) of ``model`` with ``params``; the camera-matrix models take
+    ``P`` and ``P_inv`` after the images."""
 
-    def predict(params: dict, images: torch.Tensor) -> torch.Tensor:
+    def predict(params: dict, *inputs: torch.Tensor, batch_stats=None) -> torch.Tensor:
         model.eval()
         with torch.no_grad():
-            return functional_call(model, params, (images,))
+            return functional_call(model, {**params, **(batch_stats or {})}, inputs)
 
     return predict
 

@@ -55,6 +55,7 @@ from .loop import (
     make_eval_step,
     make_predict_fn,
     make_train_step,
+    model_args,
 )
 
 LOSSES_HEADER = ["Epoch", "Train Loss", "Val Loss", "L2 Loss", "L2 Std",
@@ -236,7 +237,7 @@ class Trainer:
         if self.start_epoch == 0:
             # tensorflow/train.py:88 ``initial_model.h5``
             ckpt.save_params(os.path.join(self.run_path, "initial_model.pt"),
-                             self.state.params)
+                             self.state.params, self.state.batch_stats)
         profiler = contextlib.nullcontext()
         if cfg.profile:
             profiler = torch.profiler.profile(
@@ -286,7 +287,7 @@ class Trainer:
                     self._ckpt_writer.save_params(
                         os.path.join(self.run_path, "weights",
                                      f"weights.{epoch + 1:03d}-{val_loss:.9f}.pt"),
-                        self.state.params)
+                        self.state.params, self.state.batch_stats)
                 if (epoch + 1) % max(1, cfg.checkpoint_every) == 0:
                     self._ckpt_writer.save_checkpoint(
                         self.run_path, self.state, epoch, val_loss,
@@ -298,7 +299,7 @@ class Trainer:
         self._ckpt_writer.wait()  # land the write in flight, raise its error
         # tensorflow/train.py:102-104 ``final_confmaps_model.h5``
         ckpt.save_params(os.path.join(self.run_path, "final_confmaps_model.pt"),
-                         self.state.params)
+                         self.state.params, self.state.batch_stats)
         print("Total runtime first loss: %.1f mins" % ((time() - t0) / 60), flush=True)
         return {"train_loss": train_losses, "val_loss": val_losses, "l2": l2_means,
                 "epoch_seconds": epoch_secs}
@@ -374,7 +375,8 @@ class Trainer:
         if len(self.dataset.val_inds) == 0:
             return
         batch = self.dataset.gather(np.asarray(self.dataset.val_inds[:1], np.int32))
-        pred = self._predict(self.state.params, batch["image"])
+        pred = self._predict(self.state.params, *model_args(batch),
+                             batch_stats=self.state.batch_stats)
         pts = peaks_ops.find_peaks(pred).cpu().numpy()[0]
         gt = peaks_ops.find_peaks(batch["confmaps"].float()).cpu().numpy()[0]
         viz.show_pred(batch["image"][0].float().cpu().numpy(), pts, gt, save_path=os.path.join(

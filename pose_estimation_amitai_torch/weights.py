@@ -1,23 +1,29 @@
-"""Weight bridge: flax params trees <-> the port's ``state_dict``.
+"""Weight bridge: flax variables <-> the port's ``state_dict``.
 
-The flax side is a ``params`` tree as nested dicts of arrays (anything
-``np.asarray`` takes), the layout the JAX package trains and checkpoints.
+The flax side is a ``params`` tree (and, for the BatchNorm families, a
+``batch_stats`` tree) as nested dicts of arrays (anything ``np.asarray``
+takes), the layout the JAX package trains and checkpoints.
 
-* :func:`flax_to_state_dict` — one walk for every ported model (the CNN
-  family of models/cnn.py and models/multicam.py, the ViTs): the port's
+* :func:`flax_to_state_dict` — one walk for every ported model: the port's
   modules carry the flax tree's names, so each leaf is renamed and laid out
   by its kind. Conv kernels go HWIO -> OIHW. A flax ConvTranspose is a
   correlation of the lhs-dilated input with its kernel as it is; the port's
   layers are ``ConvTranspose2d``, which correlate with the kernel flipped in
   space, so flax kernels are flipped and laid out (I, O, kh, kw), and each
-  layer pads as flax does (models/layers.py ``Deconv``). Dense kernels
-  transpose, DenseGeneral kernels keep their layout, LayerNorm ``scale``
-  becomes ``weight``.
-* :func:`state_dict_to_flax` — the other way: the port's parameters (those
-  the train step updates) -> the flax tree as numpy, which ``Predictor``,
-  :func:`kernel_params` and the JAX package take.
-  :func:`basicnet_state_dict`, :func:`basicnet_params_from_state_dict` and
-  :func:`vit_state_dict` are these two under their earlier names.
+  layer pads as flax does (models/layers.py ``Deconv``). Which 4-D kernels
+  are transposed convs is read from the model's module at that path where
+  a model is given (GPTResNet's ``up1`` and ResNetHeatmapNet's ``head`` are
+  transposed convs by another name), from a ``deconv`` in the path where
+  none is. Dense kernels transpose, DenseGeneral kernels keep their layout,
+  LayerNorm and BatchNorm ``scale`` becomes ``weight``; BatchNorm
+  ``batch_stats`` ``mean`` / ``var`` become the buffers ``running_mean`` /
+  ``running_var``.
+* :func:`state_dict_to_flax` and :func:`batch_stats_to_flax` — the other
+  way: the port's parameters (those the train step updates) -> the flax
+  ``params`` tree, its running averages -> the ``batch_stats`` tree, as
+  numpy, which ``Predictor``, :func:`kernel_params` and the JAX package
+  take. :func:`basicnet_state_dict`, :func:`basicnet_params_from_state_dict`
+  and :func:`vit_state_dict` are these under their earlier names.
 * :func:`kernel_params` (models/fast_infer.py) — the fused kernels take the
   flax HWIO layout as it is.
 
@@ -60,25 +66,61 @@ def _bias(b: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(b, np.float32))
 
 
-def _leaf_to_torch(path: str, name: str, leaf: Any) -> tuple[str, torch.Tensor]:
-    """One flax leaf at module ``path`` -> (``state_dict`` key, tensor)."""
+# flax batch_stats leaf -> the port's buffer, and back
+STAT_BUFFERS = {"mean": "running_mean", "var": "running_var"}
+_STAT_LEAVES = {v: k for k, v in STAT_BUFFERS.items()}
+
+
+def is_stat(key: str) -> bool:
+    """True for a ``state_dict`` key of a BatchNorm running average."""
+    return key.rsplit(".", 1)[-1] in _STAT_LEAVES
+
+
+def split_stats(sd: Mapping) -> tuple[dict, dict]:
+    """A ``state_dict`` -> (its parameters, its running averages)."""
+    return ({k: v for k, v in sd.items() if not is_stat(k)},
+            {k: v for k, v in sd.items() if is_stat(k)})
+
+
+def _transposed(path: str, model: torch.nn.Module | None) -> bool:
+    """Whether the module at ``path`` is a transposed conv: its type in
+    ``model`` where there is one, else a ``deconv`` in its name."""
+    if model is not None:
+        try:
+            return isinstance(model.get_submodule(path), torch.nn.ConvTranspose2d)
+        except AttributeError:  # not in the model: _check_keys names it
+            pass
+    return "deconv" in path
+
+
+def _key(path: str, name: str) -> str:
+    return f"{path}.{name}" if path else name
+
+
+def _leaf_to_torch(
+    path: str, name: str, leaf: Any, model: torch.nn.Module | None
+) -> tuple[str, torch.Tensor]:
+    """One flax leaf at module ``path`` of ``model`` -> (``state_dict``
+    key, tensor)."""
     if name == "kernel":
         k = np.asarray(leaf, np.float32)
         if k.ndim == 4:
-            w = (deconv_kernel_to_torch(k) if "deconv" in path
+            w = (deconv_kernel_to_torch(k) if _transposed(path, model)
                  else conv_kernel_to_torch(k))
         elif k.ndim == 2:  # Dense (in, out) -> Linear (out, in)
             w = torch.from_numpy(np.ascontiguousarray(k.T))
         else:  # DenseGeneral: the port keeps flax's layout
             w = _bias(k)
-        return f"{path}.weight", w
-    if name == "scale":  # LayerNorm
-        return f"{path}.weight", _bias(leaf)
-    return (f"{path}.{name}" if path else name), _bias(leaf)  # bias, pos_embedding
+        return _key(path, "weight"), w
+    if name == "scale":  # LayerNorm, BatchNorm
+        return _key(path, "weight"), _bias(leaf)
+    return _key(path, name), _bias(leaf)  # bias, pos_embedding
 
 
-def _check_keys(sd: Mapping, model: torch.nn.Module, what: str) -> None:
-    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+def _check_keys(sd: Mapping, model: torch.nn.Module, what: str,
+                with_stats: bool = True) -> None:
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if with_stats or not is_stat(k)}
     missing = sorted(set(want) - set(sd))
     unknown = sorted(set(sd) - set(want))
     wrong = [f"{k}: {tuple(sd[k].shape)} vs {want[k]}" for k in want
@@ -92,49 +134,60 @@ def _check_keys(sd: Mapping, model: torch.nn.Module, what: str) -> None:
 
 
 def flax_to_state_dict(
-    params: Mapping, model: torch.nn.Module | None = None
+    params: Mapping, model: torch.nn.Module | None = None,
+    batch_stats: Mapping | None = None,
 ) -> dict[str, torch.Tensor]:
-    """A flax params tree of any ported model -> the port's ``state_dict``
-    (float32; ``load_state_dict`` casts to each parameter's dtype).
+    """A flax params tree of any ported model (and its ``batch_stats``) ->
+    the port's ``state_dict`` (float32; ``load_state_dict`` casts to each
+    parameter's dtype).
 
     The port's modules carry the flax tree's names, so the tree is walked
     and each leaf renamed and laid out by its kind: a Conv kernel HWIO ->
-    OIHW; a ConvTranspose kernel (a module whose path names a ``deconv``)
-    flipped in space and laid out (I, O, kh, kw); a Dense kernel (in, out)
-    -> ``Linear.weight`` (out, in); a DenseGeneral kernel (the attention
-    projections of models/multicam.py) as it is; a LayerNorm ``scale`` ->
-    ``weight``; biases and ``pos_embedding`` as they are. With ``model``,
-    the keys and shapes are held against its ``state_dict`` and a
-    difference raises ``ValueError`` naming the keys."""
+    OIHW; a ConvTranspose kernel (by the module's type in ``model``, by a
+    ``deconv`` in its path without one) flipped in space and laid out (I,
+    O, kh, kw); a Dense kernel (in, out) -> ``Linear.weight`` (out, in); a
+    DenseGeneral kernel (the attention projections of models/multicam.py)
+    as it is; a LayerNorm or BatchNorm ``scale`` -> ``weight``; biases and
+    ``pos_embedding`` as they are; ``batch_stats`` ``mean`` / ``var`` ->
+    ``running_mean`` / ``running_var``. With ``model``, the keys and shapes
+    are held against its ``state_dict`` (its running averages too where
+    ``batch_stats`` is given, {} included) and a difference raises
+    ``ValueError`` naming the keys."""
     sd: dict[str, torch.Tensor] = {}
 
-    def walk(prefix: str, node: Mapping) -> None:
+    def walk(prefix: str, node: Mapping, stats: bool) -> None:
         for name, leaf in node.items():
             if isinstance(leaf, Mapping):
-                walk(f"{prefix}.{name}" if prefix else name, leaf)
+                walk(_key(prefix, name), leaf, stats)
+            elif stats:
+                sd[_key(prefix, STAT_BUFFERS[name])] = _bias(leaf)
             else:
-                key, value = _leaf_to_torch(prefix, name, leaf)
+                key, value = _leaf_to_torch(prefix, name, leaf, model)
                 sd[key] = value
 
-    walk("", params)
+    walk("", params, False)
+    walk("", batch_stats or {}, True)
     if model is not None:
-        _check_keys(sd, model, "the flax params tree")
+        _check_keys(sd, model, "the flax variables", with_stats=batch_stats is not None)
     return sd
 
 
 def state_dict_to_flax(sd: Mapping, model: torch.nn.Module | None = None) -> dict:
     """The port's ``state_dict`` (or the train step's parameters, any device
     and float dtype) -> the flax params tree, float32 numpy: the inverse of
-    :func:`flax_to_state_dict`. With ``model``, the keys and shapes are held
-    against its ``state_dict`` first."""
+    :func:`flax_to_state_dict`. Running averages are left out (they are
+    :func:`batch_stats_to_flax`'s). With ``model``, the keys and shapes are
+    held against its parameters first (and against its running averages
+    where ``sd`` holds any)."""
+    params, stats = split_stats(sd)
     if model is not None:
-        _check_keys(sd, model, "the state_dict")
+        _check_keys(sd, model, "the state_dict", with_stats=bool(stats))
     tree: dict = {}
-    for key, t in sd.items():
+    for key, t in params.items():
         *path, name = key.split(".")
         a = t.detach().float().cpu().numpy()
         if name == "weight":
-            if a.ndim == 4 and "deconv" in ".".join(path):  # (I, O, kh, kw), flipped
+            if a.ndim == 4 and _transposed(".".join(path), model):  # (I, O, kh, kw), flipped
                 a, name = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
             elif a.ndim == 4:  # (O, I, kh, kw)
                 a, name = a.transpose(2, 3, 1, 0), "kernel"
@@ -148,6 +201,20 @@ def state_dict_to_flax(sd: Mapping, model: torch.nn.Module | None = None) -> dic
         for p in path:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(a)
+    return tree
+
+
+def batch_stats_to_flax(sd: Mapping) -> dict:
+    """The running averages of a ``state_dict`` (or of a ``TrainState``'s
+    ``batch_stats``) -> the flax ``batch_stats`` tree, float32 numpy; {}
+    where there are none."""
+    tree: dict = {}
+    for key, t in split_stats(sd)[1].items():
+        *path, name = key.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[_STAT_LEAVES[name]] = np.ascontiguousarray(t.detach().float().cpu().numpy())
     return tree
 
 
@@ -332,14 +399,16 @@ CHECKPOINT_NAMES = ("best_model.pt", "checkpoint.pt", "best_model.msgpack",
                     "checkpoint.msgpack")
 
 
-def load_checkpoint(path: str) -> tuple[dict, dict]:
+def load_checkpoint(path: str, model: torch.nn.Module | None = None) -> tuple[dict, dict]:
     """``(params, batch_stats)`` as flax-layout numpy trees from a
-    checkpoint, the reader picked by what is on disk: in a run directory the
+    checkpoint (``batch_stats`` {} for the models without BatchNorm), the
+    reader picked by what is on disk: in a run directory the
     first of :data:`CHECKPOINT_NAMES` present (the port's ``.pt`` files
     before the JAX package's msgpack ones; ``FileNotFoundError`` naming all
     four where none is); a file named ``*.pt`` (the port's checkpoints and
     ``save_params`` snapshots, state_dict-named) through
-    :func:`state_dict_to_flax`; any other file through
+    :func:`state_dict_to_flax` (``model``, the module the weights are for,
+    tells its transposed convs by their type); any other file through
     :func:`load_flax_checkpoint`. A failed read raises; the other format is
     never tried."""
     if os.path.isdir(path):
@@ -349,9 +418,10 @@ def load_checkpoint(path: str) -> tuple[dict, dict]:
                 f"{path}: none of {', '.join(CHECKPOINT_NAMES)} in this run directory")
         path = os.path.join(path, found[0])
     if path.endswith(".pt"):
-        from .train.checkpoint import load_params
+        from .train.checkpoint import load_variables
 
-        return state_dict_to_flax(load_params(path)), {}
+        params, stats = load_variables(path)
+        return state_dict_to_flax(params, model), batch_stats_to_flax(stats)
     return load_flax_checkpoint(path)
 
 

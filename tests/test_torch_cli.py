@@ -1,19 +1,23 @@
 """The port's CLI on the CPU (``--device cpu``) against the JAX package's:
 ``train`` on an H5 file written here, ``eval`` of the run directory equal to
 JAX's ``cli eval`` on the same checkpoint carried to msgpack through the
-weight bridge, ``infer``'s .npz keys and shapes as JAX's, and the
-subcommands and options that wait for later Queue A items."""
+weight bridge (the disentangled camera model's too), ``infer``'s .npz keys
+and shapes as JAX's, and the subcommands and options that wait for later
+Queue A items."""
 
 import json
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from pose_estimation_amitai_torch import cli, weights
 from pose_estimation_amitai_torch.data.synthetic import write_synthetic_h5
 from pose_estimation_amitai_tpu import cli as jcli
 from pose_estimation_amitai_tpu.train import checkpoint as jckpt
+
+from test_torch_resnet import one_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope="module")
@@ -107,3 +111,51 @@ def test_device_defaults_to_cuda(trained):
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(["eval", cfg_path, run, data])
+
+
+@pytest.fixture(scope="module")
+def trained_cameras(tmp_path_factory):
+    """``cli train`` of the disentangled camera model on an H5 file, and its
+    best checkpoint in the JAX package's format with the running averages
+    (a training-state payload: JAX's reader takes ``batch_stats`` only from
+    one)."""
+    from flax import serialization
+
+    root = tmp_path_factory.mktemp("cli_cameras")
+    data = write_synthetic_h5(str(root / "data.h5"), num_frames=4, num_points=8,
+                              image_size=48, seed=1)
+    cfg = {"model type": "ALL_CAMS_DISENTANGLED_PER_WING_CNN", "batch_size": 2, "epochs": 1,
+           "batches per epoch": 1, "number of base filters": 8, "compute_dtype": "float32",
+           "base output path": str(root / "runs"), "data_path": data, "val_fraction": 0.5,
+           "viz_every": 0}
+    cfg_path = str(root / "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the one_thread fixture's reason
+    try:
+        assert cli.main(["train", cfg_path, "--device", "cpu"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    (run,) = os.listdir(root / "runs")
+    run = str(root / "runs" / run)
+    tree, stats = weights.load_checkpoint(run)
+    assert set(stats) == {"bn1", "bn2", "bn3"}
+    jpath = str(root / "best_model.msgpack")
+    with open(jpath, "wb") as f:
+        f.write(serialization.to_bytes({"params": tree, "opt_state": {}, "batch_stats": stats}))
+    return cfg_path, data, run, jpath
+
+
+def test_eval_of_a_camera_model_equals_jax_cli_eval(trained_cameras, capsys, one_thread):
+    """The camera model's samples and crop-adjusted cameras built as JAX's
+    CLI builds them, served on the run directory's running averages."""
+    cfg_path, data, run, jpath = trained_cameras
+    capsys.readouterr()
+    assert cli.main(["eval", cfg_path, run, data, "--device", "cpu", "--chunk-size", "3"]) == 0
+    got = _json_out(capsys)
+    assert jcli.main(["eval", cfg_path, jpath, data, "--chunk-size", "3"]) == 0
+    want = _json_out(capsys)
+    assert got.keys() == want.keys() and len(got["l2_per_point"]) == 24
+    for key in ("l2_mean", "l2_std", "l2_max", "l2_per_point"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-6, err_msg=key)

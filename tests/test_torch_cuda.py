@@ -891,3 +891,93 @@ def test_train_steps_on_card_resume_exactly(cuda, tmp_path):
         torch.backends.cudnn.deterministic = False
     assert all(torch.equal(whole.params[k], part.params[k]) for k in whole.params)
     assert all(v.is_cuda for v in part.params.values())
+
+
+# ---------------------------------------------------------------------------
+# the BatchNorm families and the camera-matrix model (no hand-written kernel:
+# the card's library ops against the CPU's)
+# ---------------------------------------------------------------------------
+def test_batchnorm_on_card_matches_cpu(cuda):
+    """flax's BatchNorm: a bf16 training-mode forward twice (the shared
+    module's updates), then eval, on the card as on the CPU."""
+    from pose_estimation_amitai_torch.models.norm import BatchNorm, collect_batch_stats
+
+    gen = torch.Generator().manual_seed(0)
+    xs = [(torch.randn(4, 40, 9, 11, generator=gen) * 3 + 1).to(torch.bfloat16)
+          for _ in range(2)]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        bn = BatchNorm(40)
+        with torch.no_grad():
+            bn.weight.add_(0.1), bn.bias.sub_(0.2)
+        bn = bn.to(dev).train()
+        with torch.no_grad(), collect_batch_stats() as upd:
+            ys = [bn(x.to(dev)) for x in xs]
+        assert bn.running_var.eq(1).all()  # collected, not written
+        (mean, var), = upd.values()
+        bn.running_mean, bn.running_var = mean, var
+        with torch.no_grad():
+            ys.append(bn.eval()(xs[0].to(dev)))
+        out[dev.type] = [t.cpu() for t in (*ys, mean, var)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_cubic_resize_and_ftl_on_card_match_cpu(cuda):
+    from pose_estimation_amitai_torch.models.resnet import cubic_resize
+    from pose_estimation_amitai_torch.ops.geometry import ftl_inverse, ftl_project
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 6, 96, 96, generator=gen)
+    torch.testing.assert_close(cubic_resize(x.to(cuda), (192, 192)).cpu(),
+                               cubic_resize(x, (192, 192)), rtol=1e-5, atol=1e-5)
+    latent = torch.randn(2, 12, 12, 300, generator=gen)
+    P = torch.randn(2, 3, 4, generator=gen)
+    P_inv = torch.linalg.pinv(P)
+    lifted = ftl_inverse(latent.to(cuda), P_inv.to(cuda))
+    torch.testing.assert_close(lifted.cpu(), ftl_inverse(latent, P_inv), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ftl_project(lifted, P.to(cuda)).cpu(),
+                               ftl_project(ftl_inverse(latent, P_inv), P),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("model_type, shape, k", [
+    (C.ALL_CAMS_DISENTANGLED_PER_WING_CNN, (96, 96, 16), 24),
+    (C.GPTNET, (96, 96, 4), 6),
+    (C.RESNET_18_POINTS_PER_WING, (96, 96, 4), 6),
+])
+def test_batchnorm_families_serve_on_card_as_on_cpu(cuda, model_type, shape, k):
+    """Predictor on the card (channels-last weights) against the CPU on
+    the same variables, float32 with TF32 off; the disentangled model with
+    its cameras, 5 samples in chunks of 2 (the padded tail's camera row the
+    last sample's); the bridge tells GPTResNet's ``up1`` (64 -> 64, 2x2,
+    equal OIHW and IOHW shapes) by its type."""
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(model_type=model_type, num_base_filters=8, compute_dtype="float32")
+    with torch.device("meta"):
+        model = build_model(cfg, shape, k)
+    state = loop.create_train_state(model, cfg, seed=4, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    params = weights.state_dict_to_flax(
+        {n: v + 0.05 * torch.randn(v.shape, generator=gen) if v.dim() == 1 else v
+         for n, v in state.params.items()}, model)
+    stats = weights.batch_stats_to_flax(
+        {n: 0.5 + torch.rand(v.shape, generator=gen) if n.endswith("var")
+         else 0.1 * torch.randn(v.shape, generator=gen) for n, v in state.batch_stats.items()})
+    frames = torch.rand(5, *shape, generator=gen).numpy()
+    cams = None
+    if shape[-1] == 16:
+        P = torch.randn(5, 4, 3, 4, generator=gen)
+        cams = (P.numpy(), torch.linalg.pinv(P).numpy())
+    maps = {}
+    for dev in (cuda, torch.device("cpu")):
+        pred = Predictor(cfg, params, shape, k, device=dev, chunk_size=2, return_heatmaps=True,
+                         batch_stats=stats, cameras=cams)
+        assert pred.serving_path == "module"
+        maps[dev.type] = pred(frames)[0]
+    top = np.abs(maps["cpu"]).max()
+    assert np.abs(maps["cuda"] - maps["cpu"]).max() <= 1e-4 * max(top, 1.0)

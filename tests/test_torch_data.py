@@ -137,9 +137,17 @@ def test_host_dataset_ships_the_step_window(arrays):
 
 
 def test_disentangled_dataset_is_refused(arrays):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_dataset(Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN), arrays,
-                      device="cpu")
+    """The disentangled types' dataset, once refused (its parity with JAX is
+    tests/test_torch_disentangled.py's): the cameras ride in the host
+    dataset's step window too."""
+    cfg = Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN, host_resident_data=True)
+    ds, _ = build_dataset(cfg, {k: v.copy() for k, v in arrays.items()}, device="cpu")
+    assert type(ds) is HostDataset
+    idx = ds.step_indices(2, 2)
+    window, local = ds.step_payload(idx)
+    assert set(window) == {"box", "peaks", "peak_vals", "P", "P_inv"}
+    assert tuple(window["P"].shape) == (4, 4, 3, 4) and tuple(window["P_inv"].shape) == (4, 4, 4, 3)
+    np.testing.assert_array_equal(window["P"].numpy(), ds.data["P"].numpy()[idx.reshape(-1)])
 
 
 @pytest.mark.parametrize("fn", ["needs_camera_matrices", "augmentation_views",

@@ -49,6 +49,10 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.train.checkpoint",
             "pose_estimation_amitai_torch.train.trainer",
             "pose_estimation_amitai_torch.models.multicam",
+            "pose_estimation_amitai_torch.models.norm",
+            "pose_estimation_amitai_torch.models.resnet",
+            "pose_estimation_amitai_torch.models.disentangled",
+            "pose_estimation_amitai_torch.ops.geometry",
             "pose_estimation_amitai_torch.viz",
             "pose_estimation_amitai_torch.cli",
             "pose_estimation_amitai_torch.__main__"} <= set(mods)

@@ -1,8 +1,9 @@
 """The port's Predictor vs the JAX Predictor on its default flax route
 (compute_dtype float32), for all three decodes on both port routes, for the
-flagship BasicNet and for the two ViT families, plus the flax-checkpoint
-reader and the options the port refuses so far (the int8 routes are in
-tests/test_torch_quantized.py).
+flagship BasicNet, for the two ViT families, and for the BatchNorm and
+camera-matrix families (``batch_stats``, ``cameras``), plus the
+flax-checkpoint reader and the options the port refuses so far (the int8
+routes are in tests/test_torch_quantized.py).
 
 Chunk 2 over 5 frames, so the last chunk is zero-padded and its padded row
 dropped. The JAX fused route has no interpret switch, so it cannot run on
@@ -22,6 +23,8 @@ from pose_estimation_amitai_torch import weights
 from pose_estimation_amitai_torch.config import Config
 from pose_estimation_amitai_tpu import infer as jinfer
 from pose_estimation_amitai_tpu.train import checkpoint as jckpt
+
+from test_torch_resnet import one_thread  # noqa: F401 (a fixture)
 
 SHAPE = (48, 48, 4)
 K = 6
@@ -276,6 +279,53 @@ def test_cnn_family_serves_on_module_and_matches_jax(model_type, cin, k):
                          calibration_frames=frames)
 
 
+@pytest.mark.parametrize("model_type, cin, k", [
+    (C.RESNET_18_POINTS_PER_WING, 4, 6), (C.GPTNET, 4, 6),
+    (C.ALL_CAMS_DISENTANGLED_PER_WING_CNN, 16, 24)])
+def test_batchnorm_and_camera_families_serve_as_jax(model_type, cin, k, one_thread):
+    """``batch_stats`` (a flax tree, as JAX's Predictor takes it) and, for
+    the disentangled model, ``cameras`` one row per sample: the maps and
+    peaks of JAX's Predictor on the same variables, 3 samples in chunks of
+    2 (the tail padded, its camera row repeated); on "module" whatever
+    use_fused says."""
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop as tloop
+
+    cfg = Config(model_type=model_type, num_base_filters=8, compute_dtype="float32")
+    shape = (48, 48, cin)
+    model = build_model(cfg, shape, k)
+    state = tloop.create_train_state(model, cfg, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    params = weights.state_dict_to_flax(
+        {n: v + 0.05 * torch.randn(v.shape, generator=gen) if v.dim() == 1 else v
+         for n, v in state.params.items()}, model)
+    stats = weights.batch_stats_to_flax(
+        {n: 0.5 + torch.rand(v.shape, generator=gen) if n.endswith("var") else
+         0.1 * torch.randn(v.shape, generator=gen) for n, v in state.batch_stats.items()})
+    rng = np.random.default_rng(1)
+    frames = rng.random((3, *shape)).astype(np.float32)
+    cams = None
+    if cin == 16:
+        P = rng.standard_normal((3, 4, 3, 4)).astype(np.float32)
+        cams = (P, np.linalg.pinv(P).astype(np.float32))
+    jtree = jax.tree_util.tree_map(jnp.asarray, params)
+    jstats = jax.tree_util.tree_map(jnp.asarray, stats)
+    want_maps, want_pts = jinfer.Predictor(
+        cfg, jtree, shape, k, chunk_size=2, return_heatmaps=True, batch_stats=jstats,
+        cameras=cams)(frames)
+    pred = tinfer.Predictor(cfg, params, shape, k, device="cpu", chunk_size=2, use_fused=True,
+                            return_heatmaps=True, batch_stats=stats, cameras=cams)
+    assert pred.serving_path == "module"
+    maps, pts = pred(frames)
+    np.testing.assert_allclose(maps, np.asarray(want_maps), atol=2e-5)
+    np.testing.assert_array_equal(pts[:, :2], np.asarray(want_pts)[:, :2])
+    movie = tinfer.Predictor(cfg, params, shape, k, device="cpu", chunk_size=2,
+                             batch_stats=stats, cameras=cams).predict_movie(frames)
+    np.testing.assert_array_equal(movie, pts)
+    with pytest.raises(ValueError, match="running_mean"):  # a BatchNorm model needs them
+        tinfer.Predictor(cfg, params, shape, k, device="cpu", cameras=cams)
+
+
 def test_evaluate_l2_matches_jax(setup):
     frames, params = setup
     maps = np.random.default_rng(7).random((5, *SHAPE[:2], K)).astype(np.float32)
@@ -294,8 +344,12 @@ def test_evaluate_l2_matches_jax(setup):
     ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),
       "cfg": CFG.replace(dilation_rate=1)}, "item 11"),
     ({"mesh": object()}, "item 14"),
-    ({"cameras": (np.zeros((1, 4, 3, 4)), np.zeros((1, 4, 4, 3)))}, "item 10"),
-    ({"batch_stats": {"bn": {"mean": np.zeros(3)}}}, "item 10"),
+    # nor for the BatchNorm and camera-matrix families (int8_generic)
+    ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),
+      "cfg": Config(model_type=C.GPTNET)}, "item 11"),
+    ({"use_quantized": True, "calibration_frames": np.zeros((1, 48, 48, 16), np.float32),
+      "cfg": Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN),
+      "cameras": (np.zeros((1, 4, 3, 4)), np.zeros((1, 4, 4, 3)))}, "item 11"),
 ])
 def test_unported_options_raise(setup, kw, item):
     _, params = setup

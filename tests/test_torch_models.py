@@ -13,7 +13,6 @@ from pose_estimation_amitai_torch import constants as C
 from pose_estimation_amitai_torch import weights
 from pose_estimation_amitai_torch.config import Config
 from pose_estimation_amitai_torch.models import BasicNet, build_model
-from pose_estimation_amitai_torch.models import _NOT_PORTED
 from pose_estimation_amitai_torch.models import fast_infer
 from pose_estimation_amitai_tpu.models import build_model as jax_build_model
 from pose_estimation_amitai_tpu.models.cnn import BasicNet as JaxBasicNet
@@ -134,8 +133,8 @@ def test_build_model_basicnet_family(model_type):
 
 
 # the types the JAX registry maps to other architectures than BasicNet (the
-# ViTs aside); those still in _NOT_PORTED raise, the others build the JAX
-# registry's class (tests/test_torch_models_cnn.py holds them to flax)
+# ViTs aside): each builds the JAX registry's class (tests/test_torch_models_cnn.py,
+# test_torch_resnet.py and test_torch_disentangled.py hold them to flax)
 OTHER_ARCHITECTURES = sorted([
     C.ALL_CAMS, C.ALL_CAMS_18_POINTS, C.ALL_CAMS_ALL_POINTS, C.HEAD_TAIL_ALL_CAMS,
     C.ALL_CAMS_AND_3_GOOD_CAMS, C.TWO_WINGS_TOGATHER, C.C2F_PER_WING,
@@ -149,11 +148,7 @@ def test_build_model_refuses_unported_types(model_type):
     cfg = Config(model_type=model_type, num_base_filters=8)
     want = type(jax_build_model(cfg, (48, 48, 16), 8)).__name__
     assert want != "BasicNet"
-    if model_type in _NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-            build_model(cfg, (48, 48, 16), 8)
-    else:
-        assert type(build_model(cfg, (48, 48, 16), 8)).__name__ == want
+    assert type(build_model(cfg, (48, 48, 16), 8)).__name__ == want
 
 
 def test_tf_flavour_refused():

@@ -23,7 +23,7 @@ from pose_estimation_amitai_torch import constants as C
 from pose_estimation_amitai_torch import weights
 from pose_estimation_amitai_torch.config import Config
 from pose_estimation_amitai_torch.models import (
-    _NOT_PORTED, BasicNet, C2FPerWing, CoarsePerWing, LatentSelfAttention, MultiCamNet,
+    BasicNet, C2FPerWing, CoarsePerWing, LatentSelfAttention, MultiCamNet,
     TwoWingsNet, build_model,
 )
 from pose_estimation_amitai_torch.train import loop
@@ -224,12 +224,13 @@ def test_registry_threads_the_cnn_kwargs():
     assert build_model(Config(model_type=C.ALL_CAMS), (HW, HW, 16), 8, fold_views=False).fold_views is False
     with pytest.raises(TypeError, match="serving switches"):
         build_model(Config(model_type=C.TWO_WINGS_TOGATHER), (HW, HW, 5), 8, fold_views=False)
-    assert set(_NOT_PORTED) == {C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
-                                C.ALL_CAMS_DISENTANGLED_PER_WING_VIT,
-                                C.RESNET_18_POINTS_PER_WING, C.GPTNET}
-    for mt in _NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 10"):
-            build_model(Config(model_type=mt), (HW, HW, 16), 8)
+    # the disentangled types take the CNN kwargs as JAX's FourCamDisentangled
+    for mt in (C.ALL_CAMS_DISENTANGLED_PER_WING_CNN, C.ALL_CAMS_DISENTANGLED_PER_WING_VIT):
+        dis = build_model(cfg.replace(model_type=mt), (HW, HW, 16), 8)
+        assert type(dis).__name__ == "FourCamDisentangled" and dis.dtype == torch.bfloat16
+        assert dis.shared_encoder.flavor == "tf" and dis.shared_encoder.num_blocks == 3
+        assert dis.shared_encoder.dropout == 0.25 and dis.out_channels == 8
+        assert dis.rearrange1.out_channels == 300 and dis.fusion1.in_channels == 1600
 
 
 def test_bridge_names_unknown_and_missing_keys():

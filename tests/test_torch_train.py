@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pose_estimation_amitai_torch import constants as C
 from pose_estimation_amitai_torch import weights
 from pose_estimation_amitai_torch.config import Config
 from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
@@ -24,6 +25,8 @@ from pose_estimation_amitai_tpu.config import Config as JConfig
 from pose_estimation_amitai_tpu.models import build_model as jbuild_model
 from pose_estimation_amitai_tpu.ops.gaussian import confmaps_from_peaks as jconfmaps
 from pose_estimation_amitai_tpu.train import loop as jloop
+
+from test_torch_resnet import one_thread  # noqa: F401 (a fixture)
 
 K = 6
 # float32 on the CPU, sums in another order: gradients within this share of
@@ -209,9 +212,11 @@ def test_dropout_draws_from_the_generator():
     assert torch.equal(net(frames), net(frames, torch.Generator().manual_seed(3)))
 
 
-def test_train_step_reproducible_and_steps_draw_anew():
+def test_train_step_reproducible_and_steps_draw_anew(one_thread):
     """Same state and indices -> the same loss; the next step draws anew
-    (tests/test_loop.py::test_train_step_reproducible)."""
+    (tests/test_loop.py::test_train_step_reproducible); a camera-matrix
+    batch (``P``, ``P_inv``) feeds the disentangled model, its running
+    averages in the new state and the old state's as they were."""
     cfg = Config(num_base_filters=8, rotation_range=10.0, xy_shifts=2.0)
     model = build_model(cfg, (48, 48, 4), K)
     state = loop.create_train_state(model, cfg, device="cpu")
@@ -224,8 +229,22 @@ def test_train_step_reproducible_and_steps_draw_anew():
     assert all(torch.equal(s_a.params[k], s_b.params[k]) for k in s_a.params)
     _, loss_c = step(s_a.replace(params=state.params, opt_state=state.opt_state), data, idx)
     assert float(loss_c) != float(loss_a)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        step(state, {**data, "P": torch.zeros(8, 4, 3, 4)}, idx)
+    cam_cfg = cfg.replace(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
+                          compute_dtype="float32")
+    cam_model = build_model(cam_cfg, (48, 48, 16), 4 * K)
+    cam_state = loop.create_train_state(cam_model, cam_cfg, device="cpu")
+    P = torch.randn(8, 4, 3, 4, generator=torch.Generator().manual_seed(0))
+    cam_data = {"box": data["box"].repeat(1, 1, 1, 4), "peaks": data["peaks"].repeat(1, 4, 1),
+                "peak_vals": data["peak_vals"].repeat(1, 4), "P": P,
+                "P_inv": torch.linalg.pinv(P)}
+    s_a, loss_a = loop.make_train_step(cam_model, cam_cfg)(cam_state, cam_data, idx)
+    s_b, loss_b = loop.make_train_step(cam_model, cam_cfg)(cam_state, cam_data, idx)
+    assert float(loss_a) == float(loss_b) and np.isfinite(float(loss_a))
+    assert set(s_a.batch_stats) == {f"bn{i}.running_{s}" for i in (1, 2, 3)
+                                    for s in ("mean", "var")}
+    assert all(torch.equal(s_a.batch_stats[n], s_b.batch_stats[n]) for n in s_a.batch_stats)
+    assert not cam_state.batch_stats["bn3.running_mean"].any()
+    assert s_a.batch_stats["bn3.running_mean"].any()
 
 
 @pytest.fixture(scope="module")

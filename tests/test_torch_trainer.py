@@ -28,6 +28,8 @@ from pose_estimation_amitai_torch.train import checkpoint as ckpt
 from pose_estimation_amitai_torch.train import trainer as trainer_mod
 from pose_estimation_amitai_torch.train.trainer import LOSSES_HEADER, Trainer, _graft_tree
 
+from test_torch_resnet import one_thread  # noqa: F401 (a fixture)
+
 
 @pytest.fixture(scope="module")
 def arrays():
@@ -305,3 +307,53 @@ def test_trainer_matches_jax_trainer(tmp_path, arrays, jax_run, no_pngs):
     for key in ("train_loss", "val_loss"):
         np.testing.assert_allclose(history[key], jhistory[key], rtol=1e-4, err_msg=key)
     np.testing.assert_allclose(history["l2"], jhistory["l2"], atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the BatchNorm families and the camera-matrix model
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("model_type", [C.ALL_CAMS_DISENTANGLED_PER_WING_CNN])
+def test_batchnorm_family_run_directory_and_resume(tmp_path, arrays, no_pngs, model_type,
+                                                   one_thread):
+    """The running averages in every file of the run directory (the full
+    checkpoints' ``batch_stats``, the weights-only snapshots beside the
+    parameters), a resume that restores them, and the run directory served
+    through ``Predictor.from_checkpoint`` on them with the samples' cameras
+    (float32: the CPU's bf16 convolutions are slow)."""
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.train.loop import make_predict_fn, model_args
+
+    cfg = _cfg(tmp_path, model_type=model_type, save_every_epoch=True, batch_size=2,
+               compute_dtype="float32")
+    trainer = Trainer(cfg, arrays=arrays, device="cpu")
+    stats0 = trainer.state.batch_stats
+    history = trainer.train()
+    assert all(np.isfinite(history["train_loss"] + history["val_loss"]))
+    state = trainer.state
+    assert state.batch_stats and set(state.batch_stats) == set(stats0)
+    assert any(not torch.equal(state.batch_stats[n], v) for n, v in stats0.items())
+    rp = trainer.run_path
+    snap = sorted(os.listdir(os.path.join(rp, "weights")))[-1]
+    for name in ("final_confmaps_model.pt", os.path.join("weights", snap), "checkpoint.pt"):
+        params, stats = ckpt.load_variables(os.path.join(rp, name))
+        assert set(params) == set(state.params) and set(stats) == set(state.batch_stats), name
+        assert all(torch.equal(stats[n], v) for n, v in state.batch_stats.items()), name
+    assert set(ckpt.load_params(os.path.join(rp, "final_confmaps_model.pt"))) == set(state.params)
+
+    trainer2 = Trainer(cfg.replace(epochs=3, resume_from=rp), arrays=arrays, device="cpu")
+    assert trainer2.start_epoch == 2
+    assert all(torch.equal(trainer2.state.batch_stats[n], v)
+               for n, v in state.batch_stats.items())
+    trainer2.train()
+    assert trainer2.state.step == 3 * cfg.batches_per_epoch
+
+    ds = trainer2.dataset
+    batch = ds.gather(np.arange(ds.num_samples))
+    box, k = batch["image"].numpy(), batch["confmaps"].shape[-1]
+    cams = {"cameras": (batch["P"].numpy(), batch["P_inv"].numpy())} if "P" in batch else {}
+    pred = Predictor.from_checkpoint(cfg, trainer2.run_path, box.shape[1:], k, device="cpu",
+                                     chunk_size=3, return_heatmaps=True, **cams)
+    maps, _ = pred(box)
+    served, served_stats = ckpt.load_variables(trainer2.run_path)  # the file it served
+    want = make_predict_fn(trainer2.model)(served, *model_args(batch), batch_stats=served_stats)
+    np.testing.assert_allclose(maps, want.numpy(), atol=2e-2 * np.abs(want.numpy()).max())
