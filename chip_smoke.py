@@ -138,7 +138,35 @@ Phases, each printing one JSON line ({"phase": ...}):
              float32 card-vs-CPU step, then served through
              Predictor(cameras=...) on the 32 tiled to 356 with their camera
              rows (256 + a padded 100), the padded tail's peaks equal to the
-             same samples' inside the full chunk.
+             same samples' inside the full chunk;
+15. vit_train - the ViT at full width (patch 16, dim 256, depth 8, heads 8,
+             dim_head 256, MLP 1024, bf16 compute over float32 parameters,
+             batch 8) on the train phase's 16 synthetic frames: (a)
+             MODEL_18_POINTS_PER_WING_VIT (torch flavour) through the
+             Trainer, 2 epochs of 5 updates, then 3 + 20 bare steps (CUDA
+             events) beside the loop's steps/s; (b) one float32 step on the
+             card against the CPU (TF32 off; loss within 1e-4 relative,
+             gradients within 1e-3 of the largest); (c) its run directory
+             through Predictor.from_checkpoint on "fused", the attention
+             kernel's counter zeroed just before and read just after (8
+             launches for the one chunk), its maps against "module" within
+             the slice phase's bf16 tolerance; (d) one tf-flavour step with
+             its fixed 0.1 attention dropout live: the kept share of the
+             attention probabilities within 0.9 +- 0.01; (e)
+             ALL_CAMS_18_POINTS_VIT (4 fusion blocks, 192x192x16 -> 72)
+             through the Trainer, 1 epoch of 3 updates, then its bare step;
+16. int8_generic - Predictor(use_quantized=True) off the flagship geometry at
+             full width on seeded weights, calibrated on 32 frames, serving
+             the 612-frame requests and movie: ViTPoseNet ('all' and
+             'conv_only'), MultiCamNet (ALL_CAMS_18_POINTS, filters 64),
+             ResNetHeatmapNet (its running averages), FourCamDisentangled
+             (its cameras; the 4-camera models at chunk 64); frames/s and
+             the median peak distance to the same model's bf16 module route
+             (printed: seeded weights give near-flat maps); held on a chunk
+             of 2: the calibration scales card vs CPU in float32 (within
+             1e-5 relative), every quantised layer call card vs CPU on the
+             CPU's input (bit-equal: the float64 sums of int8 products are
+             exact), and the maps card vs CPU.
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
@@ -151,7 +179,8 @@ that have one, named in ``library_probes``, beside ``ms_of_library_probes``,
 the kernels' time on the same probes), else null. The encoder-stage and
 decoder rows also carry ``train_launches``, their launches on the trained
 weights' chunk, and ``trainer_launches``, theirs on the Trainer's run
-directory served through ``Predictor.from_checkpoint``. The rows of the kernels that
+directory served through ``Predictor.from_checkpoint``; the attention row
+``vit_train_launches``, its launches on the trained ViT's run directory. The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
@@ -233,6 +262,25 @@ ZOO_WARMUP = 3  # bare steps before the ZOO_STEPS timed ones
 ZOO_STEPS = 10
 ZOO_SERVED = 356  # camera-model samples served: a full chunk and a padded 100
 ZOO_STATS_RTOL = 1e-4  # card vs CPU running averages, of each tensor's largest
+# the vit_train phase: the ViT at full width on the train phase's frames
+VIT_TRAIN_EPOCHS = 2
+VIT_TRAIN_UPDATES = 5
+VIT_TRAIN_WARMUP = 3  # bare steps before the timed ones
+VIT_TRAIN_STEPS = 20
+TF_DROPOUT_KEEP_ATOL = 0.01  # kept share of 0.1-dropped attention probabilities, of 0.9
+VIT4_TRAIN_UPDATES = 3  # the 4-camera ViT: 1 epoch of these, then bare steps
+VIT4_TRAIN_WARMUP = 1
+VIT4_TRAIN_STEPS = 3
+# the int8_generic phase
+INT8G_CALIB = 32  # calibration frames (JAX's quantize_predict_fn takes at most 32)
+INT8G_CHUNK_4CAM = 64  # the 4-camera models' chunk: float64 accumulators are 4x bf16
+INT8G_CHECK = 2  # frames of the small chunk held card vs CPU
+INT8G_SCALE_RTOL = 1e-5  # calibration scales card vs CPU, float32 compute, TF32 off
+# int8_generic maps card vs CPU, of max|maps|: each quantised layer is bit-equal
+# on equal inputs, but the float layers between them round some bf16 values
+# the other way on the two devices, and such an input can quantise one step
+# away (the CPU tests' bound for XLA vs the port, tests/test_torch_quantized_generic.py)
+INT8G_MAPS_RTOL = 0.05
 
 
 def emit(obj: dict) -> None:
@@ -1914,7 +1962,7 @@ def card_vs_cpu_step(torch, model_type: str, data: dict, idx: np.ndarray,
     train-mode BatchNorm has an exact gradient of 0, so its own largest is
     float32 noise), the updated parameters beyond what the gradients'
     difference explains (Adam's first update is lr * g / (|g| + eps)), and
-    the running averages (of each tensor's largest)."""
+    the running averages of a BatchNorm model (of each tensor's largest)."""
     from pose_estimation_amitai_torch import Config
     from pose_estimation_amitai_torch.models import build_model
     from pose_estimation_amitai_torch.train import loop
@@ -1940,7 +1988,7 @@ def card_vs_cpu_step(torch, model_type: str, data: dict, idx: np.ndarray,
         torch.backends.cudnn.deterministic = False
     (lg, slg, gg, pg, sg), (lc, slc, gc, pc, sc) = out["cuda"], out["cpu"]
     check(slg == lg and slc == lc, "the step's loss is not its gradient's loss")
-    check(bool(sc) and set(sg) == set(sc), f"running averages {sorted(sg)} vs {sorted(sc)}")
+    check(set(sg) == set(sc), f"running averages {sorted(sg)} vs {sorted(sc)}")
     top = max(float(np.abs(g).max()) for g in gc.values())
     grad_err, unexplained, flips = 0.0, 0.0, 0
     for key in gc:
@@ -1953,8 +2001,8 @@ def card_vs_cpu_step(torch, model_type: str, data: dict, idx: np.ndarray,
             (np.abs(gg[key]) + ADAM_EPS) * (np.abs(gc[key]) + ADAM_EPS))
         d = np.abs(pg[key] - pc[key])[same]
         unexplained = max(unexplained, float((d - explained[same]).max(initial=0.0)))
-    stats_err = max(float(np.abs(sg[key] - sc[key]).max() / np.abs(sc[key]).max())
-                    for key in sc)
+    stats_err = max((float(np.abs(sg[key] - sc[key]).max() / np.abs(sc[key]).max())
+                     for key in sc), default=0.0)
     result = {"loss_rel_err": abs(lg - lc) / abs(lc), "loss_rtol": TRAIN_LOSS_RTOL,
               "grad_err_of_largest": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
               "param_beyond_gradients": unexplained, "param_atol": TRAIN_PARAM_ATOL,
@@ -1967,24 +2015,25 @@ def card_vs_cpu_step(torch, model_type: str, data: dict, idx: np.ndarray,
     return result
 
 
-def bare_steps(torch, step, state, ds, cfg) -> tuple[object, float]:
-    """(state, milliseconds a step) of ZOO_WARMUP + ZOO_STEPS steps on the
+def bare_steps(torch, step, state, ds, cfg, warmup: int = ZOO_WARMUP,
+               steps: int = ZOO_STEPS) -> tuple[object, float]:
+    """(state, milliseconds a step) of ``warmup`` + ``steps`` steps on the
     dataset's ring, the timed ones by CUDA events."""
-    idx = [ds.step_indices(cfg.batch_size, 1) for _ in range(ZOO_WARMUP + ZOO_STEPS)]
+    idx = [ds.step_indices(cfg.batch_size, 1) for _ in range(warmup + steps)]
     losses = []
-    for i in range(ZOO_WARMUP):
+    for i in range(warmup):
         state, loss = step(state, ds.data, idx[i])
         losses.append(loss)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(ZOO_WARMUP, ZOO_WARMUP + ZOO_STEPS):
+    for i in range(warmup, warmup + steps):
         state, loss = step(state, ds.data, idx[i])
         losses.append(loss)
     end.record()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(torch.stack(losses)).all()), "non-finite bare-step losses")
-    return state, start.elapsed_time(end) / ZOO_STEPS
+    return state, start.elapsed_time(end) / steps
 
 
 def zoo_trainer(torch, cfg, arrays) -> tuple[object, dict]:
@@ -2134,6 +2183,337 @@ def phase_zoo(torch, device_name: str, smi: str) -> dict:
     emit(result)
     return result
 
+def phase_vit_train(torch, device_name: str, smi: str) -> dict:
+    """ViT training at full width through the Trainer on the card: the
+    torch flavour's run (bare step and loop rates), one float32 step card
+    vs CPU, the run directory served on the "fused" route (the attention
+    kernel, its launches counted) against "module", one tf-flavour step with
+    its 0.1 attention dropout live, and the 4-camera ViT through the
+    Trainer."""
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.data import make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models import build_model, vit
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+    from pose_estimation_amitai_torch.train import loop
+    from pose_estimation_amitai_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                   image_size=192, seed=SEED)
+    k = TRAIN_POINTS // 2 + 2
+    result = {"phase": "vit_train", "device": device_name, "nvidia_smi": smi,
+              "model": "ViTPoseNet MODEL_18_POINTS_PER_WING_VIT patch 16 dim 256 depth 8 "
+                       "heads 8 dim_head 256 mlp 1024, bf16 compute over float32 "
+                       "parameters, batch 8, 128 per-wing samples of 192x192x4 -> 18"}
+    with tempfile.TemporaryDirectory() as out:
+        # (1) the torch flavour through the Trainer; its bare step
+        cfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT, base_output_path=out,
+                     epochs=VIT_TRAIN_EPOCHS, batches_per_epoch=VIT_TRAIN_UPDATES)
+        check((cfg.projection_dim, cfg.transformer_layers, cfg.num_heads, cfg.patch_size,
+               cfg.fully_connected_expand, bool(cfg.dim_head), cfg.batch_size,
+               cfg.compute_dtype) == (256, 8, 8, 16, 4, True, 8, "bfloat16"),
+              "Config() ViT defaults changed")
+        tr = Trainer(cfg, arrays={key: v.copy() for key, v in arrays.items()}, device="cuda")
+        check(type(tr.model).__name__ == "ViTPoseNet", type(tr.model).__name__)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = tr.train()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        steps = VIT_TRAIN_EPOCHS * VIT_TRAIN_UPDATES
+        check(tr.state.step == steps and bool(np.isfinite(history["train_loss"]
+                                                          + history["val_loss"]).all()),
+              f"ViT: step {tr.state.step}, history {history}")
+        _, step_ms = bare_steps(torch, tr.train_step, tr.state, tr.dataset, cfg,
+                                VIT_TRAIN_WARMUP, VIT_TRAIN_STEPS)
+        result["torch_flavour"] = {
+            "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+            "frames_per_s": 1e3 / step_ms * cfg.batch_size,
+            "loop_steps_per_s": steps / t_train, "train_seconds": t_train,
+            "epoch_ms": [x * 1e3 for x in history["epoch_seconds"]], "history": history}
+
+        # (2) one float32 step, card vs CPU (TF32 off)
+        idx = tr.dataset.step_indices(cfg.batch_size, 1)
+        result["float32_card_vs_cpu"] = card_vs_cpu_step(
+            torch, cfg.model_type, tr.dataset.data, idx, (192, 192, 4), k)
+
+        # (3) the run directory on "fused" (the attention kernel) and "module"
+        box = tr.dataset.data["box"].cpu().numpy()
+        check(len(box) <= CHUNK, f"{len(box)} samples: one chunk expected")
+
+        def served(**kw):
+            return Predictor.from_checkpoint(cfg, tr.run_path, (192, 192, 4), k,
+                                             device="cuda", chunk_size=CHUNK,
+                                             return_heatmaps=True, **kw)
+
+        fused = served(use_fused=True)
+        check(fused.serving_path == "fused" and fused.model.fused_attention,
+              f"served on {fused.serving_path}")
+        fused(box[:1])  # warm-up
+        # ---- the served run directory: counter zeroed just before, read after
+        ha.fused_attention.launches = 0
+        ha.fused_attention.launches_by_kernel = dict.fromkeys(ha.KERNEL_CODES, 0)
+        fm, fp = fused(box)
+        launches = ha.fused_attention.launches
+        by_kernel = dict(ha.fused_attention.launches_by_kernel)
+        # ----------------------------------------------------------------------
+        check(launches == cfg.transformer_layers,
+              f"the served run directory launched the attention kernel {launches} times, "
+              f"expected {cfg.transformer_layers} (one chunk)")
+        check(by_kernel["mma"] == launches, f"attention launches by kernel {by_kernel}")
+        module = served()
+        check(module.serving_path == "module", module.serving_path)
+        mm, mp = module(box)
+        result["served"] = {
+            "samples": len(box), "launches": {"fused_attention": launches},
+            "attention_launches_by_kernel": by_kernel,
+            "fused_vs_module": compare_routes(torch, (fm, fp), (mm, mp),
+                                              ROUTE_RTOL * float(np.abs(mm).max()),
+                                              "vit_train bfloat16")}
+        del fused, module, fm, mm
+
+        # (4) one tf-flavour step: the fixed 0.1 attention dropout is live
+        cfg_tf = cfg.replace(arch_flavor="tf")
+        with torch.device("meta"):
+            model_tf = build_model(cfg_tf, (192, 192, 4), k)
+        state_tf = loop.create_train_state(model_tf, cfg_tf, seed=SEED, device="cuda")
+        kept = [0, 0]
+        real_drop = vit.drop
+
+        def counting_drop(x, rate, generator):
+            y = real_drop(x, rate, generator)
+            if rate == vit.TF_ATTENTION_DROPOUT:
+                live = x != 0
+                kept[0] += int((y != 0)[live].sum())
+                kept[1] += int(live.sum())
+            return y
+
+        vit.drop = counting_drop
+        try:
+            t0 = time.perf_counter()
+            new_tf, loss_tf = loop.make_train_step(model_tf, cfg_tf)(
+                state_tf, tr.dataset.data, tr.dataset.step_indices(cfg.batch_size, 1))
+            torch.cuda.synchronize()
+            t_tf = time.perf_counter() - t0
+        finally:
+            vit.drop = real_drop
+        share = kept[0] / max(kept[1], 1)
+        check(kept[1] > 0 and abs(share - 0.9) <= TF_DROPOUT_KEEP_ATOL,
+              f"tf flavour: {share} of the attention probabilities kept, expected 0.9")
+        check(bool(torch.isfinite(loss_tf)), f"tf flavour loss {loss_tf}")
+        result["tf_flavour_step"] = {"kept_share": share, "probabilities": kept[1],
+                                     "kept_atol": TF_DROPOUT_KEEP_ATOL,
+                                     "loss": float(loss_tf), "host_seconds": t_tf}
+        del new_tf, state_tf
+        del tr
+
+        # (5) the 4-camera ViT through the Trainer
+        cfg4 = Config(model_type=C.ALL_CAMS_18_POINTS_VIT, base_output_path=out, epochs=1,
+                      batches_per_epoch=VIT4_TRAIN_UPDATES)
+        tr4 = Trainer(cfg4, arrays={key: v.copy() for key, v in arrays.items()}, device="cuda")
+        check(type(tr4.model).__name__ == "ViT4Cameras"
+              and tuple(tr4.dataset.data["box"].shape[1:]) == (192, 192, 16),
+              f"4-camera ViT samples {tuple(tr4.dataset.data['box'].shape)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history4 = tr4.train()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter() - t0
+        check(tr4.state.step == VIT4_TRAIN_UPDATES
+              and bool(np.isfinite(history4["train_loss"] + history4["val_loss"]).all()),
+              f"4-camera ViT: step {tr4.state.step}, history {history4}")
+        _, step4_ms = bare_steps(torch, tr4.train_step, tr4.state, tr4.dataset, cfg4,
+                                 VIT4_TRAIN_WARMUP, VIT4_TRAIN_STEPS)
+        result["four_cameras"] = {
+            "model": "ViT4Cameras ALL_CAMS_18_POINTS_VIT, 4 fusion blocks (dim 1280, heads 4), "
+                     "192x192x16 -> 72, batch 8, 4 augmentation transforms a sample",
+            "step_ms": step4_ms, "steps_per_s": 1e3 / step4_ms,
+            "loop_steps_per_s": VIT4_TRAIN_UPDATES / t4, "history": history4}
+        del tr4
+    result["launches"] = result["served"]["launches"]
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
+def int8_generic_case(torch, name: str, cfg, params, stats, frames, cams, k: int,
+                      chunk: int, quantized_layers: str | None, switches: dict) -> dict:
+    """One model on "int8_generic": served on the card (requests and movie),
+    against its bf16 module route's peaks; then, on a small chunk, the
+    calibration scales card vs CPU (float32 compute, TF32 off), each
+    quantised layer's output card vs CPU on the same input (bit-equal: the
+    sums of int8 products are exact), and the maps card vs CPU."""
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.models import quantized_generic as qg
+
+    t_case = time.perf_counter()
+    shape, n = frames.shape[1:], len(frames)
+    common = dict(device="cuda", chunk_size=chunk, batch_stats=stats, cameras=cams)
+    t0 = time.perf_counter()
+    pred = Predictor(cfg, params, shape, k, use_quantized=True,
+                     calibration_frames=frames[:INT8G_CALIB], quantized_layers=quantized_layers,
+                     **common)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    check(pred.serving_path == "int8_generic", f"{name}: served on {pred.serving_path}")
+    pred(frames[:1])  # warm-up
+    if cams is None:
+        answers, movie, t_req, t_movie = serve(pred, frames)
+    else:
+        # the camera rows are those of the frames one call is given: the
+        # samples go in one call, as a movie does (zoo phase)
+        t0 = time.perf_counter()
+        answers = [pred(frames)]
+        t_req = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        movie = pred.predict_movie(frames)
+        t_movie = time.perf_counter() - t0
+    peaks = check_peaks(answers, movie, n, k)
+    del pred
+    module = Predictor(cfg, params, shape, k, **common)
+    check(module.serving_path == "module", f"{name}: bf16 route {module.serving_path}")
+    module(frames[:1])
+    t0 = time.perf_counter()
+    bf16 = module(frames)
+    t_module = time.perf_counter() - t0
+    del module
+    dist = np.linalg.norm(peaks[:, :2] - bf16[:, :2], axis=1)
+    torch.cuda.empty_cache()
+
+    # held on a small chunk: card against CPU
+    small = [frames[:INT8G_CHECK]] + ([c[:INT8G_CHECK] for c in cams] if cams else [])
+    flt = qg.conv_layers_only if quantized_layers == "conv_only" else None
+
+    def model_on(c, dev):
+        with torch.device("meta"):
+            m = build_model(c, shape, k, **switches)
+        state = {key: v.to(dev, torch.float32) for key, v in
+                 weights.flax_to_state_dict(params, m, stats or {}).items()}
+        m = m.to_empty(device=dev).eval()
+        m.load_state_dict(state)
+        return m, state, [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in small]
+
+    scales = {}
+    for dev in ("cuda", "cpu"):
+        m, state, inputs = model_on(cfg.replace(compute_dtype="float32"), dev)
+        scales[dev] = qg.calibrate_apply(m, state, [tuple(inputs)], flt)
+    check(sorted(scales["cuda"]) == sorted(scales["cpu"]) and scales["cpu"],
+          f"{name}: calibrated layers differ card vs CPU")
+    scale_err = max(abs(scales["cuda"][key] - v) / v for key, v in scales["cpu"].items())
+    check(scale_err <= INT8G_SCALE_RTOL, f"{name}: calibration scales card vs CPU {scale_err}")
+
+    seen: dict = {}
+    outs, layers = {}, {}
+    sc = None  # the CPU's scales of the served (bf16) model, given to both
+    for dev in ("cpu", "cuda"):
+        m, state, inputs = model_on(cfg, dev)
+        if sc is None:
+            sc = qg.calibrate_apply(m, state, [tuple(inputs)], flt)
+        qm = qg.quantize_model(m, state, sc)
+        layers[dev] = {path: mod for path, mod in qm.named_modules()
+                       if isinstance(mod, qg.QuantizedLayer)}
+        handles = []
+        if dev == "cpu":
+            for path, mod in layers[dev].items():
+                handles.append(mod.register_forward_hook(
+                    lambda mod, args, out, path=path: seen.setdefault(path, []).append(
+                        (args[0], out))))
+        with torch.no_grad():
+            outs[dev] = qm(*inputs).float().cpu()
+        for h in handles:
+            h.remove()
+    check(set(seen) == set(layers["cuda"]) and len(seen) == len(sc),
+          f"{name}: {len(seen)} quantised layers ran of {len(sc)}")
+    unequal = 0
+    with torch.no_grad():
+        for path, calls in seen.items():
+            for x, want in calls:
+                got = layers["cuda"][path](x.to("cuda")).cpu()
+                unequal += int(not torch.equal(got, want))
+    check(unequal == 0, f"{name}: {unequal} quantised layer calls differ card vs CPU")
+    top = float(outs["cpu"].abs().max())
+    maps_err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    check(bool(torch.isfinite(outs["cuda"]).all()) and maps_err <= INT8G_MAPS_RTOL * top,
+          f"{name}: int8_generic maps card vs CPU {maps_err} > {INT8G_MAPS_RTOL} * {top}")
+    return {
+        "model": name, "quantized_layers": quantized_layers or "all", "chunk_size": chunk,
+        "quantised_layers": len(sc), "calibration_frames": INT8G_CALIB,
+        "build_seconds": t_build, "requests": list(REQUESTS) if cams is None else [n],
+        "frames_per_s": n / t_req, "movie_frames_per_s": n / t_movie,
+        "module_bf16_frames_per_s": n / t_module,
+        "median_peak_px_vs_bf16_module": float(np.median(dist)),
+        "mean_peak_px_vs_bf16_module": float(dist.mean()),
+        "card_vs_cpu": {"frames": INT8G_CHECK, "scale_max_rel_err": scale_err,
+                        "scale_rtol": INT8G_SCALE_RTOL,
+                        "layer_calls_bit_equal": sum(len(c) for c in seen.values()),
+                        "maps_max_abs_err": maps_err, "maps_max_abs": top,
+                        "maps_rtol": INT8G_MAPS_RTOL,
+                        "maps_equal_share": float((outs["cuda"] == outs["cpu"])
+                                                  .float().mean())},
+        "seconds": time.perf_counter() - t_case}
+
+
+def phase_int8_generic(torch, frames, device_name: str, smi: str) -> dict:
+    """"int8_generic" at full width on seeded weights, calibrated on 32
+    frames, serving the 612-frame requests and movie: the ViT ('all' and
+    'conv_only'), MultiCamNet, ResNetHeatmapNet (its running averages) and
+    FourCamDisentangled (its cameras)."""
+    from pose_estimation_amitai_torch import Config, weights
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 3)
+    views = np.concatenate([frames, frames[::-1], frames[:, ::-1], frames[:, :, ::-1]],
+                           axis=-1)  # 612 x 192 x 192 x 16, four views
+    P = rng.standard_normal((len(frames), 4, 3, 4))
+    P /= np.linalg.norm(P, axis=(-2, -1), keepdims=True)
+    P_inv = np.linalg.pinv(P)
+    P_inv /= np.linalg.norm(P_inv, axis=(-2, -1), keepdims=True)
+    cams = (P.astype(np.float32), P_inv.astype(np.float32))
+
+    def seeded(cfg, shape, k):
+        """flax params and batch_stats of ``create_train_state``'s seeded init."""
+        with torch.device("meta"):
+            model = build_model(cfg, shape, k)
+        state = loop.create_train_state(model, cfg, seed=SEED, device="cpu")
+        stats = weights.batch_stats_to_flax(state.batch_stats) if state.batch_stats else None
+        return weights.state_dict_to_flax(state.params, model), stats
+
+    vit_cfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+    vit_p = vit_params(vit_cfg, 4, 18, four=False)
+    # the ViT as the Predictor serves argmax peaks: raw maps, bf16 softmax chain
+    vit_switches = {"normalize_output": False, "fast_softmax": True}
+    cases = []
+    for layers in ("all", "conv_only"):
+        cases.append((f"ViTPoseNet {layers}", vit_cfg, vit_p, None, frames, None, 18, CHUNK,
+                      layers, vit_switches))
+    cfg = Config(model_type=C.ALL_CAMS_18_POINTS)
+    cases.append(("MultiCamNet", cfg, *seeded(cfg, views.shape[1:], 72), views, None, 72,
+                  INT8G_CHUNK_4CAM, None, {}))
+    cfg = Config(model_type=C.RESNET_18_POINTS_PER_WING)
+    cases.append(("ResNetHeatmapNet", cfg, *seeded(cfg, frames.shape[1:], 18), frames, None,
+                  18, CHUNK, None, {}))
+    cfg = Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN)
+    cases.append(("FourCamDisentangled", cfg, *seeded(cfg, views.shape[1:], 72), views, cams,
+                  72, INT8G_CHUNK_4CAM, None, {}))
+    models = [int8_generic_case(torch, *case) for case in cases]
+    result = {"phase": "int8_generic", "device": device_name, "nvidia_smi": smi,
+              "model": "full width, seeded weights, bf16 compute: ViTPoseNet (dim 256, depth "
+                       "8) 192x192x4 -> 18; MultiCamNet ALL_CAMS_18_POINTS filters 64 and "
+                       "FourCamDisentangled filters 64, 192x192x16 -> 72; ResNetHeatmapNet "
+                       "tpu flavour ResNet50 192x192x4 -> 18",
+              "frames": len(frames), "models": models,
+              "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
 
 def main() -> int:
     import torch
@@ -2163,10 +2543,14 @@ def main() -> int:
     trn = phase_trainer(torch, name, smi, tr["step_ms"])
     phase_multicam(torch, name, smi)
     phase_zoo(torch, name, smi)
+    vtr = phase_vit_train(torch, name, smi)
+    phase_int8_generic(torch, frames, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in vtr["launches"]:  # the trained ViT's run directory
+            r["vit_train_launches"] = vtr["launches"][r["name"]]
         if r["name"] in tr["served"]["launches"]:  # the trained weights' chunk
             r["train_launches"] = tr["served"]["launches"][r["name"]]
             r["trainer_launches"] = trn["served"]["launches"][r["name"]]

@@ -58,10 +58,6 @@ def _preprocessed(args):
     from .infer import Predictor
     from .models import needs_camera_matrices
 
-    if args.quantized_layers is not None:
-        raise NotImplementedError(
-            "--quantized-layers: int8 serving of other families is ROADMAP "
-            "Queue A item 11")
     if args.import_reference or args.dim_head is not None:
         raise NotImplementedError(
             "--import-reference / --dim-head: reference checkpoints are "
@@ -91,6 +87,7 @@ def _preprocessed(args):
         decode=args.decode,
         use_quantized=args.quantized,
         calibration_frames=box[:32] if args.quantized else None,
+        quantized_layers=args.quantized_layers,
         fast_softmax=fast_sm,
         cameras=cameras,
     )
@@ -183,9 +180,11 @@ def main(argv: list[str] | None = None) -> int:
                        help="peak decoder: hard argmax, soft-argmax, or sub-pixel "
                             "log-parabola refinement")
         s.add_argument("--quantized", action="store_true",
-                       help="calibrated int8 serving (the flagship geometry)")
+                       help="calibrated int8 serving (int8_generic off the flagship "
+                            "geometry)")
         s.add_argument("--quantized-layers", choices=("all", "conv_only"), default=None,
-                       help="int8 serving of other families (item 11; raises)")
+                       help="with --quantized: 'conv_only' keeps a ViT's transformer "
+                            "trunk in bf16 and runs its conv decoder on int8")
         s.add_argument("--dim-head", type=int, default=None,
                        help="head width of imported torch ViT checkpoints (item 13; raises)")
         s.add_argument("--fast-softmax", choices=("auto", "on", "off"),

@@ -16,7 +16,8 @@ family: the CNN family (the flagship per-wing ``BasicNet``, coarse and C2F,
   core on the attention kernel (ops/hopper_attention.py);
   ``"int8_resident"`` and ``"int8_fused"``, the calibrated int8 forwards of
   the flagship (models/quantized.py), the second through the int8 stage
-  kernel;
+  kernel; ``"int8_generic"``, every other model with its linear and conv
+  layers on int8 (models/quantized_generic.py);
 * ``predict_movie`` — keeps up to ``prefetch`` chunks in flight;
 * ``lift_to_3d`` — decoded per-camera peaks + cropZone + DLT cameras ->
   multi-view triangulated 3D points;
@@ -40,6 +41,9 @@ from .models.fast_infer import basicnet_apply_fused, kernel_params
 from .models.vit import ViT4Cameras, ViTPoseNet
 from .models.quantized import (
     calibrate, make_quantized_fused_forward, make_quantized_resident_forward,
+)
+from .models.quantized_generic import (
+    calibration_batches, conv_layers_only, quantize_predict_fn,
 )
 from .ops import geometry, peaks
 
@@ -66,6 +70,7 @@ class Predictor:
         mesh=None,
         batch_stats=None,
         cameras=None,
+        quantized_layers: str | None = None,
         fast_softmax: bool | None = None,
     ):
         """``params``: a flax-layout params tree (nested dicts of arrays),
@@ -77,11 +82,18 @@ class Predictor:
         attention kernel; otherwise, for other ``BasicNet`` geometries and
         for the other CNN models (as JAX, which fuses the flagship only),
         the ``nn.Module`` forward (``"module"``).
-        ``use_quantized``: calibrated int8 serving of the flagship
-        geometry, scales from float32 forwards of ``calibration_frames``
-        (required): ``"int8_resident"`` (int8 stored between layers, bf16
-        maps rounded out), or with ``use_fused`` too ``"int8_fused"``
-        (encoder stages through the int8 stage kernel). ``decode``: 'argmax'
+        ``use_quantized``: calibrated int8 serving, scales from float32
+        forwards of ``calibration_frames`` (required). The flagship
+        geometry serves on ``"int8_resident"`` (int8 stored between
+        layers, bf16 maps rounded out), or with ``use_fused`` too
+        ``"int8_fused"`` (encoder stages through the int8 stage kernel);
+        every other model on ``"int8_generic"`` (``use_fused`` ignored, as
+        JAX ignores it), which calibrates on the first 32 frames in chunks
+        of 8 (a camera model with its first camera rows) and serves bf16
+        maps. ``quantized_layers``: ``None`` or 'all' quantises every
+        linear and conv layer there, 'conv_only' the convs outside the
+        ViT's patch embedding (the trunk stays bf16); anything else raises
+        ``ValueError``. ``decode``: 'argmax'
         (tf_find_peaks parity), 'soft' (soft-argmax, vals from the map max)
         or 'refined' (sub-pixel log-parabola).
 
@@ -139,20 +151,38 @@ class Predictor:
             model = self._vit_for_serving(
                 model, image_shape, use_fused, fast_softmax)
         if use_quantized:
-            if not is_basic:
-                raise NotImplementedError(
-                    "int8 serving of other models than the flagship BasicNet "
-                    "(int8_generic) is ROADMAP Queue A item 11")
             if calibration_frames is None:
                 raise ValueError("use_quantized needs calibration_frames")
-            self.serving_path = "int8_fused" if use_fused else "int8_resident"
+            if is_basic:
+                self.serving_path = "int8_fused" if use_fused else "int8_resident"
+            else:
+                layer_filter = _layer_filter(quantized_layers)
+                self.serving_path = "int8_generic"
         else:
             self.serving_path = "fused" if fused_ok else "module"
         # the nn.Module of the module route and of a ViT's fused route
         self.model: nn.Module | None = None
         self._kparams = None
         self._quantized = None  # the int8 routes' forward
-        if use_quantized:
+
+        def state_dict() -> dict[str, torch.Tensor]:
+            return (weights.vit_state_dict(params) if is_vit else
+                    weights.flax_to_state_dict(params, model, batch_stats or {}))
+
+        if self.serving_path == "int8_generic":
+            if self._needs_cams and self.cameras is None:
+                raise ValueError("int8 serving of a camera model needs cameras")
+            state = {k: v.to(self.device, torch.float32) for k, v in state_dict().items()}
+            float_model = model.to_empty(device=self.device).eval()
+            float_model.load_state_dict(state)
+            calib = calibration_batches(
+                calibration_frames, self.cameras if self._needs_cams else None,
+                device=self.device)
+            # bf16 maps out, as JAX serves this route
+            self._quantized = quantize_predict_fn(
+                float_model, state, calib, out_dtype=torch.bfloat16,
+                layer_filter=layer_filter)
+        elif use_quantized:
             scales = calibrate(params, np.asarray(calibration_frames),
                                device=self.device)
             if use_fused:
@@ -167,9 +197,7 @@ class Predictor:
             self._kparams = kernel_params(params, model.dtype, self.device)
         else:
             self.model = model.to_empty(device=self.device).eval()
-            self.model.load_state_dict(
-                weights.vit_state_dict(params) if is_vit
-                else weights.flax_to_state_dict(params, self.model, batch_stats or {}))
+            self.model.load_state_dict(state_dict())
             if self.device.type == "cuda" and not is_vit:
                 # NHWC frames permute to channels-last NCHW views; keep the
                 # weights in the same format so cuDNN needs no transposes
@@ -235,7 +263,7 @@ class Predictor:
         argmax peaks-only serving, which stay in the compute dtype."""
         with torch.inference_mode():
             if self._quantized is not None:
-                return self._quantized(frames).float()
+                return self._quantized(frames, *cameras).float()
             if self._kparams is not None:
                 return basicnet_apply_fused(self._kparams, frames)
             return self.model(frames, *cameras)
@@ -336,6 +364,16 @@ class Predictor:
         if not out:
             return np.zeros((0, 3, self.num_output_channels), np.float32)
         return np.concatenate(out)
+
+
+def _layer_filter(quantized_layers: str | None):
+    """The ``int8_generic`` layer filter of ``quantized_layers``."""
+    if quantized_layers in (None, "", "all"):
+        return None
+    if quantized_layers == "conv_only":
+        return conv_layers_only
+    raise ValueError(f"unknown quantized_layers={quantized_layers!r}; "
+                     "expected 'all' or 'conv_only'")
 
 
 def _renorm_vals(pts: torch.Tensor, maps: torch.Tensor, views: int) -> torch.Tensor:

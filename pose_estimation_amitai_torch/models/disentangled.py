@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.geometry import ftl_inverse, ftl_project
-from .layers import DecoderUp, EncoderAtrous, at_least_f32, conv
+from .layers import Conv, DecoderUp, EncoderAtrous, at_least_f32
 from .norm import BatchNorm
 
 NUM_CAMS = 4
@@ -71,8 +71,8 @@ class FourCamDisentangled(nn.Module):
         enc = self.shared_encoder.out_channels
         canon = latent_3d_channels // 3 * 4  # 400
 
-        def conv1x1(cin: int, cout: int) -> nn.Conv2d:
-            return nn.Conv2d(cin, cout, 1, dtype=dtype)
+        def conv1x1(cin: int, cout: int) -> Conv:
+            return Conv(cin, cout, 1, dtype=dtype)
 
         self.rearrange1 = conv1x1(enc, latent_3d_channels)
         self.rearrange2 = conv1x1(latent_3d_channels, enc)
@@ -99,14 +99,14 @@ class FourCamDisentangled(nn.Module):
         encs = [self.shared_encoder(x[:, i * cc : (i + 1) * cc], generator)
                 for i in range(NUM_CAMS)]
         canonical = [
-            self._ftl(ftl_inverse, conv(self.rearrange1, e), P_inv[:, i]).to(self.dtype)
+            self._ftl(ftl_inverse, self.rearrange1(e), P_inv[:, i]).to(self.dtype)
             for i, e in enumerate(encs)
         ]
-        fusion = F.relu(self.bn1(conv(self.fusion1, torch.cat(canonical, dim=1))))
-        fusion = F.relu(self.bn2(conv(self.fusion2, fusion.to(self.dtype))))
+        fusion = F.relu(self.bn1(self.fusion1(torch.cat(canonical, dim=1))))
+        fusion = F.relu(self.bn2(self.fusion2(fusion.to(self.dtype))))
         outs = []
         for i, e in enumerate(encs):
             ent = F.relu(self.bn3(self._ftl(ftl_project, fusion, P[:, i])))
-            ent = conv(self.rearrange2, ent.to(self.dtype))
+            ent = self.rearrange2(ent.to(self.dtype))
             outs.append(self.shared_decoder(ent + e))
         return at_least_f32(torch.cat(outs, dim=1)).permute(0, 2, 3, 1)

@@ -25,9 +25,12 @@ The modules work on NCHW tensors; the models (models/cnn.py,
 models/multicam.py) keep the public NHWC contract. Parameter names follow
 the flax tree (conv1..conv9, deconv1..deconv4; block{b}_conv{i},
 bottleneck_conv{i}, block{b}_deconv, head_deconv) so the weight bridge
-(weights.py) maps one onto the other by name. Each conv casts its weight and
+(weights.py) maps one onto the other by name. Each layer (``Conv``,
+``Deconv``, ``Dense``) casts its input to its ``dtype`` and its weight and
 bias to the activations' dtype where it applies them, as flax's
-``dtype=bf16, param_dtype=float32`` does: the train step passes float32
+``dtype=bf16, param_dtype=float32`` does, and every layer is applied by
+calling the module, so what a layer receives is what its flax twin
+receives (models/quantized_generic.py calibrates on it): the train step passes float32
 parameters to a bf16 module (``torch.func.functional_call``), and a module
 that holds parameters in its compute dtype computes as it always did. In
 training mode the encoder applies dropout where the JAX one does, drawing
@@ -60,14 +63,6 @@ def _check_flavor(flavor: str) -> None:
         raise ValueError(f"arch_flavor={flavor!r}; expected one of {FLAVORS}")
 
 
-def _check_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            "training-mode forward of the ViT modules is not ported "
-            "(ROADMAP Queue A item 6); call .eval() to serve"
-        )
-
-
 def conv_same_pads(k: int, dilation: int = 1) -> tuple[int, int]:
     """(low, high) padding of a stride-1 ``"SAME"`` conv, flax's rule."""
     total = dilation * (k - 1)
@@ -95,14 +90,19 @@ def deconv_same_pads(k: int, stride: int) -> tuple[int, int]:
 
 class Conv(nn.Conv2d):
     """A stride-1 ``"SAME"`` conv; asymmetric pads (even kernels) go through
-    ``F.pad``."""
+    ``F.pad``. Its input is cast to ``dtype``, as flax's ``nn.Conv(dtype=)``
+    casts it, then :func:`conv` applies it."""
 
     def __init__(self, cin: int, cout: int, k: int, dilation: int = 1,
                  dtype: torch.dtype = torch.float32):
         lo, hi = conv_same_pads(k, dilation)
         super().__init__(cin, cout, k, padding=lo if lo == hi else 0,
                          dilation=dilation, dtype=dtype)
+        self.dtype = dtype
         self.pads = None if lo == hi else (lo, hi, lo, hi)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(self, x.to(self.dtype))
 
 
 class Deconv(nn.ConvTranspose2d):
@@ -125,7 +125,26 @@ class Deconv(nn.ConvTranspose2d):
             raise ValueError(f"transposed-conv pads {pads} at kernel {k}, stride {stride}")
         super().__init__(cin, cout, k, stride=stride, padding=padding,
                          output_padding=output_padding, dtype=dtype)
+        self.dtype = dtype
         self.crop = crop
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv(self, x.to(self.dtype))
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=)``: the input cast to ``dtype``, the weight
+    and bias to the input's dtype where they are applied."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, bias=bias, dtype=dtype)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 def conv(layer: nn.Conv2d | nn.ConvTranspose2d, x: torch.Tensor) -> torch.Tensor:
@@ -216,20 +235,20 @@ class EncoderAtrous(nn.Module):
         if self.flavor == "torch":
             for stage in range(3):
                 c1, c2, c3 = (getattr(self, f"conv{3 * stage + i}") for i in (1, 2, 3))
-                x1 = leaky(conv(c1, x))
-                x2 = leaky(conv(c2, x1)) + x1
-                x3 = leaky(conv(c3, x2)) + x2
+                x1 = leaky(c1(x))
+                x2 = leaky(c2(x1)) + x1
+                x3 = leaky(c3(x2)) + x2
                 if stage < 2:
                     x3 = leaky(_pool(x3))
                 x = drop(x3, rate, generator)
             return x
         for block in range(self.num_blocks):
-            x = leaky(conv(getattr(self, f"block{block}_conv1"), x), TF_ALPHA)
-            x = leaky(conv(getattr(self, f"block{block}_conv2"), x), TF_ALPHA)
-            x = conv(getattr(self, f"block{block}_conv3"), x)  # linear
+            x = leaky(getattr(self, f"block{block}_conv1")(x), TF_ALPHA)
+            x = leaky(getattr(self, f"block{block}_conv2")(x), TF_ALPHA)
+            x = getattr(self, f"block{block}_conv3")(x)  # linear
             x = drop(F.relu(_pool(x)), rate, generator)
         for i in range(3):
-            x = leaky(conv(getattr(self, f"bottleneck_conv{i + 1}"), x), TF_ALPHA)
+            x = leaky(getattr(self, f"bottleneck_conv{i + 1}")(x), TF_ALPHA)
         return drop(x, rate, generator)
 
 
@@ -278,12 +297,12 @@ class DecoderUp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.flavor == "torch":
-            x1 = leaky(conv(self.deconv1, x))
-            x2 = leaky(conv(self.deconv2, x1)) + x1
-            x3 = leaky(conv(self.deconv3, x2)) + x2
-            return leaky(conv(self.deconv4, x3))
+            x1 = leaky(self.deconv1(x))
+            x2 = leaky(self.deconv2(x1)) + x1
+            x3 = leaky(self.deconv3(x2)) + x2
+            return leaky(self.deconv4(x3))
         for block in range(self.num_blocks - 1, 0, -1):
-            x = leaky(conv(getattr(self, f"block{block}_deconv"), x), TF_ALPHA)
-            x = leaky(conv(getattr(self, f"block{block}_conv1"), x), TF_ALPHA)
-            x = leaky(conv(getattr(self, f"block{block}_conv2"), x), TF_ALPHA)
-        return conv(self.head_deconv, x)  # linear output head
+            x = leaky(getattr(self, f"block{block}_deconv")(x), TF_ALPHA)
+            x = leaky(getattr(self, f"block{block}_conv1")(x), TF_ALPHA)
+            x = leaky(getattr(self, f"block{block}_conv2")(x), TF_ALPHA)
+        return self.head_deconv(x)  # linear output head

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from .cnn import _nchw, _nhwc
-from .layers import DecoderUp, EncoderAtrous, conv
+from .layers import Conv, DecoderUp, EncoderAtrous
 
 
 class DenseGeneral(nn.Module):
@@ -118,7 +118,7 @@ class MultiCamNet(nn.Module):
         merged = num_cams * ec
         if flavor == "torch":
             # fused latent + residual (pytorch/CNNs.py:216-223)
-            self.fusion_conv = nn.Conv2d(merged, merged, 1, dtype=dtype)
+            self.fusion_conv = Conv(merged, merged, 1, dtype=dtype)
         elif do_attention:
             self.fusion_attn = LatentSelfAttention(merged, dtype=dtype)
         self.shared_decoder = DecoderUp(
@@ -127,7 +127,7 @@ class MultiCamNet(nn.Module):
 
     def fuse(self, merged: torch.Tensor) -> torch.Tensor:
         if self.flavor == "torch":
-            return conv(self.fusion_conv, merged) + merged
+            return self.fusion_conv(merged) + merged
         if self.do_attention:
             return self.fusion_attn(merged)
         return merged

@@ -44,16 +44,18 @@ FLAVORS = ("tpu", "torch", "tf")
 
 class PadConv(nn.Conv2d):
     """A conv padded as flax's ``nn.Conv(padding=...)``: ``"SAME"`` (from the
-    input's size), ``"VALID"``, or ``(low, high)`` on both axes. It runs in
-    its input's dtype."""
+    input's size), ``"VALID"``, or ``(low, high)`` on both axes. Its input
+    is cast to ``dtype``, as flax's ``nn.Conv(dtype=)`` casts it."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  padding: str | tuple[int, int] = "SAME", bias: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, k, stride=stride, bias=bias, dtype=dtype)
+        self.dtype = dtype
         self.flax_padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         k, s = self.kernel_size[0], self.stride[0]
         if self.flax_padding == "VALID":
             return conv(self, x)
@@ -217,10 +219,9 @@ class BasicResBlock(nn.Module):
             self.bn_proj = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xin = x.to(self.dtype)
-        y = F.relu(self.bn1(self.conv1(xin)))
+        y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y.to(self.dtype)))
-        residual = self.bn_proj(self.conv_proj(xin)) if self.project else x
+        residual = self.bn_proj(self.conv_proj(x)) if self.project else x
         return F.relu(y + residual)
 
 
@@ -292,7 +293,7 @@ class GPTResNet(nn.Module):
         return getattr(self, f"{name}_block1")(getattr(self, f"{name}_block0")(x))
 
     def _up(self, name: str, x: torch.Tensor, like: torch.Tensor | None = None) -> torch.Tensor:
-        y = conv(getattr(self, name), x.to(self.dtype))
+        y = getattr(self, name)(x)
         return y if like is None else y[..., : like.shape[-2], : like.shape[-1]]
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -341,6 +342,6 @@ class ResNetHeatmapNet(nn.Module):
         h, w = x.shape[1:3]
         y = self.encoder(x.permute(0, 3, 1, 2))
         for i in range(4):
-            y = leaky(conv(getattr(self, f"deconv{i + 1}"), y.to(self.dtype)), TF_ALPHA)
-        y = conv(self.head, y.to(self.dtype))[..., :h, :w]
+            y = leaky(getattr(self, f"deconv{i + 1}")(y), TF_ALPHA)
+        y = self.head(y)[..., :h, :w]
         return at_least_f32(leaky(y, TF_ALPHA)).permute(0, 2, 3, 1)

@@ -11,7 +11,8 @@ flax tree (``patch_embed.proj``, ``transformer.attn{i}.{norm,to_qkv,to_out}``,
 ``decoder.deconv1..4``, ``shared_encoder``, ``fuse{i}``, ``shared_decoder``)
 so :func:`..weights.vit_state_dict` maps one onto the other by name.
 
-Numerics as in flax: LayerNorms run in float32 with epsilon 1e-6 on float32
+Numerics as in flax: LayerNorms run in float32 (at least: a float64 module
+on float64 parameters stays in float64) with epsilon 1e-6 on float32
 parameters and hand float32 on; Linear and conv layers hold and compute in
 ``dtype`` (their input is cast to it); gelu is the tanh approximation; the
 qkv columns are ordered (3, heads, dim_head).
@@ -30,9 +31,16 @@ The attention core has three forms, chosen at construction:
 ``fused_serving`` (with ``fast_softmax`` and pre-norm) merges the per-head V
 and output projections, as the JAX module does; no serving route engages it.
 
-Frames in and maps out are NHWC, the JAX contract. Inference only: the
-forward raises in training mode (dropout and the train step are ROADMAP
-Queue A item 6).
+In training mode (``module.train()``) the attention core is always the exact
+one, whatever the serving switches say (flax engages them only when ``not
+train``; the attention kernel has no backward), and dropout applies where
+flax puts it: on the post-softmax probabilities (the tf flavour's fixed
+0.1) and after the GELU and ``fc2``, drawn from the ``torch.Generator``
+each forward takes. The layers cast their weights to the activations'
+dtype where they apply them, so the train step's float32 parameters run in
+a bf16 module.
+
+Frames in and maps out are NHWC, the JAX contract.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.hopper_attention import fused_attention
-from .layers import _check_eval, leaky
+from .layers import Deconv, Dense, at_least_f32, deconv_same_pads, drop, leaky
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -55,6 +63,9 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # flax nn.gelu's default form
 
 
+TF_ATTENTION_DROPOUT = 0.1  # the tf flavour's fixed rate, vitPose.py:66
+
+
 class Attention(nn.Module):
     """Multi-head self-attention with fused qkv, pre-LN or raw input
     (reference: pytorch/pytorch_vit_encoder.py:31-78; the tf flavour's keras
@@ -65,6 +76,7 @@ class Attention(nn.Module):
         dtype: torch.dtype = torch.bfloat16, pre_norm: bool = True,
         qkv_bias: bool = False, fast_softmax: bool = False,
         fused_serving: bool = False, fused_attention: bool = False,
+        dropout: float = 0.0,
     ):
         super().__init__()
         if fused_attention and fast_softmax:
@@ -72,6 +84,7 @@ class Attention(nn.Module):
                 "fused_attention computes the exact float32 softmax; it "
                 "excludes fast_softmax")
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
+        self.dropout = dropout
         self.dtype = dtype
         self.pre_norm = pre_norm
         self.qkv_bias = qkv_bias
@@ -81,28 +94,31 @@ class Attention(nn.Module):
         inner = heads * dim_head
         if pre_norm:
             self.norm = _layer_norm(dim)
-        self.to_qkv = nn.Linear(dim, inner * 3, bias=qkv_bias, dtype=dtype)
-        self.to_out = nn.Linear(inner, dim, dtype=dtype)
+        self.to_qkv = Dense(dim, inner * 3, bias=qkv_bias, dtype=dtype)
+        self.to_out = Dense(inner, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        if self.fused_serving and self.pre_norm and self.fast_softmax:
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        serving = not self.training
+        if serving and self.fused_serving and self.pre_norm and self.fast_softmax:
             return self._fused_forward(x)
-        y = self.norm(x.float()) if self.pre_norm else x.float()
+        y = self.norm(at_least_f32(x)) if self.pre_norm else at_least_f32(x)
         b, n, _ = y.shape
         h, dh = self.heads, self.dim_head
-        qkv = self.to_qkv(y.to(self.dtype)).view(b, n, 3, h, dh)
+        qkv = self.to_qkv(y).view(b, n, 3, h, dh)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, D)
         scale = dh ** -0.5
-        if self.fused_attention:
+        if serving and self.fused_attention:
             out = torch.empty((b, n, h, dh), dtype=qkv.dtype, device=qkv.device)
             fused_attention(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
                             v.permute(0, 2, 1, 3), out=out.permute(0, 2, 1, 3))
-        elif self.fast_softmax:
+        elif serving and self.fast_softmax:
             out = self._fast_core(q * torch.tensor(scale, dtype=q.dtype), k, v)
         else:
-            logits = torch.einsum("bnhd,bmhd->bhnm", q, k).float() * scale
+            logits = at_least_f32(torch.einsum("bnhd,bmhd->bhnm", q, k)) * scale
             attn = torch.softmax(logits, dim=-1).to(self.dtype)
+            attn = drop(attn, self.dropout if self.training else 0.0, generator)
             out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
         return self.to_out(out.reshape(b, n, h * dh))
 
@@ -155,23 +171,27 @@ class FeedForward(nn.Module):
 
     def __init__(
         self, dim: int, hidden_dim: int, dtype: torch.dtype = torch.bfloat16,
-        pre_norm: bool = True, activation: str = "gelu",
+        pre_norm: bool = True, activation: str = "gelu", dropout: float = 0.0,
     ):
         super().__init__()
+        self.dropout = dropout
         self.dtype = dtype
         self.pre_norm = pre_norm
         self.activation = activation
         if pre_norm:
             self.norm = _layer_norm(dim)
-        self.fc1 = nn.Linear(dim, hidden_dim, dtype=dtype)
-        self.fc2 = nn.Linear(hidden_dim, dim, dtype=dtype)
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        y = self.norm(x.float()) if self.pre_norm else x
-        y = self.fc1(y.to(self.dtype))
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+        y = self.norm(at_least_f32(x)) if self.pre_norm else x
+        y = self.fc1(y)
         y = F.relu(y) if self.activation == "relu" else _gelu(y)
-        return self.fc2(y)
+        y = self.fc2(drop(y, rate, generator))
+        return drop(y, rate, generator)
 
 
 class Transformer(nn.Module):
@@ -184,7 +204,7 @@ class Transformer(nn.Module):
         self, dim: int, depth: int, heads: int, dim_head: int, mlp_dim: int,
         dtype: torch.dtype = torch.bfloat16, flavor: str = "torch",
         fast_softmax: bool = False, fused_serving: bool = False,
-        fused_attention: bool = False,
+        fused_attention: bool = False, dropout: float = 0.0,
     ):
         super().__init__()
         self.depth = depth
@@ -195,36 +215,61 @@ class Transformer(nn.Module):
                 dim, heads, dim_head, dtype, pre_norm=not tf, qkv_bias=tf,
                 fast_softmax=fast_softmax,
                 fused_serving=fused_serving and not tf,
-                fused_attention=fused_attention))
+                fused_attention=fused_attention,
+                dropout=TF_ATTENTION_DROPOUT if tf else dropout))
             self.add_module(f"ff{i}", FeedForward(
                 dim, mlp_dim, dtype, pre_norm=not tf,
-                activation="relu" if tf else "gelu"))
+                activation="relu" if tf else "gelu",
+                dropout=0.0 if tf else dropout))
             if tf:
                 self.add_module(f"postnorm{i}a", _layer_norm(dim))
                 self.add_module(f"postnorm{i}b", _layer_norm(dim))
         if not tf:
             self.final_norm = _layer_norm(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         for i in range(self.depth):
             attn, ff = getattr(self, f"attn{i}"), getattr(self, f"ff{i}")
             if self.flavor == "tf":
-                x = getattr(self, f"postnorm{i}a")((x + attn(x)).float())
-                x = getattr(self, f"postnorm{i}b")((x + ff(x)).float())
+                x = getattr(self, f"postnorm{i}a")(at_least_f32(x + attn(x, generator)))
+                x = getattr(self, f"postnorm{i}b")(at_least_f32(x + ff(x, generator)))
             else:
-                x = attn(x) + x
-                x = ff(x) + x
-        return x if self.flavor == "tf" else self.final_norm(x.float())
+                x = attn(x, generator) + x
+                x = ff(x, generator) + x
+        return x if self.flavor == "tf" else self.final_norm(at_least_f32(x))
+
+
+class PatchConv(nn.Conv2d):
+    """The JAX module's stride-p ``"VALID"`` patch conv (an OIHW kernel),
+    applied as unfold + matmul, the same sums: NHWC frames in (cast to
+    ``dtype``, as flax's ``nn.Conv(dtype=)`` casts them), (B, N, dim)
+    tokens out, row-major over the patch grid. Rows and columns past the
+    last whole patch are dropped, as the strided conv drops them."""
+
+    def __init__(self, cin: int, dim: int, patch_size: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(cin, dim, patch_size, stride=patch_size, dtype=dtype)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        b, h, _, c = x.shape
+        p = self.kernel_size[0]
+        g = h // p
+        # patches in (C, p, p) order against the OIHW kernel flattened
+        patches = x[:, : g * p, : g * p].reshape(b, g, p, g, p, c)
+        patches = patches.permute(0, 1, 3, 5, 2, 4).reshape(b, g * g, c * p * p)
+        return F.linear(patches, self.weight.flatten(1).to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
 
 
 class PatchEmbed(nn.Module):
     """Patch embedding + learned positional embedding
-    (pytorch_vit_encoder.py:131-144, tensorflow/vitPose.py:6-60). ``proj``
-    holds the JAX module's strided-conv kernel (OIHW here); the forward
-    applies it as unfold + matmul, the same sums. Takes NHWC frames,
-    returns (B, N, dim) tokens in ``dtype``, row-major over the patch
-    grid."""
+    (pytorch_vit_encoder.py:131-144, tensorflow/vitPose.py:6-60). Takes NHWC
+    frames, returns (B, N, dim) tokens in ``dtype``, row-major over the
+    patch grid."""
 
     def __init__(
         self, in_channels: int, n_tokens: int, dim: int, patch_size: int = 16,
@@ -233,8 +278,7 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.patch_size = patch_size
-        self.proj = nn.Conv2d(in_channels, dim, patch_size, stride=patch_size,
-                              dtype=dtype)
+        self.proj = PatchConv(in_channels, dim, patch_size, dtype)
         if post_norm:
             self.embed_norm = _layer_norm(dim)
         self.post_norm = post_norm
@@ -243,27 +287,14 @@ class PatchEmbed(nn.Module):
         nn.init.normal_(self.pos_embedding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
+        h, w = x.shape[1:3]
         # the CNN decoder rebuilds a SQUARE token grid from sqrt(N)
         if h != w:
             raise ValueError(f"ViT path needs square inputs, got {h}x{w}")
-        p, g = self.patch_size, h // self.patch_size
-        # the stride-p conv as unfold + matmul, the reference's own form:
-        # patches in (C, p, p) order against the OIHW kernel flattened
-        patches = x.to(self.dtype)[:, : g * p, : g * p].reshape(b, g, p, g, p, c)
-        patches = patches.permute(0, 1, 3, 5, 2, 4).reshape(b, g * g, c * p * p)
-        y = F.linear(patches, self.proj.weight.flatten(1), self.proj.bias)
+        y = self.proj(x.to(self.dtype))
         if self.post_norm:
-            y = self.embed_norm(y.float())
+            y = self.embed_norm(at_least_f32(y))
         return (y + self.pos_embedding.to(y.dtype)).to(self.dtype)
-
-
-def _same_deconv_pads(k: int, stride: int = 2) -> tuple[int, int]:
-    """(low, high) padding of flax ``ConvTranspose(padding="SAME")`` on the
-    stride-dilated input."""
-    pad_len = k + stride - 2
-    low = k - 1 if stride > k - 1 else -(-pad_len // 2)
-    return low, pad_len - low
 
 
 class CNNDecoderViT(nn.Module):
@@ -291,17 +322,13 @@ class CNNDecoderViT(nn.Module):
         self.ref_token_grid = ref_token_grid
         k = kernel_size
         if flavor == "torch":
-            widths = (dim, dim, dim, out_channels)
-            pad, out_pad, self._crop = 1, 1, 0
+            # the reference's ConvTranspose2d(k, s2, p1, op1) crop
+            widths, pads = (dim, dim, dim, out_channels), (k - 2, k - 1)
         else:
-            widths = (dim // 2, dim // 4, dim // 8, out_channels)
-            low, high = _same_deconv_pads(k)
-            pad, out_pad, self._crop = k - 1 - low, 0, low - high
+            widths, pads = (dim // 2, dim // 4, dim // 8, out_channels), deconv_same_pads(k, 2)
         cin = dim
         for i, cout in enumerate(widths):
-            self.add_module(f"deconv{i + 1}", nn.ConvTranspose2d(
-                cin, cout, k, stride=2, padding=pad, output_padding=out_pad,
-                dtype=dtype))
+            self.add_module(f"deconv{i + 1}", Deconv(cin, cout, k, 2, pads, dtype))
             cin = cout
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -313,14 +340,11 @@ class CNNDecoderViT(nn.Module):
             x = tokens.reshape(b, g, g, d).permute(0, 3, 1, 2)
         x = x.to(self.dtype)
         for i in range(1, 5):
-            x = getattr(self, f"deconv{i}")(x)
-            if self._crop:
-                x = x[..., : x.shape[-2] - self._crop, : x.shape[-1] - self._crop]
-            x = leaky(x)
+            x = leaky(getattr(self, f"deconv{i}")(x))
         x = x.permute(0, 2, 3, 1)  # NHWC
         if self.flavor == "torch" and not self.normalize_output:
             return x
-        x = x.float()
+        x = at_least_f32(x)
         if self.flavor == "torch":
             lo = x.amin(dim=(1, 2, 3), keepdim=True)
             hi = x.amax(dim=(1, 2, 3), keepdim=True)
@@ -340,7 +364,7 @@ class ViTPoseNet(nn.Module):
         flavor: str = "torch", dtype: torch.dtype = torch.bfloat16,
         normalize_output: bool = True, ref_token_grid: bool = False,
         fast_softmax: bool = False, fused_serving: bool = False,
-        fused_attention: bool = False,
+        fused_attention: bool = False, dropout: float = 0.0,
     ):
         super().__init__()
         self.flavor = flavor
@@ -354,14 +378,15 @@ class ViTPoseNet(nn.Module):
             post_norm=flavor == "torch", dtype=dtype)
         self.transformer = Transformer(
             dim, depth, heads, dim_head, dim * mlp_expand, dtype, flavor,
-            fast_softmax, fused_serving, fused_attention)
+            fast_softmax, fused_serving, fused_attention, dropout)
         self.decoder = CNNDecoderViT(
             out_channels, dim, kernel_size, flavor, dtype, normalize_output,
             ref_token_grid)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
-        return self.decoder(self.transformer(self.patch_embed(x)))
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        return self.decoder(self.transformer(self.patch_embed(x), generator))
 
 
 class CrossAttentionFuse(nn.Module):
@@ -381,11 +406,13 @@ class CrossAttentionFuse(nn.Module):
             input_dim, 1, 4, output_dim, output_dim, dtype, "torch",
             fast_softmax, fused_serving, fused_attention)
         self.norm = _layer_norm(input_dim)
-        self.proj = nn.Linear(input_dim, output_dim, dtype=dtype)
+        self.proj = Dense(input_dim, output_dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm(self.transformer(x).float())
-        return _gelu(self.proj(y.to(self.dtype)))
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
+        y = self.norm(at_least_f32(self.transformer(x, generator)))
+        return _gelu(self.proj(y))
 
 
 class ViT4Cameras(nn.Module):
@@ -408,7 +435,7 @@ class ViT4Cameras(nn.Module):
         num_fuse_layers: int = 4, dtype: torch.dtype = torch.bfloat16,
         normalize_output: bool = True, fast_softmax: bool = False,
         fused_serving: bool = False, fused_attention: bool = False,
-        fold_views: bool = True,
+        fold_views: bool = True, dropout: float = 0.0,
     ):
         super().__init__()
         v = self.NUM_CAMS
@@ -425,7 +452,7 @@ class ViT4Cameras(nn.Module):
             patch_size, dtype=dtype)
         self.shared_encoder = Transformer(
             dim, depth, heads, dim_head, dim * mlp_expand, dtype, "torch",
-            fast_softmax, fused_serving, fused_attention)
+            fast_softmax, fused_serving, fused_attention, dropout)
         for i in range(num_fuse_layers):
             self.add_module(f"fuse{i}", CrossAttentionFuse(
                 dim * (v + 1), dim, dtype, fast_softmax, fused_serving,
@@ -437,23 +464,25 @@ class ViT4Cameras(nn.Module):
     def _fuses(self) -> list[nn.Module]:
         return [getattr(self, f"fuse{i}") for i in range(self.num_fuse_layers)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _check_eval(self)
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None
+    ) -> torch.Tensor:
         v = self.NUM_CAMS
         b, h, w, c = x.shape
         cc = c // v
         if not self.fold_views:
             views = [x[..., i * cc:(i + 1) * cc] for i in range(v)]
-            encs = [self.shared_encoder(self.patch_embed(xv)) for xv in views]
+            encs = [self.shared_encoder(self.patch_embed(xv), generator) for xv in views]
             skips = list(encs)
             merged = torch.cat(encs, dim=-1)  # (B, N, 4 * dim)
             for fuse in self._fuses():
-                encs = [fuse(torch.cat([e, merged], dim=-1)) + e for e in encs]
+                encs = [fuse(torch.cat([e, merged], dim=-1), generator) + e
+                        for e in encs]
             out = torch.cat(
                 [self.shared_decoder(e + s) for e, s in zip(encs, skips)], dim=-1)
-            return out.float() if self.normalize_output else out
+            return at_least_f32(out) if self.normalize_output else out
         xv = x.reshape(b, h, w, v, cc).movedim(3, 1).reshape(b * v, h, w, cc)
-        tokens = self.shared_encoder(self.patch_embed(xv))  # (B * V, N, D)
+        tokens = self.shared_encoder(self.patch_embed(xv), generator)  # (B * V, N, D)
         n, d = tokens.shape[1:]
         encs = tokens.reshape(b, v, n, d)
         skips = encs
@@ -462,9 +491,9 @@ class ViT4Cameras(nn.Module):
             fin = torch.cat(
                 [encs, merged[:, None].expand(b, v, n, v * d)], dim=-1
             ).reshape(b * v, n, d + v * d)
-            encs = fuse(fin).reshape(b, v, n, d) + encs
+            encs = fuse(fin, generator).reshape(b, v, n, d) + encs
         out = self.shared_decoder((encs + skips).reshape(b * v, n, d))
         out = out.reshape(b, v, h, w, -1).movedim(1, 3)
         out = out.reshape(b, h, w, self.out_channels)
-        return out.float() if self.normalize_output else out
+        return at_least_f32(out) if self.normalize_output else out
 

@@ -43,6 +43,7 @@ from ..models import augmentation_views, layout_masks_per_view, layout_views
 from ..models.layers import at_least_f32
 from ..models.multicam import DenseGeneral
 from ..models.norm import BatchNorm, collect_batch_stats
+from ..models.vit import PatchEmbed
 from ..ops import affine, geometry, peaks
 from ..ops.gaussian import confmaps_from_peaks
 from ..ops.morphology import random_mask_redilation
@@ -85,32 +86,42 @@ def _lecun_normal(rng: np.random.Generator, shape: tuple, fan_in: int) -> np.nda
 
 
 def _init_params(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
-    """Seeded float32 parameters of a conv model, on the CPU, as flax
-    initialises them: kernels lecun-normal over the fan-in (input channels x
-    kernel taps, for a transposed conv too; the contracting dims of an
-    attention projection), biases zero, BatchNorm scales one."""
+    """Seeded float32 parameters, on the CPU, in ``named_parameters`` order,
+    as flax initialises them: kernels lecun-normal over the fan-in (input
+    channels x kernel taps, for a transposed conv and the ViT's stride-p
+    patch conv too; the contracting dims of an attention projection; the
+    input features of a ``Linear``, drawn in flax's (in, out) layout and
+    laid out (out, in)), biases zero, BatchNorm and LayerNorm scales one,
+    the ViT's positional embedding a unit normal (flax's ``normal(1.0)``)."""
     rng = np.random.default_rng(seed)
     params: dict[str, torch.Tensor] = {}
     for name, m in model.named_modules():
-        if isinstance(m, BatchNorm):
+        if isinstance(m, (BatchNorm, nn.LayerNorm)):
             params[f"{name}.weight"] = torch.ones(m.weight.shape)
             params[f"{name}.bias"] = torch.zeros(m.bias.shape)
             continue
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, PatchEmbed):
+            params[f"{name}.pos_embedding"] = torch.from_numpy(
+                rng.standard_normal(tuple(m.pos_embedding.shape)).astype(np.float32))
+            continue
+        if isinstance(m, nn.Linear):
+            w = _lecun_normal(rng, (m.in_features, m.out_features), m.in_features).T
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.in_channels * int(np.prod(m.kernel_size))
+            w = _lecun_normal(rng, tuple(m.weight.shape), fan_in)
         elif isinstance(m, DenseGeneral):
-            fan_in = m.fan_in
+            w = _lecun_normal(rng, tuple(m.weight.shape), m.fan_in)
         else:
             continue
-        params[f"{name}.weight"] = torch.from_numpy(
-            _lecun_normal(rng, tuple(m.weight.shape), fan_in))
+        params[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w))
         if m.bias is not None:
             params[f"{name}.bias"] = torch.zeros(m.bias.shape)
-    if set(params) != {n for n, _ in model.named_parameters()}:
-        raise NotImplementedError(
-            f"training {type(model).__name__} is not ported: the ViT's training "
-            "forward is ROADMAP Queue A item 6")
-    return params
+    names = [n for n, _ in model.named_parameters()]
+    if set(params) != set(names):
+        raise ValueError(
+            f"{type(model).__name__}: no flax initialiser for "
+            f"{sorted(set(names) - set(params))}")
+    return {n: params[n] for n in names}
 
 
 def init_batch_stats(

@@ -172,6 +172,11 @@ class Trainer:
             self._best_written = self.best_loss  # a best_model at best_loss is on disk
             if meta.get("scheduler"):
                 self.scheduler.load_state_dict(meta["scheduler"])
+            # the epochs run before each shuffled the train order: replay
+            # them, so the resumed epochs draw the batches an unbroken run
+            # draws (with the step-seeded draws, resume is then exact)
+            for _ in range(self.start_epoch):
+                self.dataset.shuffle_train_indices()
             print(f"Resumed from {cfg.resume_from} at epoch {self.start_epoch}", flush=True)
 
     # ------------------------------------------------------------------

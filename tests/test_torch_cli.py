@@ -92,7 +92,6 @@ def test_unported_subcommands_raise(argv, item):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--quantized-layers", "conv_only"], "item 11"),
     (["--import-reference"], "item 13"),
     (["--dim-head", "64"], "item 13"),
 ])
@@ -145,6 +144,30 @@ def trained_cameras(tmp_path_factory):
     with open(jpath, "wb") as f:
         f.write(serialization.to_bytes({"params": tree, "opt_state": {}, "batch_stats": stats}))
     return cfg_path, data, run, jpath
+
+
+def test_quantized_layers_infer_serves_int8_generic(trained_cameras, tmp_path, monkeypatch,
+                                                   one_thread):
+    """``infer --quantized --quantized-layers conv_only`` on the camera model
+    serves on "int8_generic" with its cameras and writes the points of
+    every sample."""
+    from pose_estimation_amitai_torch import infer
+
+    cfg_path, data, run, _ = trained_cameras
+    made = []
+    real = infer.Predictor.from_checkpoint.__func__
+
+    def spy(cls, *args, **kw):
+        made.append(real(cls, *args, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(infer.Predictor, "from_checkpoint", classmethod(spy))
+    out = str(tmp_path / "q.npz")
+    assert cli.main(["infer", cfg_path, run, data, out, "--device", "cpu", "--quantized",
+                     "--quantized-layers", "conv_only"]) == 0
+    assert made[0].serving_path == "int8_generic"
+    pts = np.load(out)["points_2d"]
+    assert pts.shape[1:] == (3, 24) and pts.shape[0] > 0 and np.isfinite(pts).all()
 
 
 def test_eval_of_a_camera_model_equals_jax_cli_eval(trained_cameras, capsys, one_thread):

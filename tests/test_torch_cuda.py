@@ -981,3 +981,89 @@ def test_batchnorm_families_serve_on_card_as_on_cpu(cuda, model_type, shape, k):
         maps[dev.type] = pred(frames)[0]
     top = np.abs(maps["cpu"]).max()
     assert np.abs(maps["cuda"] - maps["cpu"]).max() <= 1e-4 * max(top, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# ViT training and generic int8 serving (no hand-written kernel: the card's
+# library ops against the CPU's)
+# ---------------------------------------------------------------------------
+_SMALL_VIT = dict(model_type=C.MODEL_18_POINTS_PER_WING_VIT, patch_size=16, projection_dim=32,
+                  transformer_layers=2, num_heads=2, fully_connected_expand=2, dim_head=0)
+
+
+@pytest.mark.parametrize("flavor", ["torch", "tf"])
+def test_vit_train_step_on_card_matches_cpu(cuda, flavor):
+    """One float32 step of a small ViT (TF32 off, dropout 0, targets from
+    peaks; the tf flavour's attention dropout set to 0 on the instances):
+    loss within 1e-4 relative, gradients within 1e-3 of the largest,
+    chip_smoke.py's train-phase tolerances."""
+    from pose_estimation_amitai_torch.models import vit
+
+    cfg, model, data, loop = _train_setup(cuda, compute_dtype="float32", dropout_ratio=0.0,
+                                          do_augmentations=False, arch_flavor=flavor,
+                                          **_SMALL_VIT)
+    for m in model.modules():
+        if isinstance(m, vit.Attention):
+            m.dropout = 0.0
+    idx = np.arange(4, dtype=np.int32)
+    out = {}
+    for dev, d in ((cuda, data), ("cpu", {k: v.cpu() for k, v in data.items()})):
+        st = loop.create_train_state(model, cfg, device=dev)
+        loss, grads = loop.make_grad_fn(model, cfg)(st.params, d, idx,
+                                                    torch.Generator(device=dev))
+        out[str(dev)] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    top = max(float(g.abs().max()) for g in gc.values())
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * top, k
+
+
+def test_int8_generic_vit_on_card_matches_cpu(cuda):
+    """A small ViTPoseNet on "int8_generic": the calibration scales card vs
+    CPU in float32 within 1e-5 relative; with the CPU's scales on both, each
+    quantised layer gives the CPU's bits on the CPU's input (the float64
+    sums of int8 products are exact, the epilogue is the same float32
+    arithmetic); the Predictor serves it on the card."""
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.models import quantized_generic as qg
+
+    cfg = Config(**_SMALL_VIT)
+    params = init_vit_params(np.random.default_rng(0), 4, 6, 48, dim=32, depth=2, heads=2,
+                             dim_head=64, mlp_expand=2)
+    frames = np.random.default_rng(1).random((8, 48, 48, 4), dtype=np.float32)
+
+    def model_on(c, dev):
+        m = build_model(c, (48, 48, 4), 6, normalize_output=False).to(dev).eval()
+        state = {k: v.to(dev) for k, v in weights.flax_to_state_dict(params, m).items()}
+        m.load_state_dict(state)
+        return m, state, qg.calibration_batches(frames, device=dev)
+
+    scales = {dev: qg.calibrate_apply(*model_on(cfg.replace(compute_dtype="float32"), dev))
+              for dev in ("cuda", "cpu")}
+    assert sorted(scales["cuda"]) == sorted(scales["cpu"]) and len(scales["cpu"]) == 13
+    for k, v in scales["cpu"].items():
+        assert abs(scales["cuda"][k] - v) <= 1e-5 * v, k
+    q, sc = {}, None  # the CPU's scales of the bf16 model, on both devices
+    for dev in ("cpu", "cuda"):
+        m, state, batches = model_on(cfg, dev)
+        if sc is None:
+            sc = qg.calibrate_apply(m, state, batches)
+        q[dev] = qg.quantize_model(m, state, sc)
+    seen = []
+    hooks = [mod.register_forward_hook(lambda mod, a, o, p=p: seen.append((p, a[0], o)))
+             for p, mod in q["cpu"].named_modules() if isinstance(mod, qg.QuantizedLayer)]
+    with torch.no_grad():
+        q["cpu"](torch.from_numpy(frames[:2]))
+        for h in hooks:
+            h.remove()
+        card = dict(q["cuda"].named_modules())
+        assert len(seen) == 13
+        for p, x, want in seen:
+            assert torch.equal(card[p](x.to(cuda)).cpu(), want), p
+    pred = Predictor(cfg, params, (48, 48, 4), 6, device=cuda, chunk_size=4,
+                     use_quantized=True, calibration_frames=frames)
+    assert pred.serving_path == "int8_generic"
+    pts = pred(frames)
+    assert pts.shape == (8, 3, 6) and np.isfinite(pts).all()

@@ -37,6 +37,7 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.ops.hopper_probes",
             "pose_estimation_amitai_torch.ops.int8_conv",
             "pose_estimation_amitai_torch.models.quantized",
+            "pose_estimation_amitai_torch.models.quantized_generic",
             "pose_estimation_amitai_torch.models.vit",
             "pose_estimation_amitai_torch.weights",
             "pose_estimation_amitai_torch.ops.affine",

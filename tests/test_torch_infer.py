@@ -254,7 +254,7 @@ def test_from_checkpoint_prefers_pt_and_names_all_four(tmp_path, setup, monkeypa
 def test_cnn_family_serves_on_module_and_matches_jax(model_type, cin, k):
     """The CNN family serves on "module" whatever use_fused says (JAX fuses
     the flagship only); maps and peaks as JAX's Predictor gives them; int8
-    serving raises naming item 11."""
+    serving takes the "int8_generic" route."""
     from pose_estimation_amitai_torch.models import build_model
     from pose_estimation_amitai_torch.train import loop as tloop
 
@@ -274,9 +274,9 @@ def test_cnn_family_serves_on_module_and_matches_jax(model_type, cin, k):
     maps, pts = pred(frames)
     np.testing.assert_allclose(maps, np.asarray(want_maps), atol=2e-5)
     np.testing.assert_array_equal(pts[:, :2], np.asarray(want_pts)[:, :2])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tinfer.Predictor(cfg, params, shape, k, device="cpu", use_quantized=True,
-                         calibration_frames=frames)
+    qpred = tinfer.Predictor(cfg, params, shape, k, device="cpu", use_quantized=True,
+                             calibration_frames=frames, use_fused=True)
+    assert qpred.serving_path == "int8_generic"
 
 
 @pytest.mark.parametrize("model_type, cin, k", [
@@ -339,24 +339,46 @@ def test_evaluate_l2_matches_jax(setup):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw, item", [
-    # int8 serving is ported for the flagship geometry only
-    ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),
-      "cfg": CFG.replace(dilation_rate=1)}, "item 11"),
-    ({"mesh": object()}, "item 14"),
-    # nor for the BatchNorm and camera-matrix families (int8_generic)
-    ({"use_quantized": True, "calibration_frames": np.zeros((1, *SHAPE), np.float32),
-      "cfg": Config(model_type=C.GPTNET)}, "item 11"),
-    ({"use_quantized": True, "calibration_frames": np.zeros((1, 48, 48, 16), np.float32),
-      "cfg": Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN),
-      "cameras": (np.zeros((1, 4, 3, 4)), np.zeros((1, 4, 4, 3)))}, "item 11"),
-])
+@pytest.mark.parametrize("kw, item", [({"mesh": object()}, "item 14")])
 def test_unported_options_raise(setup, kw, item):
     _, params = setup
-    kw = dict(kw)
-    cfg = kw.pop("cfg", CFG)
     with pytest.raises(NotImplementedError, match=item):
-        tinfer.Predictor(cfg, params, SHAPE, K, device="cpu", **kw)
+        tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["basicnet_dilation1", "gptnet", "disentangled"])
+def test_int8_generic_serves_off_the_flagship(case, one_thread):
+    """use_quantized off the flagship geometry serves on "int8_generic", as
+    JAX routes it: a BasicNet at dilation 1, the BatchNorm family
+    (GPTResNet, its running averages) and the camera model (its cameras);
+    one call decodes finite peaks inside the frame."""
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop as tloop
+
+    cfg, cin, k = {
+        "basicnet_dilation1": (CFG.replace(dilation_rate=1), 4, K),
+        "gptnet": (Config(model_type=C.GPTNET), 4, K),
+        "disentangled": (Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN,
+                                num_base_filters=8), 16, 24),
+    }[case]
+    shape = (48, 48, cin)
+    model = build_model(cfg, shape, k)
+    state = tloop.create_train_state(model, cfg, seed=3, device="cpu")
+    params = weights.state_dict_to_flax(state.params, model)
+    stats = weights.batch_stats_to_flax(state.batch_stats) if state.batch_stats else None
+    rng = np.random.default_rng(4)
+    frames = rng.random((3, *shape)).astype(np.float32)
+    cameras = None
+    if case == "disentangled":
+        P = rng.standard_normal((3, 4, 3, 4)).astype(np.float32)
+        cameras = (P, np.linalg.pinv(P).astype(np.float32))
+    pred = tinfer.Predictor(cfg, params, shape, k, device="cpu", chunk_size=2,
+                            use_quantized=True, calibration_frames=frames,
+                            batch_stats=stats, cameras=cameras)
+    assert pred.serving_path == "int8_generic"
+    pts = pred(frames)
+    assert pts.shape == (3, 3, k) and np.isfinite(pts).all()
+    assert ((pts[:, :2] >= 0) & (pts[:, :2] < 48)).all()
 
 
 def test_device_is_required_and_decode_checked(setup):
@@ -526,10 +548,12 @@ def test_vit_tf_flavour_serves_unnormalised(vit_setup):
 
 
 def test_vit_refusals(vit_setup):
-    _, params = vit_setup["single"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _port_vit("single", params, use_quantized=True,
-                  calibration_frames=np.zeros((1, 48, 48, 4), np.float32))
+    """int8 serving of a ViT takes "int8_generic"; the pipeline-parallel
+    layout raises naming item 14."""
+    frames, params = vit_setup["single"]
+    pred = _port_vit("single", params, use_quantized=True, calibration_frames=frames)
+    assert pred.serving_path == "int8_generic"
+    assert np.isfinite(pred(frames)).all()
     with pytest.raises(NotImplementedError, match="item 14"):
         _port_vit("single", {"embed": {}, "blocks": {}, "decoder": {}})
 

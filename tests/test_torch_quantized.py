@@ -268,10 +268,18 @@ def test_predictor_int8_needs_calibration_frames(net8):
 @pytest.mark.parametrize("cfg", [CFG.replace(dilation_rate=1),
                                  CFG.replace(kernel_size=5)])
 def test_predictor_int8_other_geometry_is_queued(net8, frames5, cfg):
-    """JAX serves these through ``int8_generic``; the port refuses them
-    until that route is ported, with or without use_fused."""
+    """JAX serves these through ``int8_generic``; so does the port, with or
+    without use_fused, and decodes one call."""
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.train import loop
+
+    with torch.device("meta"):
+        model = build_model(cfg, SHAPE, K)
+    params = weights.state_dict_to_flax(
+        loop.create_train_state(model, cfg, seed=0, device="cpu").params, model)
     for use_fused in (False, True):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tinfer.Predictor(cfg, net8["params"], SHAPE, K, device="cpu",
-                             use_quantized=True, use_fused=use_fused,
-                             calibration_frames=frames5)
+        pred = tinfer.Predictor(cfg, params, SHAPE, K, device="cpu", use_quantized=True,
+                                use_fused=use_fused, calibration_frames=frames5)
+        assert pred.serving_path == "int8_generic"
+        pts = pred(frames5)
+        assert pts.shape == (5, 3, K) and np.isfinite(pts).all()

@@ -192,8 +192,13 @@ def test_create_train_state_inits_like_flax():
 
     with torch.device("meta"):
         vit = ViTPoseNet(4, 32, K, dim=16, depth=1, heads=2, dim_head=8)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        loop.create_train_state(vit, cfg, device="cpu")
+    vstate = loop.create_train_state(vit, cfg, device="cpu")  # flax's law for the ViT too
+    assert list(vstate.params) == [n for n, _ in vit.named_parameters()]
+    assert float(vstate.params["transformer.final_norm.weight"].min()) == 1.0
+    qkv = vstate.params["transformer.attn0.to_qkv.weight"]  # (out, in), fan-in 16
+    assert qkv.shape == (48, 16) and "transformer.attn0.to_qkv.bias" not in vstate.params
+    assert float(qkv.abs().max()) <= 2.0 / 0.87962566103423978 / 16 ** 0.5 + 1e-6
+    assert float(vstate.params["decoder.deconv4.weight"].abs().max()) == 0.0  # head_zero_init
 
 
 def test_dropout_draws_from_the_generator():

@@ -351,12 +351,34 @@ def test_pipeline_layout_is_queued():
         weights.vit_state_dict({"embed": {}, "blocks": {}, "decoder": {}})
 
 
+def _train_net(cls, **kw):
+    kw = dict(dim=16, depth=1, heads=2, dim_head=8, dtype=torch.float32, **kw)
+    return (tvit.ViTPoseNet(4, 32, 6, **kw) if cls == "single" else
+            tvit.ViT4Cameras(16, 32, 8, num_fuse_layers=1, **kw))  # train mode by default
+
+
 @pytest.mark.parametrize("cls", ["single", "four"])
 def test_training_forward_refused(cls):
-    net = (tvit.ViTPoseNet(4, 32, 6, dim=16, depth=1, heads=2, dim_head=8)
-           if cls == "single" else
-           tvit.ViT4Cameras(16, 32, 8, dim=16, depth=1, heads=2, dim_head=8,
-                            num_fuse_layers=1))  # train mode by default
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        net(torch.zeros((1, 32, 32, net.patch_embed.proj.in_channels * (
-            1 if cls == "single" else 4))))
+    """A training-mode forward with dropout and no generator to draw it
+    from is refused; without dropout it needs none."""
+    x = torch.zeros((1, 32, 32, 4 if cls == "single" else 16))
+    with pytest.raises(ValueError, match="needs a generator"):
+        _train_net(cls, dropout=0.25)(x)
+    assert torch.isfinite(_train_net(cls)(x)).all()
+
+
+@pytest.mark.parametrize("cls", ["single", "four"])
+def test_training_forward_draws_dropout(cls):
+    """A training-mode forward runs and draws its dropout (0.25 here, on
+    the attention probabilities and the feed-forward) from the generator:
+    the same seed gives the same maps, another seed other maps, and the
+    eval forward ignores the generator."""
+    net = _train_net(cls, dropout=0.25)
+    x = torch.rand((2, 32, 32, 4 if cls == "single" else 16),
+                   generator=torch.Generator().manual_seed(0))
+    a = net(x, torch.Generator().manual_seed(1))
+    assert torch.isfinite(a).all()
+    assert torch.equal(a, net(x, torch.Generator().manual_seed(1)))
+    assert not torch.equal(a, net(x, torch.Generator().manual_seed(2)))
+    net.eval()
+    assert torch.equal(net(x), net(x, torch.Generator().manual_seed(3)))
