@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving, training, pretraining, import and
+export paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -166,7 +167,39 @@ Phases, each printing one JSON line ({"phase": ...}):
              of 2: the calibration scales card vs CPU in float32 (within
              1e-5 relative), every quantised layer call card vs CPU on the
              CPU's input (bit-equal: the float64 sums of int8 products are
-             exact), and the maps card vs CPU.
+             exact), and the maps card vs CPU;
+17. selfsup - SelfSupTrainer at Config() (inpainting BasicNet, 4 -> 4,
+             filters 64, batch 8, bf16, augmentation, dropout 0.5) on the
+             train phase's synthetic boxes as 64 five-channel crops: 3
+             epochs of 10 updates (the validation loss must fall), then 3 +
+             10 bare steps (CUDA events) beside the loop's steps/s; one
+             float32 step card vs CPU on the same holed and clean crops
+             (loss within 1e-4 relative, gradients within 1e-3 of the
+             largest); a Trainer at Config() with pretrained_encoder_path at
+             its run directory (the encoder equal to the snapshot before the
+             first step, then 1 epoch of 5 updates); the run directory
+             through Predictor.from_checkpoint(use_fused=True), the
+             encoder-stage and decoder counters read around one chunk;
+18. import - a reference-layout torch BasicNet (filters 64, 4 -> 18) and
+             ViT (patch 16, dim 256, depth 8, heads 8, dim_head 256) built
+             here from the seed, each saved as a checkpoint.pth dict and a
+             traced TorchScript best_model.pth, imported (both equal) and
+             served through Predictor.from_checkpoint(import_reference=True)
+             on "module" and "fused" over the 612 frames, in float32 (TF32
+             off, maps within 1e-4 of max of the reference module's forward)
+             and bf16 (within 5%); B1, B2 and S1's counters around the bf16
+             fused run; the keras importers need h5py, absent there, and are
+             CPU-tested only (a line says so);
+19. export - the flagship's "module", "fused" and "int8_fused" (scales from
+             128 frames) routes and the ViT's "fused" route exported at
+             chunk 256 (deploy.export_predictor), loaded with
+             load_exported(path, "cuda") and served over the 612 frames:
+             peaks equal to the same route's Predictor wherever the top-two
+             gap exceeds 2e-4, B1, B2, B3 and S1's counters around the
+             loaded programs, frames/s of the loaded program beside the
+             Predictor's, the artifact's bytes; then the float32 module,
+             fused and ViT fused programs on one chunk (peak values within
+             1e-4 of max).
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
@@ -180,7 +213,11 @@ the kernels' time on the same probes), else null. The encoder-stage and
 decoder rows also carry ``train_launches``, their launches on the trained
 weights' chunk, and ``trainer_launches``, theirs on the Trainer's run
 directory served through ``Predictor.from_checkpoint``; the attention row
-``vit_train_launches``, its launches on the trained ViT's run directory. The rows of the kernels that
+``vit_train_launches``, its launches on the trained ViT's run directory.
+The rows of B1, B2, B3 and S1 carry ``export_launches``, their launches
+from the loaded serving artifacts; B1 and B2 ``selfsup_launches`` (the
+pretraining run directory's chunk) and, with S1, ``import_launches`` (the
+imported reference checkpoints' 612 frames). The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
@@ -2515,6 +2552,535 @@ def phase_int8_generic(torch, frames, device_name: str, smi: str) -> dict:
     emit(result)
     return result
 
+# the selfsup phase: SelfSupTrainer at Config() on the train phase's boxes
+SELFSUP_EPOCHS = 3
+SELFSUP_UPDATES = 10
+SELFSUP_WARMUP = 3  # bare steps before the timed ones
+SELFSUP_STEPS = 10
+SELFSUP_CHECK = 2  # crops of the float32 card-vs-CPU step
+SELFSUP_FT_UPDATES = 5  # the fine-tuning Trainer: 1 epoch of these
+# the import phase: reference-layout checkpoints at full width
+IMPORT_F32_RTOL = 1e-4  # served maps vs the reference module's forward, float32, of max
+IMPORT_BF16_RTOL = 5e-2  # the same in bf16
+# the export phase
+EXPORT_GAP = 2e-4  # peaks equal wherever the top-two gap exceeds this
+EXPORT_F32_RTOL = 1e-4  # float32 programs' peak values vs the Predictor's, of max
+EXPORT_REPS = 2  # timed passes over the frames, program and Predictor in turns
+
+
+def selfsup_crops(torch) -> np.ndarray:
+    """The train phase's synthetic boxes as (N, 192, 192, 5) crops, one a
+    camera view: 16 frames x 4 cameras."""
+    from pose_estimation_amitai_torch.data import make_synthetic_arrays
+
+    box = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                image_size=192, seed=SEED)["box"]
+    return box.reshape(-1, *box.shape[2:])
+
+
+def phase_selfsup(torch, device_name: str, smi: str) -> dict:
+    """Self-supervised inpainting at Config() on the card; its run directory
+    re-heads the Trainer's flagship and serves through the encoder-stage and
+    decoder kernels."""
+    import os
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch.data import make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models.cnn import BasicNet
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.train import selfsup
+    from pose_estimation_amitai_torch.train.loop import _init_params
+    from pose_estimation_amitai_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    crops = selfsup_crops(torch)
+    with tempfile.TemporaryDirectory() as out:
+        cfg = Config(base_output_path=out, epochs=SELFSUP_EPOCHS,
+                     batches_per_epoch=SELFSUP_UPDATES)
+        pre = selfsup.SelfSupTrainer(cfg, crops, device="cuda")
+        check(pre.data.is_cuda and pre.state.params["encoder.conv1.weight"].is_cuda,
+              "the pretrainer's data and state are not on the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = pre.train()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        steps = SELFSUP_EPOCHS * SELFSUP_UPDATES
+        val = history["val_loss"]
+        check(pre.state.step == steps and bool(np.isfinite(history["train_loss"] + val).all()),
+              f"pretraining {history}, step {pre.state.step}")
+        check(val[-1] < val[0], f"validation loss did not fall: {val}")
+        run = pre.run_path
+        check({"best_model.pt", "checkpoint.pt"} <= set(os.listdir(run)),
+              f"run directory {sorted(os.listdir(run))}")
+        best = torch.load(os.path.join(run, "best_model.pt"), weights_only=True)["params"]
+
+        # the bare step (CUDA events), on the trained state
+        ids = [pre.train_inds[(s * cfg.batch_size + np.arange(cfg.batch_size))
+                              % len(pre.train_inds)]
+               for s in range(SELFSUP_WARMUP + SELFSUP_STEPS)]
+        for i in ids[:SELFSUP_WARMUP]:
+            pre.train_step(i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in ids[SELFSUP_WARMUP:]:
+            pre.train_step(i)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / SELFSUP_STEPS
+
+        # one float32 step, card vs CPU, on the same (holed, clean) crops
+        f32 = cfg.replace(compute_dtype="float32", dropout_ratio=0.0)
+        with torch.device("meta"):
+            model = BasicNet(4, out_channels=4, filters=f32.num_base_filters,
+                             dropout=0.0, dtype=torch.float32)
+        params = _init_params(model, SEED)
+        box = torch.from_numpy(crops[:SELFSUP_CHECK])
+        holed, clean = selfsup.make_prepare(f32)(torch.Generator().manual_seed(SEED), box)
+        # a hole is a constant patch, so the max-pools see exact ties there,
+        # and cuDNN and the CPU route a tied window's gradient to different
+        # (equally valid) elements: a little noise breaks the ties
+        holed = holed + torch.rand(holed.shape, generator=torch.Generator().manual_seed(SEED)) * 1e-3
+        grads_fn = selfsup.make_loss_and_grads(model)
+        l_cpu, g_cpu = grads_fn(params, holed, clean, torch.Generator())
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            l_card, g_card = grads_fn({k: v.cuda() for k, v in params.items()}, holed.cuda(),
+                                      clean.cuda(), torch.Generator(device="cuda"))
+        loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        grad_err = max(float((g_card[k].cpu() - g_cpu[k]).abs().max())
+                       / float(g_cpu[k].abs().max()) for k in g_cpu)
+        check(loss_err <= TRAIN_LOSS_RTOL, f"selfsup f32 loss card vs CPU {loss_err}")
+        check(grad_err <= TRAIN_GRAD_RTOL, f"selfsup f32 gradients card vs CPU {grad_err}")
+
+        # the pretrained encoder re-heads the flagship in the Trainer
+        arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                       image_size=192, seed=SEED)
+        ft = Trainer(Config(base_output_path=out, pretrained_encoder_path=run, epochs=1,
+                            batches_per_epoch=SELFSUP_FT_UPDATES), arrays=arrays,
+                     device="cuda")
+        enc = [k for k in ft.state.params if k.startswith("encoder.")]
+        check(len(enc) == 18 and all(torch.equal(ft.state.params[k].cpu(), best[k])
+                                     for k in enc),
+              "the fine-tuned encoder is not the pretrained one before its first step")
+        ft_history = ft.train()
+        check(ft.state.step == SELFSUP_FT_UPDATES
+              and bool(np.isfinite(ft_history["train_loss"]).all()),
+              f"fine-tuning {ft_history}")
+
+        # the pretraining run directory served through the kernels
+        frames = np.resize(crops[..., :4], (CHUNK, 192, 192, 4))
+        pred = Predictor.from_checkpoint(Config(), run, (192, 192, 4), 4, use_fused=True,
+                                         device="cuda", chunk_size=CHUNK)
+        check(pred.serving_path == "fused", f"serving_path {pred.serving_path}")
+        pred(frames[:1])  # warm-up
+        # ---- the served chunk: counters zeroed just before, read just after ----
+        zero_conv_counters(hc, hd)
+        pts = pred(frames)
+        launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                    "fused_decoder": hd.fused_decoder.launches}
+        # -----------------------------------------------------------------------
+        check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1},
+              f"the pretraining run directory's chunk took {launches}")
+        check(pts.shape == (CHUNK, 3, 4) and bool(np.isfinite(pts).all()), f"served {pts.shape}")
+    result = {
+        "phase": "selfsup", "device": device_name, "nvidia_smi": smi,
+        "model": "inpainting BasicNet at Config(): filters 64, 4 -> 4 channels, batch 8, "
+                 "bf16 compute, augmentation, dropout 0.5, 192x192; 64 crops (16 frames x "
+                 "4 cameras), half validation",
+        "epochs": SELFSUP_EPOCHS, "updates_per_epoch": SELFSUP_UPDATES,
+        "step_ms": step_ms, "loop_steps_per_s": steps / t_train, "train_seconds": t_train,
+        "val_loss_first": val[0], "val_loss_last": val[-1], "history": history,
+        "f32_card_vs_cpu": {"crops": SELFSUP_CHECK, "loss_rel_err": loss_err,
+                            "grad_err_of_max": grad_err},
+        "finetune": {"updates": SELFSUP_FT_UPDATES, "encoder_tensors": len(enc),
+                     "history": ft_history},
+        "served": {"launches": launches},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
+def reference_modules(torch):
+    """Reference-layout torch modules, state-dict compatible with the
+    reference's checkpoints (pytorch/CNNs.py:9-186 BasicNet; pytorch/VITs.py
+    + pytorch_vit_encoder.py VIT_encoder_CNN_decoder), as
+    tests/test_importers.py replicates them. Two deliberate differences,
+    which no weight sees: the ViT's GELU is the tanh form and its LayerNorm
+    epsilon 1e-6 (flax's, which the port and JAX take; the reference's torch
+    module takes erf and 1e-5), and its output is min-max normalised per
+    sample (the reference normalises over the batch), so the check holds
+    the import and the kernels and not that modelling difference."""
+    nn = torch.nn
+
+    class Encoder(nn.Module):
+        def __init__(self, cin, f):
+            super().__init__()
+            widths = [(cin, f), (f, f), (f, f), (f, 2 * f), (2 * f, 2 * f), (2 * f, 2 * f),
+                      (2 * f, 4 * f), (4 * f, 4 * f), (4 * f, 4 * f)]
+            for i, (a, b) in enumerate(widths, start=1):
+                setattr(self, f"conv{i}", nn.Conv2d(a, b, 3, padding=2, dilation=2))
+            self.act = nn.LeakyReLU(0.1)
+
+        def forward(self, x):
+            a = self.act
+            for s in range(3):
+                c1, c2, c3 = (getattr(self, f"conv{3 * s + i}") for i in (1, 2, 3))
+                x1 = a(c1(x))
+                x2 = a(c2(x1)) + x1
+                x = a(c3(x2)) + x2
+                if s < 2:
+                    x = a(nn.functional.max_pool2d(x, 2, 2))
+            return x
+
+    class Decoder(nn.Module):
+        def __init__(self, cin, cout):
+            super().__init__()
+            h = cin // 2
+            self.conv2dTranspose1 = nn.ConvTranspose2d(cin, h, 3, 2, 1, output_padding=1)
+            self.conv2dTranspose2 = nn.ConvTranspose2d(h, h, 3, 1, 1)
+            self.conv2dTranspose3 = nn.ConvTranspose2d(h, h, 3, 1, 1)
+            self.conv2dTranspose4 = nn.ConvTranspose2d(h, cout, 3, 2, 1, output_padding=1)
+            self.act = nn.LeakyReLU(0.1)
+
+        def forward(self, x):
+            a = self.act
+            x1 = a(self.conv2dTranspose1(x))
+            x2 = a(self.conv2dTranspose2(x1)) + x1
+            x3 = a(self.conv2dTranspose3(x2)) + x2
+            return a(self.conv2dTranspose4(x3))
+
+    class RefBasicNet(nn.Module):
+        def __init__(self, cin, cout, f):
+            super().__init__()
+            self.encoder = Encoder(cin, f)
+            self.decoder = Decoder(4 * f, cout)
+
+        def forward(self, x):
+            return self.decoder(self.encoder(x))
+
+    class Attention(nn.Module):
+        def __init__(self, dim, heads, dim_head):
+            super().__init__()
+            self.heads, self.scale = heads, dim_head ** -0.5
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
+            self.to_qkv = nn.Linear(dim, heads * dim_head * 3, bias=False)
+            self.to_out = nn.Sequential(nn.Linear(heads * dim_head, dim))
+
+        def forward(self, x):
+            b, n, _ = x.shape
+            q, k, v = (t.reshape(b, n, self.heads, -1).transpose(1, 2)
+                       for t in self.to_qkv(self.norm(x)).chunk(3, dim=-1))
+            attn = torch.softmax(q @ k.transpose(-1, -2) * self.scale, dim=-1)
+            return self.to_out((attn @ v).transpose(1, 2).reshape(b, n, -1))
+
+    class FeedForward(nn.Module):
+        def __init__(self, dim, hidden):
+            super().__init__()
+            self.net = nn.Sequential(nn.LayerNorm(dim, eps=1e-6), nn.Linear(dim, hidden),
+                                     nn.GELU(approximate="tanh"), nn.Dropout(0.0),
+                                     nn.Linear(hidden, dim))
+
+        def forward(self, x):
+            return self.net(x)
+
+    class Transformer(nn.Module):
+        def __init__(self, dim, depth, heads, dim_head, mlp):
+            super().__init__()
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
+            self.layers = nn.ModuleList(
+                nn.ModuleList([Attention(dim, heads, dim_head), FeedForward(dim, mlp)])
+                for _ in range(depth))
+
+        def forward(self, x):
+            for attn, ff in self.layers:
+                x = attn(x) + x
+                x = ff(x) + x
+            return self.norm(x)
+
+    class CustomViT(nn.Module):
+        def __init__(self, img, p, dim, depth, heads, dim_head, mlp, cin):
+            super().__init__()
+            self.p, self.patch_dim = p, cin * p * p
+            self.patch_to_embedding = nn.Linear(self.patch_dim, dim)
+            self.norm = nn.LayerNorm(dim, eps=1e-6)
+            self.pos_embedding = nn.Parameter(torch.randn(1, (img // p) ** 2, dim))
+            self.cls_token = nn.Parameter(torch.randn(1, 1, dim))  # unused, as there
+            self.transformer = Transformer(dim, depth, heads, dim_head, mlp)
+
+        def forward(self, img):
+            b, c = img.shape[:2]
+            p = self.p
+            patches = img.unfold(2, p, p).unfold(3, p, p).contiguous().view(b, c, -1, p, p)
+            patches = patches.permute(0, 2, 1, 3, 4).reshape(b, -1, self.patch_dim)
+            return self.transformer(self.norm(self.patch_to_embedding(patches))
+                                    + self.pos_embedding)
+
+    class ViTDecoder(nn.Module):
+        def __init__(self, dim, cout, grid):
+            super().__init__()
+            self.dim, self.grid = dim, grid
+            for i, o in enumerate((dim, dim, dim, cout), start=1):
+                setattr(self, f"deconv{i}", nn.ConvTranspose2d(dim, o, 3, 2, 1,
+                                                               output_padding=1))
+            self.act = nn.LeakyReLU(0.1)
+
+        def forward(self, x):
+            # pytorch/VITs.py:40: the tokens reshaped as they lie in memory
+            x = x.reshape(-1, self.dim, self.grid, self.grid)
+            for i in range(1, 5):
+                x = self.act(getattr(self, f"deconv{i}")(x))
+            lo = x.amin(dim=(1, 2, 3), keepdim=True)
+            hi = x.amax(dim=(1, 2, 3), keepdim=True)
+            return (x - lo) / (hi - lo)
+
+    class RefViTNet(nn.Module):
+        def __init__(self, img, p, dim, depth, heads, dim_head, mlp, cin, cout):
+            super().__init__()
+            self.vit_encoder = CustomViT(img, p, dim, depth, heads, dim_head, mlp, cin)
+            self.cnn_decoder = ViTDecoder(dim, cout, img // p)
+
+        def forward(self, x):
+            return self.cnn_decoder(self.vit_encoder(x))
+
+    return RefBasicNet, RefViTNet
+
+
+def reference_maps(torch, net, frames: np.ndarray, batch: int = CHUNK) -> np.ndarray:
+    """The reference module's float32 forward (TF32 off) of NHWC frames, as
+    NHWC maps, batch by batch on the card."""
+    outs = []
+    with torch.no_grad():
+        for i in range(0, len(frames), batch):
+            x = torch.from_numpy(frames[i : i + batch]).cuda().permute(0, 3, 1, 2)
+            outs.append(net(x).permute(0, 2, 3, 1).cpu().numpy())
+    return np.concatenate(outs)
+
+
+def phase_import(torch, frames, device_name: str, smi: str) -> dict:
+    """Reference-layout checkpoints at full width, imported and served
+    through Predictor.from_checkpoint(import_reference=True) on the module
+    and fused routes, held to the reference module's own forward."""
+    import os
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config, importers
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+
+    t_phase = time.perf_counter()
+    print("import: the keras (.h5) importers need h5py, which this machine lacks; they are "
+          "tested on the CPU only (tests/test_torch_importers.py)", flush=True)
+    RefBasicNet, RefViTNet = reference_modules(torch)
+    vcfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+    dim, dim_head = vcfg.projection_dim, vcfg.projection_dim if vcfg.dim_head else 64
+    torch.manual_seed(SEED)
+    nets = {
+        "BasicNet": RefBasicNet(4, 18, Config().num_base_filters),
+        "ViT": RefViTNet(192, vcfg.patch_size, dim, vcfg.transformer_layers, vcfg.num_heads,
+                         dim_head, dim * vcfg.fully_connected_expand, 4, 18),
+    }
+    models, launches = {}, {}
+    with tempfile.TemporaryDirectory() as out:
+        for name, net in nets.items():
+            net = net.cuda().eval()
+            sample = torch.from_numpy(frames[:2]).cuda().permute(0, 3, 1, 2)
+            dict_path = os.path.join(out, f"{name}_checkpoint.pth")
+            torch.save({"epoch": 1, "model_state_dict": net.state_dict()}, dict_path)
+            script_path = os.path.join(out, f"{name}_best_model.pth")
+            with torch.no_grad():
+                torch.jit.trace(net, sample).save(script_path)
+            kinds = [importers.archive_kind(p) for p in (dict_path, script_path)]
+            check(kinds == ["torch_save", "torchscript"], f"{name} archives {kinds}")
+            a = importers.import_reference_checkpoint(dict_path, dim_head=dim_head)
+            b = importers.import_reference_checkpoint(script_path, dim_head=dim_head)
+            check(a.arch_kwargs == b.arch_kwargs and all(
+                np.array_equal(x, y) for x, y in zip(_leaves(a.params), _leaves(b.params))),
+                f"{name}: the dict and TorchScript imports differ")
+            want = reference_maps(torch, net, frames)
+            top = float(np.abs(want).max())
+            routes = {}
+            for route, path in (("module", dict_path), ("fused", script_path)):
+                for dt in ("float32", "bfloat16"):
+                    pred = Predictor.from_checkpoint(
+                        Config(compute_dtype=dt), path, (192, 192, 4), 18, device="cuda",
+                        chunk_size=CHUNK, use_fused=route == "fused", return_heatmaps=True,
+                        import_reference=True, dim_head=dim_head)
+                    check(pred.serving_path == route, f"{name} served {pred.serving_path}")
+                    if route == "fused" and dt == "bfloat16":
+                        pred(frames[:1])  # warm-up
+                        # ---- counters zeroed just before, read just after ----
+                        zero_conv_counters(hc, hd)
+                        ha.fused_attention.launches = 0
+                        maps, pts = pred(frames)
+                        launches[name] = {
+                            "fused_encoder_stage": hc.fused_encoder_stage.launches,
+                            "fused_decoder": hd.fused_decoder.launches,
+                            "fused_attention": ha.fused_attention.launches}
+                        # -------------------------------------------------------
+                    else:
+                        maps, pts = pred(frames)
+                    err = float(np.abs(maps - want).max())
+                    tol = (IMPORT_F32_RTOL if dt == "float32" else IMPORT_BF16_RTOL) * top
+                    check(err <= tol and bool(np.isfinite(pts).all()),
+                          f"{name} {route} {dt}: maps {err} off the reference > {tol}")
+                    routes[f"{route}_{dt}"] = err
+            models[name] = {"arch_kwargs": a.arch_kwargs, "max_abs_maps": top,
+                            "max_abs_err": routes}
+            del net
+    chunks = -(-len(frames) // CHUNK)
+    check(launches["BasicNet"] == {"fused_encoder_stage": 3 * chunks,
+                                   "fused_decoder": chunks, "fused_attention": 0}
+          and launches["ViT"] == {"fused_encoder_stage": 0, "fused_decoder": 0,
+                                  "fused_attention": vcfg.transformer_layers * chunks},
+          f"the imported models' fused launches {launches}")
+    result = {"phase": "import", "device": device_name, "nvidia_smi": smi,
+              "model": "reference-layout torch BasicNet (filters 64, 4 -> 18) and "
+                       "VIT_encoder_CNN_decoder (patch 16, dim 256, depth 8, heads 8, "
+                       "dim_head 256), seeded, as checkpoint.pth dicts and traced "
+                       "TorchScript best_model.pth",
+              "frames": len(frames), "models": models, "launches": launches,
+              "rtol": {"float32": IMPORT_F32_RTOL, "bfloat16": IMPORT_BF16_RTOL},
+              "keras": "not run: no h5py on this machine (CPU-tested)",
+              "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def export_case(torch, name: str, pred, frames, gaps, tmp: str, timed: bool) -> dict:
+    """Export ``pred``, load the artifact on the card and serve ``frames``:
+    peaks against the Predictor's (x, y equal where ``gaps`` exceed
+    EXPORT_GAP; values within EXPORT_F32_RTOL of max in float32, equal where
+    they are), the kernels' launches around the loaded program and, with
+    ``timed``, frames/s of both."""
+    import os
+
+    from pose_estimation_amitai_torch.deploy import export_predictor, load_exported
+    from pose_estimation_amitai_torch.ops import custom_ops
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.ops import hopper_qconv as hq
+
+    path = os.path.join(tmp, f"{name}.ptexp")
+    t0 = time.perf_counter()
+    header = export_predictor(pred, path)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_exported(path, "cuda")
+    t_load = time.perf_counter() - t0
+    graph_ops = sorted({str(n.target).split(".")[1] for n in loaded.module.graph.nodes
+                        if str(n.target).startswith(custom_ops.NAMESPACE + ".")})
+    loaded(frames[:1])  # warm-up
+    counters = (hc.fused_encoder_stage, hd.fused_decoder, hq.fused_quantized_stage,
+                ha.fused_attention)
+    # ---- the loaded program: counters zeroed just before, read just after ----
+    for c in counters:
+        c.launches = 0
+    got = loaded(frames)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    # ---------------------------------------------------------------------------
+    want = pred(frames)
+    clear = gaps > EXPORT_GAP
+    xy_equal = (got[:, :2] == want[:, :2]).all(axis=1)
+    check(got.shape == want.shape and bool(xy_equal[clear].all()),
+          f"export {name}: peaks differ where the gap is clear "
+          f"({int((~xy_equal & clear).sum())} of {int(clear.sum())})")
+    val_err = float(np.abs(got[:, 2] - want[:, 2])[xy_equal].max())
+    top = float(np.abs(want[:, 2]).max())
+    f32 = header.get("serving_path") in ("module", "fused") and pred.cfg.compute_dtype == "float32"
+    check(val_err <= (EXPORT_F32_RTOL * top if f32 else 0.0),
+          f"export {name}: peak values {val_err} off the Predictor's (max {top})")
+    case = {"serving_path": header["serving_path"], "bytes": os.path.getsize(path),
+            "export_seconds": t_export, "load_seconds": t_load, "graph_ops": graph_ops,
+            "launches": launches, "clear_share": float(clear.mean()),
+            "xy_equal_share": float(xy_equal.mean()), "val_max_abs_err": val_err}
+    if timed:
+        fps = {"program": [], "predictor": []}
+        for _ in range(EXPORT_REPS):
+            for key, fn in (("predictor", pred), ("program", loaded), ("program", loaded),
+                            ("predictor", pred)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(frames)
+                torch.cuda.synchronize()
+                fps[key].append(len(frames) / (time.perf_counter() - t0))
+        case["frames_per_s"] = {k: float(np.mean(v)) for k, v in fps.items()}
+    return case
+
+
+def phase_export(torch, params, frames, device_name: str, smi: str) -> dict:
+    """The serving artifact: the flagship's module, fused and int8_fused
+    routes and the ViT's fused route exported at full width, loaded on the
+    card and served; the float32 programs held within EXPORT_F32_RTOL."""
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.infer import Predictor
+
+    t_phase = time.perf_counter()
+    vcfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+    vparams = vit_params(vcfg, 4, 18, four=False)
+    calib = frames[:CALIB_FRAMES]
+    cases = {
+        "module": (Config(), params, {}),
+        "fused": (Config(), params, {"use_fused": True}),
+        "int8_fused": (Config(), params, {"use_fused": True, "use_quantized": True,
+                                          "calibration_frames": calib}),
+        "vit_fused": (vcfg, vparams, {"use_fused": True}),
+        "module_f32": (Config(compute_dtype="float32"), params, {}),
+        "fused_f32": (Config(compute_dtype="float32"), params, {"use_fused": True}),
+        "vit_fused_f32": (vcfg.replace(compute_dtype="float32"), vparams, {"use_fused": True}),
+    }
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (cfg, p, kw) in cases.items():
+            f32 = name.endswith("_f32")
+            sub = frames[:CHUNK] if f32 else frames
+            twin = Predictor(cfg, p, (192, 192, 4), 18, device="cuda", chunk_size=CHUNK,
+                             return_heatmaps=True, **kw)
+            maps, _ = twin(sub)
+            gaps = top_two_gap(maps)
+            del twin, maps
+            pred = Predictor(cfg, p, (192, 192, 4), 18, device="cuda", chunk_size=CHUNK, **kw)
+            results[name] = export_case(torch, name, pred, sub, gaps, tmp, timed=not f32)
+            del pred
+    chunks = -(-len(frames) // CHUNK)
+    want = {"module": {}, "fused": {"fused_encoder_stage": 3 * chunks,
+                                    "fused_decoder": chunks},
+            "int8_fused": {"fused_quantized_stage": 3 * chunks},
+            "vit_fused": {"fused_attention": vcfg.transformer_layers * chunks}}
+    for name, w in want.items():
+        got = {k: v for k, v in results[name]["launches"].items() if v}
+        check(got == w, f"export {name}: the loaded program launched {got}, not {w}")
+    launches = {}
+    for name in ("fused", "int8_fused", "vit_fused"):
+        launches.update({k: v for k, v in results[name]["launches"].items() if v})
+    result = {"phase": "export", "device": device_name, "nvidia_smi": smi,
+              "model": "flagship BasicNet (filters 64, 192x192x4 -> 18) and ViTPoseNet "
+                       "(dim 256, depth 8), seeded, chunk 256; bf16, and float32 with "
+                       "TF32 off for the *_f32 cases (one chunk)",
+              "frames": len(frames), "cases": results, "launches": launches,
+              "gap": EXPORT_GAP, "f32_rtol": EXPORT_F32_RTOL,
+              "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2545,10 +3111,22 @@ def main() -> int:
     phase_zoo(torch, name, smi)
     vtr = phase_vit_train(torch, name, smi)
     phase_int8_generic(torch, frames, name, smi)
+    ss = phase_selfsup(torch, name, smi)
+    imp = phase_import(torch, frames, name, smi)
+    ex = phase_export(torch, params, frames, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
+    imported = {**{k: v for k, v in imp["launches"]["BasicNet"].items() if v},
+                **{k: v for k, v in imp["launches"]["ViT"].items() if v}}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in ex["launches"]:  # the loaded serving artifacts
+            r["export_launches"] = ex["launches"][r["name"]]
+            check(r["export_launches"] > 0, f"{r['name']}: no launch from a loaded program")
+        if r["name"] in ss["served"]["launches"]:  # the pretraining run directory
+            r["selfsup_launches"] = ss["served"]["launches"][r["name"]]
+        if r["name"] in imported:  # the imported reference checkpoints
+            r["import_launches"] = imported[r["name"]]
         if r["name"] in vtr["launches"]:  # the trained ViT's run directory
             r["vit_train_launches"] = vtr["launches"][r["name"]]
         if r["name"] in tr["served"]["launches"]:  # the trained weights' chunk

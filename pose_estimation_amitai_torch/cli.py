@@ -1,4 +1,5 @@
-"""Command-line interface of the PyTorch port: train / infer / eval.
+"""Command-line interface of the PyTorch port: train / pretrain / infer /
+eval / export / import.
 
 Counterpart of ``pose_estimation_amitai_tpu/cli.py`` (reference:
 tensorflow/train.py:149-153, pytorch/train_pytorch.py:393-397), with its
@@ -6,16 +7,22 @@ arguments and a ``--device`` that defaults to ``cuda`` (there is no
 automatic fall-back to the CPU; pass ``--device cpu`` for it):
 
     python -m pose_estimation_amitai_torch train <config.json>
+    python -m pose_estimation_amitai_torch pretrain <config.json> [crops_dir | data.h5]
     python -m pose_estimation_amitai_torch infer <config.json> <ckpt> <data.h5> [out.npz] [--mat]
     python -m pose_estimation_amitai_torch eval  <config.json> <ckpt> <data.h5>
+    python -m pose_estimation_amitai_torch export <config.json> <ckpt> <out.ptexp>
+    python -m pose_estimation_amitai_torch import <reference ckpt> <out.pt>
 
-``<ckpt>`` is a run directory or a checkpoint file, the port's ``.pt`` or
-the JAX package's msgpack (``Predictor.from_checkpoint``). ``infer`` writes
+``<ckpt>`` is a run directory or a checkpoint file: the port's ``.pt``, the
+JAX package's msgpack, a reference checkpoint (keras ``.h5``, torch
+``.pth``; detected by its content, or forced with ``--import-reference``) or
+a ``cli import`` snapshot (``Predictor.from_checkpoint``). ``infer`` writes
 an .npz with ``points_2d`` (F, 3, K) and, for the per-wing model types with
 camera matrices in the file, ``points_3d`` (F', K, 3) and
-``points_3d_valid``. ``pretrain``, ``export`` and ``import`` parse their
-arguments and raise ``NotImplementedError``: self-supervision is ROADMAP
-Queue A item 12, the serving artifact and reference checkpoints item 13.
+``points_3d_valid``. ``pretrain`` runs self-supervised inpainting
+(train/selfsup.py), ``export`` writes the serving artifact (deploy.py),
+``import`` converts a reference checkpoint to a self-describing snapshot
+(importers.py).
 """
 
 from __future__ import annotations
@@ -36,18 +43,71 @@ def cmd_train(args) -> int:
 
 
 def cmd_pretrain(args) -> int:
-    raise NotImplementedError(
-        "pretrain: self-supervised inpainting is ROADMAP Queue A item 12")
+    from .train import selfsup
+
+    selfsup.main([args.config] + ([args.data] if args.data else []), device=args.device)
+    return 0
 
 
 def cmd_export(args) -> int:
-    raise NotImplementedError(
-        "export: the serving artifact is ROADMAP Queue A item 13")
+    """Write a self-contained serving artifact (deploy.py) -- the
+    counterpart of the reference's TorchScript ``best_model.pth``
+    (pytorch/train_pytorch.py:177-181) -- for the device type of
+    ``--device``."""
+    from .config import Config
+    from .deploy import export_predictor
+    from .infer import Predictor
+
+    cfg = Config.from_json(args.config)
+    calibration = None
+    image_shape = tuple(args.image_shape)
+    if args.quantized:
+        if args.data:
+            from .data.preprocess import Preprocessor
+
+            pre = Preprocessor(cfg.replace(data_path=args.data, debug_mode=False))
+            pre.do_preprocess()
+            calibration = pre.get_box().astype(np.float32)[:32]
+            image_shape = tuple(calibration.shape[1:])
+        else:
+            # shape-only calibration (uniform [0, 1) like normalised frames);
+            # pass real data for production scales
+            calibration = np.random.default_rng(0).random(
+                (32, *image_shape), dtype=np.float32)
+    predictor = Predictor.from_checkpoint(
+        cfg, args.checkpoint,
+        image_shape=image_shape,
+        num_output_channels=args.out_channels,
+        device=args.device,
+        chunk_size=args.chunk_size,
+        decode=args.decode,
+        use_quantized=args.quantized,
+        calibration_frames=calibration,
+        quantized_layers=args.quantized_layers,
+    )
+    header = export_predictor(predictor, args.out)
+    print(json.dumps(header))
+    return 0
 
 
 def cmd_import(args) -> int:
-    raise NotImplementedError(
-        "import: reference checkpoints are ROADMAP Queue A item 13")
+    """Convert a reference checkpoint to the port's self-describing
+    snapshot: params, BatchNorm statistics and the architecture
+    (importers.save_imported_snapshot), which ``Predictor.from_checkpoint``
+    and ``pretrained_encoder_path`` read."""
+    from .importers import import_reference_checkpoint, save_imported_snapshot
+
+    imported = import_reference_checkpoint(args.checkpoint, dim_head=args.dim_head)
+    save_imported_snapshot(imported, args.out)
+    print(json.dumps({
+        "written": args.out,
+        "format": "imported_reference_v1",
+        "model_kind": imported.model_kind,
+        "arch_flavor": imported.arch_flavor,
+        "arch_kwargs": imported.arch_kwargs,
+        "has_batch_stats": bool(imported.batch_stats),
+    }))
+    return 0
 
 
 def _preprocessed(args):
@@ -58,10 +118,6 @@ def _preprocessed(args):
     from .infer import Predictor
     from .models import needs_camera_matrices
 
-    if args.import_reference or args.dim_head is not None:
-        raise NotImplementedError(
-            "--import-reference / --dim-head: reference checkpoints are "
-            "ROADMAP Queue A item 13")
     cfg = Config.from_json(args.config).replace(data_path=args.data, debug_mode=False)
     pre = Preprocessor(cfg)
     pre.do_preprocess()
@@ -90,6 +146,8 @@ def _preprocessed(args):
         quantized_layers=args.quantized_layers,
         fast_softmax=fast_sm,
         cameras=cameras,
+        import_reference=args.import_reference,
+        dim_head=args.dim_head,
     )
     return cfg, pre, box, confmaps, predictor
 
@@ -163,9 +221,12 @@ def main(argv: list[str] | None = None) -> int:
     device_arg(t)
     t.set_defaults(fn=cmd_train)
 
-    pre = sub.add_parser("pretrain", help="self-supervised inpainting (item 12)")
+    pre = sub.add_parser("pretrain", help="self-supervised inpainting")
     pre.add_argument("config")
-    pre.add_argument("data", nargs="?", default="")
+    pre.add_argument("data", nargs="?", default="",
+                     help="a directory of .npy crops or an H5 file's box array "
+                          "(default: the config's data path)")
+    device_arg(pre)
     pre.set_defaults(fn=cmd_pretrain)
 
     for name, fn in (("infer", cmd_infer), ("eval", cmd_eval)):
@@ -186,20 +247,22 @@ def main(argv: list[str] | None = None) -> int:
                        help="with --quantized: 'conv_only' keeps a ViT's transformer "
                             "trunk in bf16 and runs its conv decoder on int8")
         s.add_argument("--dim-head", type=int, default=None,
-                       help="head width of imported torch ViT checkpoints (item 13; raises)")
+                       help="head width of an imported torch ViT checkpoint (only "
+                            "the product heads x dim_head is in its shapes)")
         s.add_argument("--fast-softmax", choices=("auto", "on", "off"),
                        default=("off" if name == "eval" else "auto"),
                        help="ViT bf16 softmax chain; 'auto' engages it for argmax "
                             "peaks-only serving; eval defaults to 'off'")
         s.add_argument("--import-reference", action="store_true",
-                       help="treat <checkpoint> as a reference checkpoint (item 13; raises)")
+                       help="treat <checkpoint> as a reference checkpoint (keras "
+                            ".h5 / torch .pth); detected by content otherwise")
         if name == "infer":
             s.add_argument("--mat", action="store_true",
                            help="also write a MATLAB .mat next to the .npz")
         device_arg(s)
         s.set_defaults(fn=fn)
 
-    e = sub.add_parser("export", help="serving artifact (item 13)")
+    e = sub.add_parser("export", help="serving artifact (torch.export program + header)")
     e.add_argument("config")
     e.add_argument("checkpoint")
     e.add_argument("out")
@@ -211,12 +274,14 @@ def main(argv: list[str] | None = None) -> int:
     e.add_argument("--image-shape", type=int, nargs=3, default=(192, 192, 4),
                    metavar=("H", "W", "C"))
     e.add_argument("--out-channels", type=int, default=18)
+    device_arg(e)
     e.set_defaults(fn=cmd_export)
 
-    imp = sub.add_parser("import", help="convert a reference checkpoint (item 13)")
-    imp.add_argument("checkpoint")
-    imp.add_argument("out")
-    imp.add_argument("--dim-head", type=int, default=None)
+    imp = sub.add_parser("import", help="convert a reference checkpoint to a snapshot")
+    imp.add_argument("checkpoint", help="reference checkpoint file")
+    imp.add_argument("out", help="output snapshot path (.pt)")
+    imp.add_argument("--dim-head", type=int, default=None,
+                     help="head width of a torch ViT checkpoint")
     imp.set_defaults(fn=cmd_import)
 
     args = p.parse_args(argv)

@@ -72,6 +72,7 @@ class Predictor:
         cameras=None,
         quantized_layers: str | None = None,
         fast_softmax: bool | None = None,
+        model=None,
     ):
         """``params``: a flax-layout params tree (nested dicts of arrays),
         bridged by :mod:`..weights`. ``device``: where the model runs; there
@@ -110,6 +111,13 @@ class Predictor:
         chain off, and ``use_fused`` with ``fast_softmax=True`` raises
         ``ValueError``.
 
+        ``model``: ``None`` builds the module from the config
+        (``build_model(cfg, image_shape, num_output_channels)``); otherwise a
+        function ``model(**serving_switches) -> nn.Module`` that builds it
+        (an imported reference checkpoint's architecture,
+        ``ImportedModel.module``), with the ViT serving switches where the
+        predictor sets them.
+
         ``batch_stats``: the flax ``batch_stats`` tree of the BatchNorm
         families (their running averages). ``cameras``: ``(P, P_inv)``,
         (N, 4, 3, 4) and (N, 4, 4, 3), one row per sample of the frames the
@@ -126,6 +134,7 @@ class Predictor:
             raise ValueError(f"chunk_size={chunk_size} must be >= 1")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.image_shape = tuple(image_shape)
         self.chunk_size = chunk_size
         self.return_heatmaps = return_heatmaps
         self.decode = decode
@@ -133,8 +142,12 @@ class Predictor:
         self._needs_cams = needs_camera_matrices(cfg.model_type)
         self.cameras = None if cameras is None else tuple(
             np.asarray(c, np.float32) for c in cameras)
+        if model is None:
+            def model(**serving) -> nn.Module:
+                return build_model(cfg, image_shape, num_output_channels, **serving)
+        build = model
         with torch.device("meta"):  # the geometry only; no weights yet
-            model = build_model(cfg, image_shape, num_output_channels)
+            model = build()
         # the fused kernels and the int8 forwards serve the flagship
         # geometry (kernel 3, dilation 2), as JAX's do; other BasicNet
         # configs use the module
@@ -148,8 +161,7 @@ class Predictor:
         # rescale the decoded vals (0: the maps come out as the model's)
         self._val_renorm_views = 0
         if is_vit:
-            model = self._vit_for_serving(
-                model, image_shape, use_fused, fast_softmax)
+            model = self._vit_for_serving(model, build, use_fused, fast_softmax)
         if use_quantized:
             if calibration_frames is None:
                 raise ValueError("use_quantized needs calibration_frames")
@@ -204,12 +216,12 @@ class Predictor:
                 self.model.to(memory_format=torch.channels_last)
 
     def _vit_for_serving(
-        self, model: nn.Module, image_shape, use_fused: bool,
+        self, model: nn.Module, build, use_fused: bool,
         fast_softmax: bool | None,
     ) -> nn.Module:
         """The ViT module as this predictor serves it (on the meta device):
-        ``model`` rebuilt with its serving switches set, where flax would
-        ``clone``; sets ``_val_renorm_views``."""
+        ``model`` rebuilt by ``build`` with its serving switches set, where
+        flax would ``clone``; sets ``_val_renorm_views``."""
         peaks_only = self.decode == "argmax" and not self.return_heatmaps
         switches: dict = {}
         four = isinstance(model, ViT4Cameras)
@@ -228,8 +240,7 @@ class Predictor:
         elif fast_softmax if fast_softmax is not None else peaks_only:
             switches["fast_softmax"] = True
         with torch.device("meta"):
-            return build_model(
-                self.cfg, image_shape, self.num_output_channels, **switches)
+            return build(**switches)
 
     @classmethod
     def from_checkpoint(
@@ -238,6 +249,9 @@ class Predictor:
         checkpoint_path: str,
         image_shape: tuple[int, int, int] = (192, 192, 4),
         num_output_channels: int = 18,
+        *,
+        import_reference: bool = False,
+        dim_head: int | None = None,
         **kw,
     ) -> "Predictor":
         """Build from a checkpoint: a run directory (the port's
@@ -245,12 +259,51 @@ class Predictor:
         package's ``best_model.msgpack`` or ``checkpoint.msgpack``), a
         ``.pt`` file the port's trainer wrote (any ``save_params``
         snapshot), or a flax msgpack file (``weights.load_checkpoint``; no
-        jax, and no msgpack for the ``.pt`` files). ``device`` is required
-        as for the constructor."""
+        jax, and no msgpack for the ``.pt`` files) -- or a REFERENCE
+        checkpoint (keras ``.h5``, torch ``checkpoint.pth``, TorchScript
+        ``best_model.pth``), detected by its content or forced with
+        ``import_reference=True`` and converted by :mod:`.importers`, or a
+        ``cli import`` snapshot of one (the port's or the JAX package's).
+        An imported model's architecture comes from the checkpoint itself
+        (its weight shapes, or the snapshot's metadata), never from
+        ``cfg``; it is built in ``cfg.compute_dtype`` and its output channel
+        count replaces ``num_output_channels``. ``dim_head``: the head split
+        of a torch ViT checkpoint (importers.py). ``device`` is required as
+        for the constructor; the other keywords go to it."""
+        from .importers import (
+            import_reference_checkpoint,
+            is_reference_checkpoint,
+            load_imported_snapshot,
+        )
+
         if isinstance(cfg, str):
             cfg = Config.from_json(cfg)
+        if import_reference or is_reference_checkpoint(checkpoint_path):
+            imported = import_reference_checkpoint(checkpoint_path, dim_head=dim_head)
+        else:
+            # a `cli import` snapshot carries the exact architecture and BN
+            # statistics: rebuild from those, never from the config
+            imported = load_imported_snapshot(checkpoint_path)
+        if imported is not None:
+            in_ch = imported.arch_kwargs.get("in_channels")
+            if in_ch is not None and in_ch != image_shape[-1]:
+                raise ValueError(
+                    f"imported checkpoint expects {in_ch}-channel inputs, "
+                    f"dataset provides {image_shape[-1]}")
+            dtype = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
+            with torch.device("meta"):
+                imported.module(dtype)  # an encoder-only import raises ValueError here
+            if imported.batch_stats:
+                kw.setdefault("batch_stats", imported.batch_stats)
+
+            def model(**serving) -> nn.Module:
+                return imported.module(dtype, **serving)
+
+            return cls(cfg, imported.params, image_shape,
+                       imported.arch_kwargs["out_channels"], model=model, **kw)
         with torch.device("meta"):  # which layers are transposed convs
-            model = build_model(cfg, image_shape, num_output_channels)
+            model = (kw["model"]() if kw.get("model") is not None
+                     else build_model(cfg, image_shape, num_output_channels))
         params, batch_stats = weights.load_checkpoint(checkpoint_path, model)
         kw.setdefault("batch_stats", batch_stats)
         return cls(cfg, params, image_shape, num_output_channels, **kw)

@@ -18,8 +18,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..ops.hopper_conv import encoder_forward_fused
-from ..ops.hopper_deconv import fused_decoder
+from ..ops import custom_ops
 from .layers import TORCH_ALPHA
 
 
@@ -76,9 +75,15 @@ def basicnet_apply_fused(
     NHWC frames -> (B, H, W, K) float32 maps.
 
     ``kparams`` comes from :func:`kernel_params`; the convs run in its
-    weights' dtype. Equals ``BasicNet(...)(x)`` on the same params."""
-    lat = encoder_forward_fused(
-        x.to(kparams["stages"][0]["w1"].dtype).contiguous(), kparams["stages"],
-        dilation=dilation, alpha=TORCH_ALPHA,
-    )
-    return fused_decoder(lat, **kparams["decoder"], alpha=TORCH_ALPHA).float()
+    weights' dtype. Equals ``BasicNet(...)(x)`` on the same params. Each
+    stage and the decoder are one custom op (ops/custom_ops.py), so an
+    exported program keeps the kernels."""
+    h = x.to(kparams["stages"][0]["w1"].dtype).contiguous()
+    for k, p in enumerate(kparams["stages"]):
+        h = custom_ops.fused_encoder_stage(
+            h, p["w1"], p["b1"], p["w2"], p["b2"], p["w3"], p["b3"],
+            dilation, TORCH_ALPHA, k < 2)
+    d = kparams["decoder"]
+    return custom_ops.fused_decoder(
+        h, d["w1"], d["b1"], d["w2"], d["b2"], d["w3"], d["b3"], d["w4"], d["b4"],
+        TORCH_ALPHA).float()

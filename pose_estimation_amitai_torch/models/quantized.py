@@ -16,7 +16,8 @@ Three forwards share the scales and the weights of :func:`quantize_params`:
   on int8);
 * :func:`make_quantized_fused_forward` runs each encoder stage through
   ``ops/hopper_qconv.fused_quantized_stage`` (the hand-written kernel on
-  CUDA tensors) and the decoder on the pre-quantised latent.
+  CUDA tensors), called as a custom op (ops/custom_ops.py), and the decoder
+  on the pre-quantised latent.
 
 The decoder's and the first two forwards' int8 products go to the library's
 convolution in float64, which is exact (ops/int8_conv.py). Every requant is
@@ -32,10 +33,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import custom_ops
 from ..ops.hopper_conv import lrelu
-from ..ops.hopper_qconv import (
-    dequant, fused_quantized_stage, pack_qconv_weights, quant_bf16,
-)
+from ..ops.hopper_qconv import dequant, pack_qconv_weights, quant_bf16
 from ..ops.int8_conv import conv_s32, deconv_s1_s32, deconv_s2_s32, max_pool_2x2
 from .layers import TORCH_ALPHA
 
@@ -282,10 +282,9 @@ def make_quantized_fused_forward(
         h = quant_bf16(x, inv["conv1"]).contiguous()
         for s in range(3):
             _, n2, n3, nxt = _stage_names(s)
-            h = fused_quantized_stage(
-                h, *stage_args(layers, s), inv_s2=inv[n2], inv_s3=inv[n3],
-                inv_out=inv[nxt], dilation=2, alpha=TORCH_ALPHA, pool=s < 2,
-            )
+            h = custom_ops.fused_quantized_stage(
+                h, *stage_args(layers, s), inv[n2], inv[n3], inv[nxt], 2,
+                TORCH_ALPHA, s < 2)
             if s < 2:
                 h = max_pool_2x2(h)
         return h

@@ -25,7 +25,8 @@ The attention core has three forms, chosen at construction:
   innermost, float32 row sum, divide in float32, cast;
 * ``fused_attention``: the exact float32 softmax through the hand-written
   kernel of ``ops/hopper_attention.py`` (its plain version on CPU tensors),
-  on strided views of the qkv tensor. It has no JAX counterpart on a serving
+  on strided views of the qkv tensor, called as a custom op
+  (ops/custom_ops.py). It has no JAX counterpart on a serving
   route (the TPU kernel stayed an experiment); excludes ``fast_softmax``.
 
 ``fused_serving`` (with ``fast_softmax`` and pre-norm) merges the per-head V
@@ -49,7 +50,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.hopper_attention import fused_attention
+from ..ops import custom_ops
 from .layers import Deconv, Dense, at_least_f32, deconv_same_pads, drop, leaky
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
@@ -110,9 +111,7 @@ class Attention(nn.Module):
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, D)
         scale = dh ** -0.5
         if serving and self.fused_attention:
-            out = torch.empty((b, n, h, dh), dtype=qkv.dtype, device=qkv.device)
-            fused_attention(q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
-                            v.permute(0, 2, 1, 3), out=out.permute(0, 2, 1, 3))
+            out = custom_ops.fused_attention(qkv)  # (B, N, H, D)
         elif serving and self.fast_softmax:
             out = self._fast_core(q * torch.tensor(scale, dtype=q.dtype), k, v)
         else:

@@ -336,23 +336,35 @@ def make_train_step(model: nn.Module, cfg: Config) -> Callable:
             else:
                 loss_sum = loss_sum + loss
                 grad_sum = {k: grad_sum[k] + g[k] for k in grad_sum}
-        params = {k: v.detach().clone() if k in grad_sum else v
-                  for k, v in state.params.items()}
-        opt = create_optimizer(cfg, [params[k] for k in grad_sum])
-        opt.load_state_dict(_copy_opt_state(state.opt_state))
-        for group in opt.param_groups:
-            group["lr"] = cfg.learning_rate * lr_scale
-        for k, g in grad_sum.items():
-            params[k].grad = g / accum
-        opt.step()
-        for k in grad_sum:
-            params[k].grad = None
+        params, opt_state = adam_update(
+            cfg, state, {k: g / accum for k, g in grad_sum.items()}, lr_scale)
         new_state = TrainState(step=state.step + 1, params=params,
-                               opt_state=opt.state_dict(), seed=state.seed,
+                               opt_state=opt_state, seed=state.seed,
                                batch_stats=stats)
         return new_state, loss_sum / accum
 
     return train_step
+
+
+def adam_update(
+    cfg: Config, state: TrainState, grads: dict, lr_scale: float = 1.0
+) -> tuple[dict, dict]:
+    """(params, opt_state) after one Adam update of ``state`` by ``grads``
+    (name -> gradient of each parameter that trains) at ``learning_rate *
+    lr_scale``. New tensors: the state given is left as it was; parameters
+    without a gradient pass as they are."""
+    params = {k: v.detach().clone() if k in grads else v
+              for k, v in state.params.items()}
+    opt = create_optimizer(cfg, [params[k] for k in grads])
+    opt.load_state_dict(_copy_opt_state(state.opt_state))
+    for group in opt.param_groups:
+        group["lr"] = cfg.learning_rate * lr_scale
+    for k, g in grads.items():
+        params[k].grad = g
+    opt.step()
+    for k in grads:
+        params[k].grad = None
+    return params, opt.state_dict()
 
 
 def make_eval_step(model: nn.Module, cfg: Config) -> Callable:

@@ -24,10 +24,14 @@ port's ``.pt`` files in place of ``.msgpack``:
 
 One epoch is ``batches_per_epoch // accumulation_steps`` optimiser updates
 of the train step (train/loop.py); the losses are fetched from the device
-once an epoch. The JAX trainer's mesh and pipeline branches (ROADMAP Queue
-A item 14) and the pretrained-encoder load (items 12 and 13) raise: one
-H100 has nothing to shard over, and no single-device stand-in is taken
-silently.
+once an epoch. ``coarse_model_path`` (C2F's frozen coarse stage) and
+``pretrained_encoder_path`` (an encoder from self-supervised pretraining,
+train/selfsup.py, or an imported one) read the port's run directories and
+``.pt`` files, the JAX package's msgpack checkpoints, reference checkpoints
+(keras ``.h5``, torch ``.pth``, through importers.py) and ``cli import``
+snapshots with their BatchNorm statistics. The JAX trainer's mesh and
+pipeline branches (ROADMAP Queue A item 14) raise: one H100 has nothing to
+shard over, and no single-device stand-in is taken silently.
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ import torch
 from .. import viz, weights
 from ..config import Config
 from ..data.pipeline import build_dataset
+from ..importers import (
+    adapt_stem_in_channels,
+    import_reference_checkpoint,
+    is_reference_checkpoint,
+)
 from ..models import build_model
 from ..ops import peaks as peaks_ops
 from . import checkpoint as ckpt
@@ -62,7 +71,6 @@ LOSSES_HEADER = ["Epoch", "Train Loss", "Val Loss", "L2 Loss", "L2 Std",
                  "L2 Max Outlier", "Epoch Seconds"]
 RUN_SUBFOLDERS = ("weights", "viz_pred", "viz_confmaps", "histograms",
                   "l2_histograms", "l2_histograms_per_point")
-_HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
 
 
 def _graft_tree(
@@ -123,10 +131,6 @@ class Trainer:
             raise NotImplementedError(
                 "mesh_shape / pipeline_stages: the parallel strategies are "
                 "ROADMAP Queue A item 14")
-        if cfg.pretrained_encoder_path:
-            raise NotImplementedError(
-                "pretrained_encoder_path: self-supervised and imported encoders "
-                "are ROADMAP Queue A items 12 and 13")
         self.cfg = cfg
         self.device = torch.device(device)
         self.batches_per_epoch = 1 if cfg.debug_mode else cfg.batches_per_epoch
@@ -146,7 +150,7 @@ class Trainer:
         with torch.device("meta"):  # the geometry; parameters live in the state
             self.model = build_model(cfg, img_shape, num_out)
         self.state = create_train_state(self.model, cfg, cfg.seed, device=self.device)
-        self._maybe_load_coarse()
+        self._maybe_load_pretrained()
         self.train_step = make_train_step(self.model, cfg)
         self.eval_step = make_eval_step(self.model, cfg)
         self._predict = make_predict_fn(self.model)
@@ -180,25 +184,59 @@ class Trainer:
             print(f"Resumed from {cfg.resume_from} at epoch {self.start_epoch}", flush=True)
 
     # ------------------------------------------------------------------
-    def _maybe_load_coarse(self) -> None:
-        """C2F: the frozen coarse stage from ``coarse_model_path``, a port
-        run directory or ``.pt`` file, or a JAX msgpack checkpoint
-        (tensorflow/Network.py:172-176)."""
-        path = self.cfg.coarse_model_path
-        coarse = {k: v for k, v in self.state.params.items() if k.startswith("coarse.")}
-        if not path or not coarse:
-            return
-        if os.path.isfile(path):
-            with open(path, "rb") as f:
-                if f.read(len(_HDF5_SIGNATURE)) == _HDF5_SIGNATURE:
-                    raise NotImplementedError(
-                        f"{path}: reference keras coarse models are imported by "
-                        "ROADMAP Queue A item 13")
-        tree, _ = weights.load_checkpoint(path)
-        loaded = {f"coarse.{k}": v for k, v in weights.flax_to_state_dict(tree).items()}
+    @staticmethod
+    def _load_source(path: str) -> tuple[dict, dict]:
+        """(params, batch_stats) as flax-layout trees from any weights
+        source, told apart by content: a reference checkpoint through
+        importers.py, otherwise ``weights.load_checkpoint`` (``cli import``
+        snapshots, the port's run directories and ``.pt`` files, the JAX
+        package's msgpack checkpoints)."""
+        if is_reference_checkpoint(path):
+            imported = import_reference_checkpoint(path)
+            return imported.params, imported.batch_stats or {}
+        return weights.load_checkpoint(path)
+
+    def _maybe_load_pretrained(self) -> None:
+        """C2F's frozen coarse stage from ``coarse_model_path`` (a trained
+        keras coarse save as the reference loads it, tensorflow/
+        Network.py:172-176, or any source :meth:`_load_source` reads), and
+        the encoder of ``pretrained_encoder_path`` (the PretrainedLEAP
+        re-heading, pytorch/NNs warehouse/NNs.py:38-62): its ``encoder``
+        subtree grafted over the model's, a 3-channel ImageNet stem inflated
+        to the frames' channels (``importers.adapt_stem_in_channels``), and
+        the encoder's BatchNorm statistics grafted into
+        ``TrainState.batch_stats`` where the source has them."""
+        cfg = self.cfg
         params = dict(self.state.params)
-        params.update(_graft_tree(coarse, loaded, "coarse model"))
+        coarse = {k: v for k, v in params.items() if k.startswith("coarse.")}
+        if cfg.coarse_model_path and coarse:
+            tree, _ = self._load_source(cfg.coarse_model_path)
+            loaded = {f"coarse.{k}": v for k, v in weights.flax_to_state_dict(tree).items()}
+            params.update(_graft_tree(coarse, loaded, "coarse model"))
+            self.state = self.state.replace(params=params)
+        enc = {k: v for k, v in params.items() if k.startswith("encoder.")}
+        if not (cfg.pretrained_encoder_path and enc):
+            return
+        tree, stats = self._load_source(cfg.pretrained_encoder_path)
+        src = tree.get("encoder", tree)
+        stem = src.get("stem")
+        tgt_stem = enc.get("encoder.stem.weight")  # (O, I, kh, kw)
+        if (stem is not None and tgt_stem is not None
+                and stem["kernel"].shape[2] != tgt_stem.shape[1]):
+            src = {**src, "stem": {**stem, "kernel": adapt_stem_in_channels(
+                np.asarray(stem["kernel"]), int(tgt_stem.shape[1]))}}
+        loaded = {f"encoder.{k}": v for k, v in weights.flax_to_state_dict(src).items()}
+        params.update(_graft_tree(enc, loaded, "pretrained encoder"))
         self.state = self.state.replace(params=params)
+        src_stats = (stats or {}).get("encoder")
+        enc_stats = {k: v for k, v in self.state.batch_stats.items()
+                     if k.startswith("encoder.")}
+        if src_stats and enc_stats:
+            loaded = {f"encoder.{k}": v for k, v in
+                      weights.flax_to_state_dict({}, None, src_stats).items()}
+            self.state = self.state.replace(batch_stats={
+                **self.state.batch_stats,
+                **_graft_tree(enc_stats, loaded, "pretrained encoder BN stats")})
 
     def _create_run_folders(self) -> str:
         """Auto-suffixed run dir + code snapshot (tensorflow/train.py:122-147)."""

@@ -156,3 +156,21 @@ def l2_histogram_per_point(
     plt.tight_layout(pad=3.0)
     plt.savefig(save_path)
     plt.close(fig)
+
+
+def show_reconstruction(
+    holed: np.ndarray, recon: np.ndarray, clean: np.ndarray, save_path: str
+) -> None:
+    """Self-supervision before/after panel (the reference saves one per
+    epoch, pytorch/self supervision/train_self_supervision.py:226-247): the
+    holed input, the reconstruction and the target, (H, W, C) each, their
+    channel 1 in gray."""
+    plt = _plt()
+    fig, axes = plt.subplots(1, 3, figsize=(12, 4))
+    for ax, img, title in zip(axes, (holed, recon, clean),
+                              ("input (holes)", "reconstruction", "target")):
+        ax.imshow(img[..., 1], cmap="gray")
+        ax.set_title(title)
+        ax.axis("off")
+    fig.savefig(save_path, dpi=80)
+    plt.close(fig)

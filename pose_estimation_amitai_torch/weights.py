@@ -405,18 +405,24 @@ def load_checkpoint(path: str, model: torch.nn.Module | None = None) -> tuple[di
     reader picked by what is on disk: in a run directory the
     first of :data:`CHECKPOINT_NAMES` present (the port's ``.pt`` files
     before the JAX package's msgpack ones; ``FileNotFoundError`` naming all
-    four where none is); a file named ``*.pt`` (the port's checkpoints and
-    ``save_params`` snapshots, state_dict-named) through
-    :func:`state_dict_to_flax` (``model``, the module the weights are for,
-    tells its transposed convs by their type); any other file through
-    :func:`load_flax_checkpoint`. A failed read raises; the other format is
-    never tried."""
+    four where none is); a snapshot of an imported reference checkpoint,
+    the port's or the JAX package's (importers.py), its trees; a file named
+    ``*.pt`` (the port's checkpoints and ``save_params`` snapshots,
+    state_dict-named) through :func:`state_dict_to_flax` (``model``, the
+    module the weights are for, tells its transposed convs by their type);
+    any other file through :func:`load_flax_checkpoint`. A failed read
+    raises; the other format is never tried."""
+    from .importers import load_imported_snapshot
+
     if os.path.isdir(path):
         found = [n for n in CHECKPOINT_NAMES if os.path.isfile(os.path.join(path, n))]
         if not found:
             raise FileNotFoundError(
                 f"{path}: none of {', '.join(CHECKPOINT_NAMES)} in this run directory")
         path = os.path.join(path, found[0])
+    snap = load_imported_snapshot(path)
+    if snap is not None:
+        return snap.params, snap.batch_stats or {}
     if path.endswith(".pt"):
         from .train.checkpoint import load_variables
 
@@ -425,16 +431,25 @@ def load_checkpoint(path: str, model: torch.nn.Module | None = None) -> tuple[di
     return load_flax_checkpoint(path)
 
 
-def load_flax_checkpoint(path: str) -> tuple[dict, dict]:
-    """``(params, batch_stats)`` from a file ``train/checkpoint.py`` wrote:
-    a weights-only snapshot (``save_params``) or a full training-state
-    payload (``save_checkpoint``: step, params, opt_state, batch_stats,
-    rng). ``path`` may be a run directory, as the JAX ``load_variables``
-    takes one: its ``best_model.msgpack`` is read if there, else its
-    ``checkpoint.msgpack``. ``batch_stats`` is ``{}`` where there are none.
-    Leaves are numpy arrays; nothing of jax is imported. (Snapshots of
-    imported reference checkpoints are ROADMAP Queue A item 13.)"""
+def unpack_flax_msgpack(blob: bytes):
+    """A flax msgpack payload -> nested dicts of numpy arrays, with
+    ``msgpack`` and no jax (bfloat16 leaves widened to float32)."""
     import msgpack
+
+    return msgpack.unpackb(blob, ext_hook=_ext_hook, raw=False)
+
+
+def load_flax_checkpoint(path: str) -> tuple[dict, dict]:
+    """``(params, batch_stats)`` from a file the JAX package wrote: a
+    weights-only snapshot (``save_params``), a full training-state payload
+    (``save_checkpoint``: step, params, opt_state, batch_stats, rng) or a
+    snapshot of an imported reference checkpoint (``cli import``: its
+    ``IMPORT_SNAPSHOT_MAGIC``, then params, batch_stats and the
+    architecture). ``path`` may be a run directory, as the JAX
+    ``load_variables`` takes one: its ``best_model.msgpack`` is read if
+    there, else its ``checkpoint.msgpack``. ``batch_stats`` is ``{}`` where
+    there are none. Leaves are numpy arrays; nothing of jax is imported."""
+    from .importers import IMPORT_SNAPSHOT_FORMAT, IMPORT_SNAPSHOT_MAGIC
 
     if os.path.isdir(path):
         names = ("best_model.msgpack", "checkpoint.msgpack")
@@ -444,9 +459,15 @@ def load_flax_checkpoint(path: str) -> tuple[dict, dict]:
                 f"{path}: neither {names[0]} nor {names[1]} in this run directory")
         path = os.path.join(path, found[0])
     with open(path, "rb") as f:
-        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+        blob = f.read()
+    if blob.startswith(IMPORT_SNAPSHOT_MAGIC):
+        blob = blob[len(IMPORT_SNAPSHOT_MAGIC):]
+    tree = unpack_flax_msgpack(blob)
     batch_stats: dict = {}
-    if isinstance(tree, dict) and {"params", "opt_state"} <= set(tree):
+    if isinstance(tree, dict) and tree.get("format") == IMPORT_SNAPSHOT_FORMAT:
+        batch_stats = tree.get("batch_stats") or {}
+        tree = tree["params"]
+    elif isinstance(tree, dict) and {"params", "opt_state"} <= set(tree):
         batch_stats = tree.get("batch_stats") or {}
         tree = tree["params"]
     return tree, batch_stats

@@ -1067,3 +1067,69 @@ def test_int8_generic_vit_on_card_matches_cpu(cuda):
     assert pred.serving_path == "int8_generic"
     pts = pred(frames)
     assert pts.shape == (8, 3, 6) and np.isfinite(pts).all()
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (ops/custom_ops.py) and the exported serving artifact
+# ---------------------------------------------------------------------------
+def test_custom_ops_equal_their_wrappers_on_card(cuda):
+    """Each op launches its wrapper's kernel, once a call, with the
+    wrapper's result, bit for bit."""
+    from pose_estimation_amitai_torch.ops import custom_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    x = _rand(gen, 2, 24, 24, 4).abs().to(bf)
+    w1 = _rand(gen, 3, 3, 4, 64, scale=0.2).to(bf)
+    w2 = _rand(gen, 3, 3, 64, 64, scale=0.05).to(bf)
+    b = _rand(gen, 64, scale=0.05)
+    before = hc.fused_encoder_stage.launches
+    got = custom_ops.fused_encoder_stage(x, w1, b, w2, b, w2, b, 2, 0.1, True)
+    assert hc.fused_encoder_stage.launches == before + 1
+    assert torch.equal(got, hc.fused_encoder_stage(x, w1, b, w2, b, w2, b, dilation=2,
+                                                   alpha=0.1, pool=True))
+    lat = _rand(gen, 2, 6, 6, 64).abs().to(bf)
+    w4 = _rand(gen, 3, 3, 64, 18, scale=0.05).to(bf)
+    b4 = _rand(gen, 18, scale=0.05)
+    before = hd.fused_decoder.launches
+    got = custom_ops.fused_decoder(lat, w2, b, w2, b, w2, b, w4, b4, 0.1)
+    assert hd.fused_decoder.launches == before + 1
+    assert torch.equal(got, hd.fused_decoder(lat, w2, b, w2, b, w2, b, w4, b4, alpha=0.1))
+    q = torch.randint(-60, 60, (2, 24, 24, 4), generator=gen, device="cuda", dtype=torch.int8)
+    qw1 = torch.randint(-100, 100, (3, 3, 4, 64), generator=gen, device="cuda", dtype=torch.int8)
+    qw2 = torch.randint(-100, 100, (3, 3, 64, 64), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    m = _rand(gen, 64).abs() * 1e-4
+    args = (q, qw1, m, b, qw2, m, b, qw2, m, b)
+    before = hq.fused_quantized_stage.launches
+    got = custom_ops.fused_quantized_stage(*args, 30.0, 30.0, 30.0, 2, 0.1, True)
+    assert hq.fused_quantized_stage.launches == before + 1
+    assert torch.equal(got, hq.fused_quantized_stage(*args, 30.0, 30.0, 30.0, dilation=2,
+                                                     alpha=0.1, pool=True))
+    qkv = _rand(gen, 3, 144, 3, 8, 64).to(bf)
+    before = ha.fused_attention.launches
+    got = custom_ops.fused_attention(qkv)
+    assert ha.fused_attention.launches == before + 1
+    want = ha.fused_attention(*(qkv[:, :, i].permute(0, 2, 1, 3) for i in range(3)))
+    assert torch.equal(got, want.permute(0, 2, 1, 3))
+
+
+def test_loaded_fused_program_launches_the_kernels(cuda, tmp_path):
+    """The flagship's fused route exported on the card and loaded: each
+    chunk launches the three encoder stages and the decoder, and its peaks
+    are the Predictor's."""
+    from pose_estimation_amitai_torch.deploy import export_predictor, load_exported
+
+    params = init_basicnet_params(np.random.default_rng(0), 4, 18, filters=16)
+    pred = Predictor(Config(num_base_filters=16), params, (64, 64, 4), 18, device="cuda",
+                     chunk_size=8, use_fused=True)
+    assert pred.serving_path == "fused"
+    path = str(tmp_path / "m.ptexp")
+    export_predictor(pred, path)
+    loaded = load_exported(path, "cuda")
+    frames = np.random.default_rng(1).random((11, 64, 64, 4), dtype=np.float32)
+    e0, d0 = hc.fused_encoder_stage.launches, hd.fused_decoder.launches
+    got = loaded(frames)
+    torch.cuda.synchronize()
+    assert hc.fused_encoder_stage.launches - e0 == 6 and hd.fused_decoder.launches - d0 == 2
+    np.testing.assert_array_equal(got, pred(frames))

@@ -56,6 +56,10 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.ops.geometry",
             "pose_estimation_amitai_torch.viz",
             "pose_estimation_amitai_torch.cli",
+            "pose_estimation_amitai_torch.importers",
+            "pose_estimation_amitai_torch.deploy",
+            "pose_estimation_amitai_torch.train.selfsup",
+            "pose_estimation_amitai_torch.ops.custom_ops",
             "pose_estimation_amitai_torch.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"

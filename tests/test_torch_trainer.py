@@ -261,6 +261,10 @@ def test_all_cams_all_points_trains_end_to_end(tmp_path, no_pngs):
     ({"model_type": C.C2F_PER_WING, "coarse_model_path": "h5"}, "item 13"),
 ])
 def test_unported_options_raise(tmp_path, arrays, kw, item):
+    """Item 14 raises NotImplementedError; items 12 and 13 are ported
+    (tests/test_torch_selfsup.py, test_torch_importers.py), so their
+    options now reach their readers, which refuse a missing encoder file and
+    a keras save with no weights."""
     if kw.get("coarse_model_path") == "h5":  # a reference keras save: HDF5
         import h5py
 
@@ -268,7 +272,12 @@ def test_unported_options_raise(tmp_path, arrays, kw, item):
         with h5py.File(path, "w") as f:
             f.create_group("model_weights")
         kw = {**kw, "coarse_model_path": path}
-    with pytest.raises(NotImplementedError, match=item):
+    error, match = {
+        "item 14": (NotImplementedError, item),
+        "items 12 and 13": (FileNotFoundError, "encoder.pt"),
+        "item 13": (ValueError, "no conv kernels"),
+    }[item]
+    with pytest.raises(error, match=match):
         Trainer(_cfg(tmp_path, **kw), arrays=arrays, device="cpu")
 
 
