@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, pretraining, import and
-export paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving, training, pretraining, import,
+export and parallel paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
@@ -199,7 +199,39 @@ Phases, each printing one JSON line ({"phase": ...}):
              loaded programs, frames/s of the loaded program beside the
              Predictor's, the artifact's bytes; then the float32 module,
              fused and ViT fused programs on one chunk (peak values within
-             1e-4 of max).
+             1e-4 of max);
+20. parallel - the parallel strategies (parallel/) in this process on a
+             one-rank NCCL group on card 0 (tcp://localhost, a free port), at
+             full width: (a) the data-parallel step at Config() (batch 8,
+             augmentation and dropout on) against the plain train step on the
+             same batches, 3 steps under deterministic cuDNN (every loss
+             within 1e-6 relative, the first step's parameters within what
+             Adam's eps explains), then 3 + 10 steps of each, in turns, timed
+             with CUDA events; the same check for RESNET_18_POINTS_PER_WING,
+             its BatchNorm moments through the NCCL all-reduce (running
+             averages within 1e-6 of the largest); (b) PipelinedViT at the
+             ViT's full width (patch 16, dim 256, depth 8, heads 8, dim_head
+             256) at pipe 1 with 4 microbatches: its float32 forward against
+             apply_sequential (1e-4 of max), 3 + 10 steps of
+             make_pipelined_train_step (bf16, timed), the trained weights
+             through pipeline_params_to_vit served on "fused" over the 612
+             frames with the attention kernel's counter zeroed just before
+             and read just after, and held against "module" in float32
+             (maps within 1e-4, peaks equal where the top-two gap exceeds
+             2e-4); (c) ring_attention at seq 1 on the 4-camera ViT's fused
+             sequence (64 x 576 tokens, 4 heads of 256) in float32 (1e-5 of
+             max) and bf16 (3e-2) against reference_attention, and the MoE
+             (dim 256, hidden 1024, 8 experts) at expert 1 on 64 x 144 tokens
+             against apply_dense (1e-5 of max), each timed beside its
+             one-process function; (d) Predictor(mesh=make_mesh((1,),
+             "cuda"), use_fused=True) on the flagship over the 612 frames,
+             peaks equal to the mesh-less fused Predictor's, frames/s beside
+             its, the encoder-stage and decoder counters zeroed just before
+             and read just after; (e) where the machine has 2 or more cards,
+             a 2-rank NCCL world (one process a card) repeats one float32
+             data-parallel step and the pipelined forward at pipe 2 against
+             the one-rank results (the train phase's tolerances; 1e-4 of max).
+             A line says how many ranks ran.
 
 Then a {"kernels": [...]} line: for each kernel its launches on its path,
 its error and times from this run, and ``bound_ms``, the least time the card
@@ -215,7 +247,9 @@ weights' chunk, and ``trainer_launches``, theirs on the Trainer's run
 directory served through ``Predictor.from_checkpoint``; the attention row
 ``vit_train_launches``, its launches on the trained ViT's run directory.
 The rows of B1, B2, B3 and S1 carry ``export_launches``, their launches
-from the loaded serving artifacts; B1 and B2 ``selfsup_launches`` (the
+from the loaded serving artifacts; B1, B2 and S1 ``parallel_launches``, theirs
+on the parallel phase's serving paths (the mesh Predictor, the
+pipeline-trained ViT); B1 and B2 ``selfsup_launches`` (the
 pretraining run directory's chunk) and, with S1, ``import_launches`` (the
 imported reference checkpoints' 612 frames). The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
@@ -3081,6 +3115,392 @@ def phase_export(torch, params, frames, device_name: str, smi: str) -> dict:
     return result
 
 
+# the parallel phase: every strategy at degree 1 on a one-rank NCCL group,
+# at full width; with 2 or more cards also a 2-rank NCCL world
+PAR_WARMUP, PAR_STEPS = 3, 10  # the data-parallel and pipelined steps
+PAR_CHECK_STEPS = 3  # steps held against the plain step, deterministic cuDNN
+PAR_LOSS_RTOL = 1e-6  # sharded vs plain step's loss, relative
+PAR_ZOO_STEPS = 2  # RESNET_18_POINTS_PER_WING: sharded vs plain steps
+PAR_STATS_RTOL = 1e-6  # its running averages, of each tensor's largest
+PAR_MICRO = 4  # the pipeline's microbatches at batch 8
+PAR_PIPE_RTOL = 1e-4  # pipelined vs sequential, float32, of max
+PAR_GAP = 2e-4  # ViT fused peaks equal module's wherever the top-two gap exceeds this
+PAR_SEQ = (64, 576, 4, 256)  # ring attention: the 4-camera ViT's fused sequence
+PAR_SEQ_BF16_ATOL = 3e-2  # bf16 ring vs reference (tests/test_sequence_parallel.py)
+PAR_MOE = (256, 1024, 8, 64, 144)  # dim, hidden, experts, batch, tokens
+PAR_RTOL = 1e-5  # ring attention and the MoE in float32, of max
+PAR_REPS = 10  # timed calls of the ring and the MoE
+PAR_RANKS = 2  # the multi-card world where the machine has the cards
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def steps_ms(torch, step, state, batches, warmup: int):
+    """(state, losses, mean ms of the steps after ``warmup``, CUDA events):
+    ``step(state, batch) -> (state, loss)`` over ``batches``."""
+    losses = []
+    for b in batches[:warmup]:
+        state, loss = step(state, b)
+        losses.append(loss)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for b in batches[warmup:]:
+        state, loss = step(state, b)
+        losses.append(loss)
+    end.record()
+    torch.cuda.synchronize()
+    return state, torch.stack(losses).float().cpu().numpy(), \
+        start.elapsed_time(end) / max(1, len(batches) - warmup)
+
+
+def sharded_vs_plain(torch, model, cfg, ds, mesh, idx) -> dict:
+    """The data-parallel step (degree 1) against the plain step on the same
+    batches, deterministic cuDNN: every loss within PAR_LOSS_RTOL, the first
+    step's parameters within what Adam's eps explains (the train phase's
+    rule), the running averages within PAR_STATS_RTOL."""
+    from pose_estimation_amitai_torch.parallel.sharded import make_sharded_train_step, shard_state
+    from pose_estimation_amitai_torch.train import loop
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        state0 = loop.create_train_state(model, cfg, seed=SEED, device="cuda")
+        plain, sharded = loop.make_train_step(model, cfg), make_sharded_train_step(model, cfg, mesh)
+        p, s = state0, shard_state(mesh, state0)
+        worst, firsts = 0.0, None
+        for i, ix in enumerate(idx):
+            p, lp = plain(p, ds.data, ix)
+            s, ls = sharded(s, ds.microbatch_arrays(ix))
+            worst = max(worst, abs(float(ls) - float(lp)) / abs(float(lp)))
+            if i == 0:
+                firsts = (p, s)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(worst <= PAR_LOSS_RTOL, f"sharded vs plain loss {worst} > {PAR_LOSS_RTOL}")
+    (p1, s1), excess = firsts, 0.0
+    for i, name in enumerate(p1.params):
+        gp = p1.opt_state["state"][i]["exp_avg"] / 0.1  # Adam's first moment, (1 - b1) g
+        gs = s1.opt_state["state"][i]["exp_avg"] / 0.1
+        same = torch.sign(gp) == torch.sign(gs)
+        explained = cfg.learning_rate * ADAM_EPS * (gp - gs).abs() / (
+            (gp.abs() + ADAM_EPS) * (gs.abs() + ADAM_EPS))
+        d = ((p1.params[name] - s1.params[name]).abs() - explained)[same]
+        excess = max(excess, float(d.max()) if d.numel() else 0.0)
+    check(excess <= TRAIN_PARAM_ATOL, f"sharded vs plain parameters {excess} beyond Adam's eps")
+    stats_err = max([float((s.batch_stats[k] - v).abs().max() / v.abs().max())
+                     for k, v in p.batch_stats.items()], default=0.0)
+    check(stats_err <= PAR_STATS_RTOL, f"running averages off by {stats_err}")
+    return {"steps": len(idx), "loss_max_rel_err": worst, "param_excess": excess,
+            "stats_max_rel_err": stats_err, "batch_stats": len(p.batch_stats)}
+
+
+def parallel_ranks_body(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of the multi-card world: the data-parallel step (float32,
+    augmentation and dropout on) and the pipelined forward at pipe
+    ``world``, saved for the parent to hold against its one-rank results."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=300),
+                            device_id=torch.device("cuda", rank))
+    try:
+        torch.save(parallel_checks(torch, world), os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_checks(torch, world: int) -> dict:
+    """What the multi-card world repeats, run the same way at ``world``
+    ranks and at one: one float32 data-parallel step of the flagship
+    (augmentation, dropout 0.5) from the seed over the same global batch,
+    and the pipelined ViT's float32 forward at pipe ``world``."""
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.models import build_model, vit_single_kwargs
+    from pose_estimation_amitai_torch.parallel import pipeline
+    from pose_estimation_amitai_torch.parallel.mesh import data_rows, make_mesh
+    from pose_estimation_amitai_torch.parallel.sharded import make_sharded_train_step, shard_state
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(compute_dtype="float32")
+    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                   image_size=192, seed=SEED)
+    ds, _ = build_dataset(cfg, arrays, device="cuda")
+    k = TRAIN_POINTS // 2 + 2
+    with torch.device("meta"):
+        model = build_model(cfg, (192, 192, 4), k)
+    mesh = make_mesh((world,), "cuda")
+    idx = ds.step_indices(cfg.batch_size, cfg.accumulation_steps)
+    state = shard_state(mesh, loop.create_train_state(model, cfg, seed=SEED, device="cuda"))
+    new, loss = make_sharded_train_step(model, cfg, mesh)(
+        state, ds.microbatch_arrays(idx[:, data_rows(mesh, idx.shape[1])]))
+    out = {"loss": float(loss),
+           "params": {n: v.cpu() for n, v in new.params.items()},
+           "grads": {n: s["exp_avg"].cpu() / 0.1
+                     for n, s in zip(new.params, new.opt_state["state"].values())}}
+    vcfg = Config(model_type="MODEL_18_POINTS_PER_WING_VIT", compute_dtype="float32")
+    pmesh = pipeline.make_pipeline_mesh(1, world, "cuda")
+    pipe = pipeline.PipelinedViT(pmesh, image_hw=192, in_channels=4,
+                                 num_microbatches=PAR_MICRO,
+                                 **vit_single_kwargs(vcfg, k))
+    params = pipe.init(torch.Generator(device="cuda").manual_seed(SEED))
+    x = ds.data["box"][: cfg.batch_size]
+    with torch.no_grad():
+        out["pipe"] = pipe.apply(pipe.shard_params(params), x).cpu()
+        out["sequential"] = pipe.apply_sequential(params, x).cpu()
+    return out
+
+
+def parallel_world(torch, world: int, one: dict) -> dict:
+    """A ``world``-rank NCCL world (one process a card) repeating
+    :func:`parallel_checks`, held against the one-rank results ``one``:
+    the loss within TRAIN_LOSS_RTOL, gradients within TRAIN_GRAD_RTOL of
+    their largest, parameters by the train phase's Adam rule; the pipelined
+    forward within PAR_PIPE_RTOL of the sequential one's max."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as out:
+        ctx = mp.get_context("spawn")
+        port = free_port()
+        procs = [ctx.Process(target=parallel_ranks_body, args=(r, world, port, out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(30)
+        check(not alive and all(p.exitcode == 0 for p in procs),
+              f"the {world}-rank world failed: exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(f"{out}/rank{r}.pt", weights_only=False) for r in range(world)]
+    worst = {"loss": 0.0, "grad": 0.0, "param_excess": 0.0, "pipe": 0.0}
+    for res in ranks:
+        worst["loss"] = max(worst["loss"], abs(res["loss"] - one["loss"]) / abs(one["loss"]))
+        for n, w in one["params"].items():
+            g, wg = res["grads"][n], one["grads"][n]
+            worst["grad"] = max(worst["grad"], float((g - wg).abs().max() / wg.abs().max()))
+            same = torch.sign(g) == torch.sign(wg)
+            explained = 1e-3 * ADAM_EPS * (g - wg).abs() / ((g.abs() + ADAM_EPS) * (wg.abs() + ADAM_EPS))
+            d = ((res["params"][n] - w).abs() - explained)[same]
+            worst["param_excess"] = max(worst["param_excess"], float(d.max()) if d.numel() else 0.0)
+        ref = one["sequential"]
+        worst["pipe"] = max(worst["pipe"], float((res["pipe"] - ref).abs().max() / ref.abs().max()))
+    check(worst["loss"] <= TRAIN_LOSS_RTOL and worst["grad"] <= TRAIN_GRAD_RTOL
+          and worst["param_excess"] <= TRAIN_PARAM_ATOL and worst["pipe"] <= PAR_PIPE_RTOL,
+          f"the {world}-rank world against one rank: {worst}")
+    return worst
+
+
+def phase_parallel(torch, params, frames, device_name: str, smi: str) -> dict:
+    """The parallel strategies (parallel/) on a one-rank NCCL group on card 0
+    at full width: data parallelism (the flagship and the cross-replica
+    BatchNorm of RESNET_18_POINTS_PER_WING against the plain step, the
+    flagship's steps timed), the pipelined ViT (forward against the
+    sequential one, steps timed, its weights served on "fused" through the
+    attention kernel), ring attention and the MoE against their one-process
+    functions, and Predictor(mesh=) on the flagship's "fused" route through
+    the encoder-stage and decoder kernels; with two or more cards, a 2-rank
+    world repeats the data-parallel and pipeline checks."""
+    import torch.distributed as dist
+
+    from pose_estimation_amitai_torch import Config
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.models import build_model, vit_single_kwargs
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.parallel import expert, pipeline, sequence
+    from pose_estimation_amitai_torch.parallel.mesh import make_mesh
+    from pose_estimation_amitai_torch.parallel.sharded import make_sharded_train_step, shard_state
+    from pose_estimation_amitai_torch.train import loop
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        mesh = make_mesh((1,), "cuda")
+        result = {"phase": "parallel", "device": device_name, "nvidia_smi": smi,
+                  "backend": "nccl", "ranks": 1}
+
+        # (a) data parallelism: the flagship at Config(), then RESNET's BatchNorm
+        cfg = Config()
+        arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                       image_size=192, seed=SEED)
+        ds, _ = build_dataset(cfg, arrays, device="cuda")
+        k = TRAIN_POINTS // 2 + 2
+        with torch.device("meta"):
+            model = build_model(cfg, (192, 192, 4), k)
+        idx = [ds.step_indices(cfg.batch_size, cfg.accumulation_steps)
+               for _ in range(PAR_WARMUP + PAR_STEPS)]
+        result["dp_check"] = sharded_vs_plain(torch, model, cfg, ds, mesh, idx[:PAR_CHECK_STEPS])
+        state0 = loop.create_train_state(model, cfg, seed=SEED, device="cuda")
+        sharded = make_sharded_train_step(model, cfg, mesh)
+        plain = loop.make_train_step(model, cfg)
+        batches = [ds.microbatch_arrays(ix) for ix in idx]
+        timed = {}
+        for name in ("plain", "sharded", "sharded", "plain"):  # in turns
+            if name == "plain":
+                _, losses, ms = steps_ms(torch, lambda s, ix: plain(s, ds.data, ix), state0,
+                                         idx, PAR_WARMUP)
+            else:
+                _, losses, ms = steps_ms(torch, sharded, shard_state(mesh, state0), batches,
+                                         PAR_WARMUP)
+            check(bool(np.isfinite(losses).all()), f"{name}: non-finite losses")
+            timed.setdefault(name, []).append(ms)
+        result["dp_step_ms"] = float(np.mean(timed["sharded"]))
+        result["plain_step_ms"] = float(np.mean(timed["plain"]))
+        zcfg = Config(model_type=C.RESNET_18_POINTS_PER_WING)
+        with torch.device("meta"):
+            zmodel = build_model(zcfg, (192, 192, 4), k)
+        result["resnet_check"] = sharded_vs_plain(torch, zmodel, zcfg, ds, mesh,
+                                                  idx[:PAR_ZOO_STEPS])
+        check(result["resnet_check"]["batch_stats"] > 0, "RESNET has no running averages")
+        del batches
+
+        # (b) the pipelined ViT at full width, pipe 1
+        vcfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+        pmesh = pipeline.make_pipeline_mesh(1, 1, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        pipe32 = pipeline.PipelinedViT(pmesh, image_hw=192, in_channels=4,
+                                       num_microbatches=PAR_MICRO,
+                                       **vit_single_kwargs(vcfg.replace(compute_dtype="float32"), k))
+        vparams = pipe32.init(gen)
+        x = ds.data["box"][: cfg.batch_size]
+        with torch.no_grad():
+            a = pipe32.apply(vparams, x)
+            b = pipe32.apply_sequential(vparams, x)
+        pipe_err = float((a - b).abs().max() / b.abs().max())
+        check(pipe_err <= PAR_PIPE_RTOL, f"pipelined vs sequential {pipe_err} > {PAR_PIPE_RTOL}")
+        pipe = pipeline.PipelinedViT(pmesh, image_hw=192, in_channels=4,
+                                     num_microbatches=PAR_MICRO, **vit_single_kwargs(vcfg, k))
+        init_opt, pstep = pipeline.make_pipelined_train_step(pipe, vcfg.learning_rate)
+        pbatches = [ds.gather(ix[0]) for ix in idx]
+        trained, plosses, pipe_ms = steps_ms(
+            torch, lambda st, bt: (lambda r: ((r[0], r[1]), r[2]))(pstep(*st, bt)),
+            (vparams, init_opt(vparams)), pbatches, PAR_WARMUP)
+        check(bool(np.isfinite(plosses).all()), f"pipelined losses {plosses}")
+        # its weights as ViTPoseNet's (pipeline_params_to_vit), served on
+        # "fused": the 612 frames in bf16 with S1's counter around them, and
+        # held against "module" in float32 (maps within VIT_F32_ATOL, peaks
+        # equal wherever the top-two gap exceeds 2 * VIT_F32_ATOL = PAR_GAP)
+        vit_sd = pipeline.pipeline_params_to_vit(trained[0])
+        with torch.device("meta"):
+            vit = build_model(vcfg, (192, 192, 4), k)
+        vtree = weights.state_dict_to_flax(vit_sd, vit)
+
+        def vpred(c, **kw):
+            return Predictor(c, vtree, (192, 192, 4), k, device="cuda", chunk_size=CHUNK, **kw)
+
+        fused = vpred(vcfg, use_fused=True)
+        fused(frames[:1])
+        ha.fused_attention.launches = 0  # ---- the served pipeline weights ----
+        answers, movie, t_vit, _ = serve(fused, frames)
+        s1 = ha.fused_attention.launches  # -------------------------------------
+        check_peaks(answers, movie, len(frames), k)
+        c32 = vcfg.replace(compute_dtype="float32")
+        check(2 * VIT_F32_ATOL == PAR_GAP, "the gap is twice the float32 tolerance")
+        routes = compare_routes(torch, vpred(c32, use_fused=True, return_heatmaps=True)(frames),
+                                vpred(c32, return_heatmaps=True)(frames), VIT_F32_ATOL,
+                                "float32")
+        result["pipeline"] = {"pipe": 1, "microbatches": PAR_MICRO, "f32_max_rel_err": pipe_err,
+                              "step_ms": pipe_ms, "losses": [float(plosses[0]), float(plosses[-1])],
+                              "served_frames": len(frames), "fused_frames_per_s": len(frames) / t_vit,
+                              "s1_launches": s1, "fused_vs_module_f32": routes}
+
+        # (c) ring attention at seq 1 and the MoE at expert 1
+        b, n, h, d = PAR_SEQ
+        q, kk, v = (torch.randn(b, n, h, d, generator=gen, device="cuda") for _ in range(3))
+        smesh = sequence.make_seq_mesh(1, 1, "cuda")
+        ring = {}
+        for dt in (torch.float32, torch.bfloat16):
+            qq, k2, vv = (t.to(dt) for t in (q, kk, v))
+            got = sequence.ring_attention(qq, k2, vv, smesh)
+            want = sequence.reference_attention(qq, k2, vv)
+            err = float((got.float() - want.float()).abs().max())
+            tol = PAR_RTOL * float(want.float().abs().max()) if dt == torch.float32 else PAR_SEQ_BF16_ATOL
+            check(got.dtype == dt and err <= tol, f"ring attention {dt}: {err} > {tol}")
+            ring[str(dt).split(".")[1]] = {
+                "max_abs_err": err,
+                "ms": time_ms(torch, lambda: sequence.ring_attention(qq, k2, vv, smesh), PAR_REPS),
+                "reference_ms": time_ms(torch, lambda: sequence.reference_attention(qq, k2, vv),
+                                        PAR_REPS)}
+            del got, want
+        del q, kk, v
+        dim, hidden, e, mb, tok = PAR_MOE
+        moe = expert.MoEFeedForward(expert.make_expert_mesh(1, 1, "cuda"), dim=dim,
+                                    hidden_dim=hidden, num_experts=e)
+        mp = moe.init(gen)
+        local = moe.shard_params(mp)
+        t = torch.randn(mb, tok, dim, generator=gen, device="cuda")
+        got, want = moe.apply(local, t), moe.apply_dense(mp, t)
+        moe_err = float((got - want).abs().max())
+        check(moe_err <= PAR_RTOL * float(want.abs().max()), f"MoE {moe_err}")
+        result["ring_attention"] = {"shape": list(PAR_SEQ), **ring}
+        result["moe"] = {"dim": dim, "hidden": hidden, "experts": e, "tokens": [mb, tok],
+                         "max_abs_err": moe_err,
+                         "ms": time_ms(torch, lambda: moe.apply(local, t), PAR_REPS),
+                         "dense_ms": time_ms(torch, lambda: moe.apply_dense(mp, t), PAR_REPS)}
+
+        # (d) Predictor(mesh=) on the flagship's fused route
+        plain_pred = Predictor(cfg, params, (192, 192, 4), 18, device="cuda", chunk_size=CHUNK,
+                               use_fused=True)
+        mesh_pred = Predictor(cfg, params, (192, 192, 4), 18, device="cuda", chunk_size=CHUNK,
+                              use_fused=True, mesh=mesh)
+        plain_pred(frames[:1])
+        mesh_pred(frames[:1])
+        want_ans, want_movie, t_plain, _ = serve(plain_pred, frames)
+        zero_conv_counters(hc, hd)  # ---- the mesh route: counters around it ----
+        ans, movie, t_mesh, _ = serve(mesh_pred, frames)
+        served = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                  "fused_decoder": hd.fused_decoder.launches}  # ----------------
+        check(all(np.array_equal(a_, w_) for a_, w_ in zip(ans, want_ans))
+              and np.array_equal(movie, want_movie), "mesh Predictor peaks differ")
+        check_peaks(ans, movie, len(frames), 18)
+        result["serving"] = {"frames": len(frames), "mesh_frames_per_s": len(frames) / t_mesh,
+                             "plain_frames_per_s": len(frames) / t_plain, "launches": served}
+        result["launches"] = {**served, "fused_attention": s1}
+        check(all(v > 0 for v in result["launches"].values()),
+              f"a kernel never launched on the parallel paths: {result['launches']}")
+
+        # (e) more cards: a 2-rank world against this rank's results
+        cards = torch.cuda.device_count()
+        if cards >= PAR_RANKS:
+            torch.backends.cudnn.allow_tf32 = False
+            one = parallel_checks(torch, 1)
+            result["ranks"] = PAR_RANKS
+            result["world_vs_one_rank"] = parallel_world(torch, PAR_RANKS, one)
+        print(f"parallel phase ran {result['ranks']} rank(s) on {cards} card(s)", flush=True)
+    finally:
+        dist.destroy_process_group()
+    result["seconds"] = time.perf_counter() - t_phase
+    emit(result)
+    return result
+
+
+
 def main() -> int:
     import torch
 
@@ -3114,6 +3534,7 @@ def main() -> int:
     ss = phase_selfsup(torch, name, smi)
     imp = phase_import(torch, frames, name, smi)
     ex = phase_export(torch, params, frames, name, smi)
+    par = phase_parallel(torch, params, frames, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     imported = {**{k: v for k, v in imp["launches"]["BasicNet"].items() if v},
@@ -3127,6 +3548,9 @@ def main() -> int:
             r["selfsup_launches"] = ss["served"]["launches"][r["name"]]
         if r["name"] in imported:  # the imported reference checkpoints
             r["import_launches"] = imported[r["name"]]
+        if r["name"] in par["launches"]:  # the parallel phase's serving paths
+            r["parallel_launches"] = par["launches"][r["name"]]
+            check(r["parallel_launches"] > 0, f"{r['name']}: no launch on the parallel paths")
         if r["name"] in vtr["launches"]:  # the trained ViT's run directory
             r["vit_train_launches"] = vtr["launches"][r["name"]]
         if r["name"] in tr["served"]["launches"]:  # the trained weights' chunk

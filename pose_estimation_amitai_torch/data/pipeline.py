@@ -15,9 +15,6 @@ cameras (reference: pytorch/Datagenerators.py:228-270, 382-413), or with
 host and ride beside the frames as ``P`` (N, 4, 3, 4) and ``P_inv`` (N, 4,
 4, 3); both wings of a frame become samples, where the reference draws one
 at random (:257-260).
-
-Not ported here: the mesh-sharded step's ``microbatch_arrays`` (ROADMAP
-Queue A item 14).
 """
 
 from __future__ import annotations
@@ -148,6 +145,17 @@ class DeviceDataset:
         """``(data, idx)`` for the train step: the whole device-resident
         dict and the global (accum, B) indices, gathered inside the step."""
         return self.data, torch.as_tensor(idx, device=self.device)
+
+    def microbatch_arrays(self, idx: np.ndarray) -> dict[str, torch.Tensor]:
+        """(accum, B, ...) gathered tensors on the device for the
+        data-parallel step (parallel/sharded.py): ``image``, ``confmaps``
+        and, where the dataset has them, the cameras, ``peaks`` and
+        ``peak_vals``."""
+        ids = torch.as_tensor(np.asarray(idx), dtype=torch.long, device=self.data["box"].device)
+        batch = {"image": self.data["box"][ids], "confmaps": self.data["confmaps"][ids]}
+        batch.update({k: self.data[k][ids] for k in (*CAMERA_KEYS, "peaks", "peak_vals")
+                      if k in self.data})
+        return {k: v.to(self.device) for k, v in batch.items()}
 
 
 class HostDataset(DeviceDataset):

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from . import weights
@@ -46,6 +47,7 @@ from .models.quantized_generic import (
     calibration_batches, conv_layers_only, quantize_predict_fn,
 )
 from .ops import geometry, peaks
+from .parallel.mesh import DATA_AXIS, data_rows
 
 DECODES = ("argmax", "soft", "refined")
 
@@ -118,6 +120,13 @@ class Predictor:
         ``ImportedModel.module``), with the ViT serving switches where the
         predictor sets them.
 
+        ``mesh``: a ``DeviceMesh`` (parallel/mesh.py ``make_mesh``), one
+        process per device: each process serves its rows of every chunk
+        over ``data`` on this predictor's route, and the peaks (and maps)
+        are all-gathered, so every process returns the whole answer, as JAX
+        returns the global array; ``chunk_size`` must divide over the
+        mesh's processes.
+
         ``batch_stats``: the flax ``batch_stats`` tree of the BatchNorm
         families (their running averages). ``cameras``: ``(P, P_inv)``,
         (N, 4, 3, 4) and (N, 4, 4, 3), one row per sample of the frames the
@@ -125,13 +134,14 @@ class Predictor:
         (its call raises ``ValueError`` without them). These families serve
         on the ``"module"`` route; ``use_fused`` is ignored for them, as
         JAX ignores it."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh) is ROADMAP Queue A item 14")
         if decode not in DECODES:
             raise ValueError(f"decode={decode!r}; expected one of {DECODES}")
         if chunk_size < 1:
             raise ValueError(f"chunk_size={chunk_size} must be >= 1")
+        if mesh is not None and chunk_size % mesh.size():
+            raise ValueError(f"chunk_size={chunk_size} must divide over the mesh's "
+                             f"{mesh.size()} processes")
+        self.mesh = mesh
         self.cfg = cfg
         self.device = torch.device(device)
         self.image_shape = tuple(image_shape)
@@ -322,6 +332,18 @@ class Predictor:
             return self.model(frames, *cameras)
 
     def _run(self, frames: torch.Tensor, *cameras: torch.Tensor):
+        """Maps and peaks of one padded chunk; with a mesh, this process's
+        rows of it over ``data``, gathered so every process holds them all."""
+        if self.mesh is None:
+            return self._run_rows(frames, *cameras)
+        rows = data_rows(self.mesh, frames.shape[0])
+        res = self._run_rows(frames[rows], *(c[rows] for c in cameras))
+        group = self.mesh.get_group(DATA_AXIS)
+        if self.return_heatmaps:
+            return tuple(_gather_rows(t, group) for t in res)
+        return _gather_rows(res, group)
+
+    def _run_rows(self, frames: torch.Tensor, *cameras: torch.Tensor):
         maps = self.forward(frames, *cameras)
         with torch.inference_mode():
             if self.decode == "soft":
@@ -417,6 +439,13 @@ class Predictor:
         if not out:
             return np.zeros((0, 3, self.num_output_channels), np.float32)
         return np.concatenate(out)
+
+
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """Every process's rows of ``t``, in rank order."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return torch.cat(parts)
 
 
 def _layer_filter(quantized_layers: str | None):

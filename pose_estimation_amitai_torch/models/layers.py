@@ -39,9 +39,13 @@ from the ``torch.Generator`` the caller passes.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import draws
 
 TF_ALPHA = 0.01  # tensorflow/Network.py:11
 TORCH_ALPHA = 0.1  # pytorch/CNNs.py:21
@@ -178,8 +182,37 @@ def drop(
     if generator is None:
         raise ValueError("a training-mode forward with dropout needs a generator")
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = draws.rand(tuple(x.shape), generator, x.device)
     return x * (u < keep) / keep
+
+
+class StackedLayers(nn.Module):
+    """``depth`` layers of one architecture whose parameters are stacked on
+    a leading axis: the module's tree is ``layer``'s, each parameter (depth,
+    *shape), as flax's ``vmap`` of ``init`` stacks them. ``layer`` itself
+    is kept as the template (not a child) that :meth:`apply_layer` runs
+    with one layer's slice."""
+
+    def __init__(self, layer: nn.Module, depth: int):
+        super().__init__()
+        self.depth = int(depth)
+        object.__setattr__(self, "layer", layer)
+        stacked = copy.deepcopy(layer)
+        for m in stacked.modules():
+            for name, p in list(m._parameters.items()):
+                if p is not None:
+                    m._parameters[name] = nn.Parameter(p.new_empty((self.depth, *p.shape)))
+        for name, child in stacked.named_children():
+            self.add_module(name, child)
+
+    def apply_layer(self, stacked: dict[str, torch.Tensor], i: int,
+                    *args, **kwargs) -> torch.Tensor:
+        """The template applied with layer ``i`` of ``stacked`` (name ->
+        (depth, ...) tensor, names relative to this module)."""
+        from torch.func import functional_call
+
+        return functional_call(self.layer, {k: v[i] for k, v in stacked.items()},
+                               args, kwargs)
 
 
 def _pool(x: torch.Tensor) -> torch.Tensor:

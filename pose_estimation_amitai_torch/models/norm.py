@@ -17,13 +17,20 @@ in the collector and leaves the module as it was: that is how the train step
 tensors. A module applied several times in one forward (the disentangled
 model's ``bn3``, once per camera) updates from its own last value each time,
 as flax's mutable collection does.
+
+Under data parallelism the batch moments are the whole batch's: inside
+:func:`replica_moments` the per-process means of x and x^2 pass through the
+given reduction (parallel/sharded.py gives the mean over the ``data``
+group, differentiable) before the variance is formed, as GSPMD reduces
+them over the sharded batch axis in JAX. The running averages then agree on
+every process, and with one process on the whole batch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Iterator
+from typing import Callable, Iterator
 
 import torch
 from torch import nn
@@ -35,6 +42,8 @@ EPSILON = 1e-5
 
 _COLLECTOR: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "batch_stats_collector", default=None)
+_REPLICA_MEAN: contextvars.ContextVar[Callable | None] = contextvars.ContextVar(
+    "batch_norm_replica_mean", default=None)
 
 
 @contextlib.contextmanager
@@ -48,6 +57,18 @@ def collect_batch_stats() -> Iterator[dict]:
         yield updates
     finally:
         _COLLECTOR.reset(token)
+
+
+@contextlib.contextmanager
+def replica_moments(mean_over_replicas: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Inside, training-mode :class:`BatchNorm` forwards take their batch
+    moments through ``mean_over_replicas`` (a differentiable mean of a
+    tensor over the processes that share the batch)."""
+    token = _REPLICA_MEAN.set(mean_over_replicas)
+    try:
+        yield
+    finally:
+        _REPLICA_MEAN.reset(token)
 
 
 class BatchNorm(nn.Module):
@@ -68,8 +89,10 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = at_least_f32(x)
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))
+            if (over_replicas := _REPLICA_MEAN.get()) is not None:
+                mean, sq = over_replicas(torch.stack([mean, sq]))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self._update(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import draws
 from .gaussian import confmaps_from_peaks
 
 
@@ -65,11 +66,11 @@ def sample_augment_params(
     pytorch/Datagenerators.py:169-185, tensorflow/Augmentor.py:44)."""
 
     def uniform(lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand((batch,), generator=generator, device=generator.device)
+        u = draws.rand((batch,), generator, generator.device)
         return lo + (hi - lo) * u
 
     def coin() -> torch.Tensor:
-        return torch.rand((batch,), generator=generator, device=generator.device) < 0.5
+        return draws.rand((batch,), generator, generator.device) < 0.5
 
     angle = uniform(-rotation_range, rotation_range)
     scale = uniform(zoom_range[0], zoom_range[1])

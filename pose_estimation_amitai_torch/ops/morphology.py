@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import draws
+
 
 def cross(radius: int = 1) -> np.ndarray:
     """Cross/diamond structuring element: |dx| + |dy| <= radius."""
@@ -144,8 +146,8 @@ def random_mask_redilation(
         device=images.device,
     )
     steps = max(int(max_dilation), 1)
-    apply = torch.rand((b,), generator=generator, device=images.device) < 0.5
-    k = torch.randint(0, steps, (b,), generator=generator, device=images.device)
+    apply = draws.rand((b,), generator, images.device) < 0.5
+    k = draws.randint(steps, (b,), generator, images.device)
     k = torch.where(apply, k, torch.zeros_like(k))
 
     masks = images.index_select(-1, mask_inds)

@@ -40,7 +40,7 @@ from torch.func import functional_call
 from .. import constants as C
 from ..config import Config
 from ..models import augmentation_views, layout_masks_per_view, layout_views
-from ..models.layers import at_least_f32
+from ..models.layers import StackedLayers, at_least_f32
 from ..models.multicam import DenseGeneral
 from ..models.norm import BatchNorm, collect_batch_stats
 from ..models.vit import PatchEmbed
@@ -85,17 +85,28 @@ def _lecun_normal(rng: np.random.Generator, shape: tuple, fan_in: int) -> np.nda
     return (z * (np.sqrt(1.0 / fan_in) / _TRUNCATED_STD)).astype(np.float32)
 
 
-def _init_params(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
+def _init_params(
+    model: nn.Module, seed: int | np.random.Generator
+) -> dict[str, torch.Tensor]:
     """Seeded float32 parameters, on the CPU, in ``named_parameters`` order,
     as flax initialises them: kernels lecun-normal over the fan-in (input
     channels x kernel taps, for a transposed conv and the ViT's stride-p
     patch conv too; the contracting dims of an attention projection; the
     input features of a ``Linear``, drawn in flax's (in, out) layout and
     laid out (out, in)), biases zero, BatchNorm and LayerNorm scales one,
-    the ViT's positional embedding a unit normal (flax's ``normal(1.0)``)."""
-    rng = np.random.default_rng(seed)
+    the ViT's positional embedding a unit normal (flax's ``normal(1.0)``);
+    a :class:`StackedLayers` stack, each of its layers drawn in turn."""
+    rng = seed if isinstance(seed, np.random.Generator) else np.random.default_rng(seed)
     params: dict[str, torch.Tensor] = {}
+    stacks = [name for name, m in model.named_modules() if isinstance(m, StackedLayers)]
     for name, m in model.named_modules():
+        if any(name.startswith(f"{s}.") for s in stacks):
+            continue  # drawn with its stack
+        if isinstance(m, StackedLayers):
+            layers = [_init_params(m.layer, rng) for _ in range(m.depth)]
+            for k in layers[0]:
+                params[f"{name}.{k}"] = torch.stack([layer[k] for layer in layers])
+            continue
         if isinstance(m, (BatchNorm, nn.LayerNorm)):
             params[f"{name}.weight"] = torch.ones(m.weight.shape)
             params[f"{name}.bias"] = torch.zeros(m.bias.shape)
@@ -209,11 +220,18 @@ def model_args(batch: dict) -> tuple:
     return (batch["image"],)
 
 
-def _microbatch_fn(model: nn.Module, cfg: Config) -> Callable:
+def _microbatch_fn(
+    model: nn.Module, cfg: Config, *, stored_targets: bool = False,
+    expand: Callable | None = None,
+) -> Callable:
     """``micro(params, batch_stats, data, ids, generator) -> (loss, grads,
     batch_stats)``: one microbatch's training forward and backward; the
     running averages it returns are new tensors (those it was given stay as
-    they were)."""
+    they were). ``stored_targets``: without augmentation the stored maps are
+    the targets (JAX's sharded step), not maps rendered at the stored peaks.
+    ``expand``: a differentiable map from the parameters held to those the
+    forward takes (tensor parallelism gathers its column shards); the
+    gradients are the held parameters'."""
     loss_fn = make_loss_fn(cfg)
     order = min(int(cfg.interpolation_order), 3)
     warp_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -231,7 +249,7 @@ def _microbatch_fn(model: nn.Module, cfg: Config) -> Callable:
             box, confmaps, view_mats = affine.augment_views_and_peaks(
                 gen, box.to(warp_dtype), data["peaks"][ids], data["peak_vals"][ids],
                 num_views=views, sigma=cfg.sigma, **aug)
-        elif "peaks" in data:
+        elif "peaks" in data and not stored_targets:
             confmaps = confmaps_from_peaks(
                 data["peaks"][ids], tuple(box.shape[1:3]), cfg.sigma
             ) * data["peak_vals"][ids][:, None, None, :]
@@ -265,7 +283,8 @@ def _microbatch_fn(model: nn.Module, cfg: Config) -> Callable:
         live = {k: v.detach().requires_grad_(k not in frozen) for k, v in params.items()}
         model.train()
         with collect_batch_stats() as updates:
-            pred = functional_call(model, {**live, **batch_stats}, args, {"generator": gen})
+            full = live if expand is None else expand(live)
+            pred = functional_call(model, {**full, **batch_stats}, args, {"generator": gen})
         loss = loss_fn(pred, confmaps)
         trained = [k for k in live if k not in frozen]
         g = torch.autograd.grad(loss, [live[k] for k in trained])
@@ -353,12 +372,20 @@ def adam_update(
     (name -> gradient of each parameter that trains) at ``learning_rate *
     lr_scale``. New tensors: the state given is left as it was; parameters
     without a gradient pass as they are."""
-    params = {k: v.detach().clone() if k in grads else v
-              for k, v in state.params.items()}
-    opt = create_optimizer(cfg, [params[k] for k in grads])
-    opt.load_state_dict(_copy_opt_state(state.opt_state))
+    return adam_step(state.params, state.opt_state, grads, cfg.learning_rate * lr_scale)
+
+
+def adam_step(
+    params: dict, opt_state: dict, grads: dict, lr: float
+) -> tuple[dict, dict]:
+    """(params, opt_state) after one ``torch.optim.Adam`` update at ``lr``
+    of the parameters in ``grads``; new tensors, the arguments left as they
+    were."""
+    params = {k: v.detach().clone() if k in grads else v for k, v in params.items()}
+    opt = torch.optim.Adam([params[k] for k in grads], lr=lr)
+    opt.load_state_dict(_copy_opt_state(opt_state))
     for group in opt.param_groups:
-        group["lr"] = cfg.learning_rate * lr_scale
+        group["lr"] = lr
     for k, g in grads.items():
         params[k].grad = g
     opt.step()

@@ -29,9 +29,18 @@ once an epoch. ``coarse_model_path`` (C2F's frozen coarse stage) and
 train/selfsup.py, or an imported one) read the port's run directories and
 ``.pt`` files, the JAX package's msgpack checkpoints, reference checkpoints
 (keras ``.h5``, torch ``.pth``, through importers.py) and ``cli import``
-snapshots with their BatchNorm statistics. The JAX trainer's mesh and
-pipeline branches (ROADMAP Queue A item 14) raise: one H100 has nothing to
-shard over, and no single-device stand-in is taken silently.
+snapshots with their BatchNorm statistics.
+
+Several processes (``torchrun --nproc_per_node N -m
+pose_estimation_amitai_torch train cfg.json``, one per card) train as one
+when the process group has more than one process (or ``mesh_shape`` asks for
+one): with a ``batch_size`` that divides over them, each step is the
+data-parallel step of parallel/sharded.py on a ``(data[, model])`` mesh
+(``mesh_shape``; a ``model`` axis splits the weights' columns,
+parallel/tensor.py); ``pipeline_stages`` pipelines a single-view ViT's
+trunk over a ``(data, pipe)`` mesh (parallel/pipeline.py). Every process
+runs the epochs; the first alone writes the run directory, after the
+shards of a split state are gathered to it.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from time import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import viz, weights
 from ..config import Config
@@ -55,8 +65,9 @@ from ..importers import (
     import_reference_checkpoint,
     is_reference_checkpoint,
 )
-from ..models import build_model
+from ..models import build_model, vit_single_kwargs
 from ..ops import peaks as peaks_ops
+from ..parallel.mesh import data_rows, make_mesh, maybe_initialize_distributed
 from . import checkpoint as ckpt
 from .loop import (
     PlateauScheduler,
@@ -127,10 +138,6 @@ class Trainer:
     ):
         if isinstance(cfg, str):
             cfg = Config.from_json(cfg)
-        if cfg.mesh_shape or cfg.pipeline_stages > 1:
-            raise NotImplementedError(
-                "mesh_shape / pipeline_stages: the parallel strategies are "
-                "ROADMAP Queue A item 14")
         self.cfg = cfg
         self.device = torch.device(device)
         self.batches_per_epoch = 1 if cfg.debug_mode else cfg.batches_per_epoch
@@ -138,6 +145,10 @@ class Trainer:
             # pytorch/train_pytorch.py:117
             torch.autograd.set_detect_anomaly(True)
 
+        # torchrun's process group first: its card is set before any tensor
+        maybe_initialize_distributed(cfg, device=self.device)
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self.is_main = not dist.is_initialized() or dist.get_rank() == 0
         self.dataset, self.preprocessor = build_dataset(cfg, arrays, device=self.device)
         self.run_name = f"{cfg.model_type}_{date.today().strftime('%b %d')}"
         self.run_path = self._create_run_folders()
@@ -147,11 +158,22 @@ class Trainer:
         sample = self.dataset.gather(np.asarray(sample_ids, np.int32))
         img_shape = tuple(sample["image"].shape[1:])
         num_out = sample["confmaps"].shape[-1]
-        with torch.device("meta"):  # the geometry; parameters live in the state
-            self.model = build_model(cfg, img_shape, num_out)
+        self.mesh = None
+        self.pipelined = cfg.pipeline_stages > 1
+        if self.pipelined:
+            # the GPipe-pipelined ViT on a (data, pipe) mesh, driven by the
+            # same train and eval steps
+            self.model, self.mesh = self._build_pipelined_model(img_shape, num_out)
+        else:
+            with torch.device("meta"):  # the geometry; parameters live in the state
+                self.model = build_model(cfg, img_shape, num_out)
+            n_dev = int(np.prod(cfg.mesh_shape)) if cfg.mesh_shape else self.world
+            if n_dev > 1 and cfg.batch_size % n_dev == 0:
+                # a (data) mesh replicates the state; (data, model) splits
+                # the weights' columns (parallel/tensor.py)
+                self.mesh = make_mesh(cfg.mesh_shape or (n_dev,), self.device)
         self.state = create_train_state(self.model, cfg, cfg.seed, device=self.device)
         self._maybe_load_pretrained()
-        self.train_step = make_train_step(self.model, cfg)
         self.eval_step = make_eval_step(self.model, cfg)
         self._predict = make_predict_fn(self.model)
 
@@ -182,6 +204,72 @@ class Trainer:
             for _ in range(self.start_epoch):
                 self.dataset.shuffle_train_indices()
             print(f"Resumed from {cfg.resume_from} at epoch {self.start_epoch}", flush=True)
+        self._make_train_step(cfg)
+        if self.mesh is not None:
+            from ..parallel.pipeline import shard_state_pp
+            from ..parallel.tensor import shard_state_tp
+
+            shard = shard_state_pp if self.pipelined else shard_state_tp
+            self.state = shard(self.mesh, self.state, self.model)
+
+    def _make_train_step(self, cfg: Config) -> None:
+        if self.mesh is None:
+            self.train_step = make_train_step(self.model, cfg)
+        else:
+            from ..parallel.sharded import make_sharded_train_step
+
+            self._sharded_step = make_sharded_train_step(self.model, cfg, self.mesh)
+
+    def _build_pipelined_model(self, img_shape, num_out):
+        """The GPipe-pipelined ViT and its (data, pipe) mesh:
+        ``pipeline_stages`` stages over the trunk, data parallelism over the
+        rest of the processes (``mesh_shape``'s product, which must be the
+        process group's size)."""
+        from ..parallel.pipeline import PipelinedViT, PipelinedViTFlax, make_pipeline_mesh
+
+        cfg = self.cfg
+        pp = int(cfg.pipeline_stages)
+        n_dev = int(np.prod(cfg.mesh_shape)) if cfg.mesh_shape else self.world
+        if n_dev != self.world:
+            raise ValueError(f"mesh_shape={cfg.mesh_shape} needs {n_dev} devices, have "
+                             f"{self.world} processes (one per device)")
+        if n_dev % pp:
+            raise ValueError(f"pipeline_stages={pp} must divide the device count {n_dev}")
+        dp = n_dev // pp
+        M = int(cfg.pipeline_microbatches) or pp
+        if cfg.batch_size % (M * dp):
+            raise ValueError(f"batch_size={cfg.batch_size} must divide into "
+                             f"pipeline_microbatches={M} x data-parallel={dp}")
+        if img_shape[0] != img_shape[1]:
+            raise ValueError(f"pipelined ViT needs square inputs, got {img_shape}")
+        kw = vit_single_kwargs(cfg, num_out)  # raises outside the ViT family
+        mesh = make_pipeline_mesh(dp, pp, self.device)
+        pipe = PipelinedViT(mesh, image_hw=img_shape[0], in_channels=img_shape[-1],
+                            num_microbatches=M, **kw)
+        print(f"pipeline parallelism: {pp} stages x {dp}-way DP, {M} microbatches", flush=True)
+        return PipelinedViTFlax(pipe), mesh
+
+    def _split(self) -> bool:
+        """Whether this process holds only its part of the state."""
+        from ..parallel.mesh import MODEL_AXIS, axis_size
+
+        return self.pipelined or axis_size(self.mesh, MODEL_AXIS) > 1
+
+    def _whole_state(self):
+        """The whole state (the stage rows or column blocks of every process
+        gathered: a collective where the state is split)."""
+        if self.mesh is None or not self._split():
+            return self.state
+        from ..parallel.pipeline import gather_state_pp
+        from ..parallel.tensor import gather_state_tp
+
+        gather = gather_state_pp if self.pipelined else gather_state_tp
+        return gather(self.mesh, self.state, self.model)
+
+    def _eval_state(self):
+        """The state the eval forward takes: the pipelined model runs on its
+        stages' rows, a column-split one on the whole weights."""
+        return self.state if self.pipelined else self._whole_state()
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -239,7 +327,15 @@ class Trainer:
                 **_graft_tree(enc_stats, loaded, "pretrained encoder BN stats")})
 
     def _create_run_folders(self) -> str:
-        """Auto-suffixed run dir + code snapshot (tensorflow/train.py:122-147)."""
+        """Auto-suffixed run dir + code snapshot (tensorflow/train.py:122-147),
+        made by the first process; the others are sent its path."""
+        if self.world > 1:
+            box = [self._make_run_folders() if self.is_main else None]
+            dist.broadcast_object_list(box, src=0)
+            return box[0]
+        return self._make_run_folders()
+
+    def _make_run_folders(self) -> str:
         run_path = os.path.join(self.cfg.base_output_path, self.run_name)
         if not self.cfg.clean:
             initial, i = run_path, 1
@@ -259,6 +355,8 @@ class Trainer:
         return run_path
 
     def _save_configuration(self) -> None:
+        if not self.is_main:
+            return
         with open(os.path.join(self.run_path, "configuration.json"), "w") as f:
             json.dump(self.cfg.raw or self.cfg.to_dict(), f, indent=4)
 
@@ -279,8 +377,10 @@ class Trainer:
         updates_per_epoch = max(1, self.batches_per_epoch // accum)
         if self.start_epoch == 0:
             # tensorflow/train.py:88 ``initial_model.h5``
-            ckpt.save_params(os.path.join(self.run_path, "initial_model.pt"),
-                             self.state.params, self.state.batch_stats)
+            whole = self._whole_state()
+            if self.is_main:
+                ckpt.save_params(os.path.join(self.run_path, "initial_model.pt"),
+                                 whole.params, whole.batch_stats)
         profiler = contextlib.nullcontext()
         if cfg.profile:
             profiler = torch.profiler.profile(
@@ -297,9 +397,12 @@ class Trainer:
                 step_losses = []
                 for _ in range(updates_per_epoch):
                     idx = self.dataset.step_indices(cfg.batch_size, accum)
-                    data, step_idx = self.dataset.step_payload(idx)
-                    self.state, loss = self.train_step(
-                        self.state, data, step_idx, self.scheduler.lr_scale)
+                    if self.mesh is not None:
+                        self.state, loss = self._run_sharded_step(idx)
+                    else:
+                        data, step_idx = self.dataset.step_payload(idx)
+                        self.state, loss = self.train_step(
+                            self.state, data, step_idx, self.scheduler.lr_scale)
                     step_losses.append(loss)
                 # one fetch an epoch: a float() a step would wait for each
                 train_loss = float(torch.stack(step_losses).mean())
@@ -316,24 +419,29 @@ class Trainer:
                 l2_max.append(float(np.max(l2_all)))
                 epoch_secs.append(time() - t_epoch)
 
-                if val_loss < self.best_loss:
+                write_best = val_loss < self.best_loss and (
                     # best-model writes gated on a least relative improvement
                     # (best_min_rel_delta; 0 = every improvement); the marker
                     # tracks every one
-                    write_best = val_loss < self._best_written * (1.0 - cfg.best_min_rel_delta)
+                    val_loss < self._best_written * (1.0 - cfg.best_min_rel_delta))
+                write_ckpt = (epoch + 1) % max(1, cfg.checkpoint_every) == 0
+                whole = (self._whole_state() if write_best or write_ckpt or cfg.save_every_epoch
+                         else self.state)
+                if val_loss < self.best_loss:
                     self.best_loss = val_loss
                     if write_best:
                         self._best_written = val_loss
-                        self._ckpt_writer.save_checkpoint(
-                            self.run_path, self.state, epoch, val_loss, best=True)
-                if cfg.save_every_epoch:
+                        if self.is_main:
+                            self._ckpt_writer.save_checkpoint(
+                                self.run_path, whole, epoch, val_loss, best=True)
+                if cfg.save_every_epoch and self.is_main:
                     self._ckpt_writer.save_params(
                         os.path.join(self.run_path, "weights",
                                      f"weights.{epoch + 1:03d}-{val_loss:.9f}.pt"),
-                        self.state.params, self.state.batch_stats)
-                if (epoch + 1) % max(1, cfg.checkpoint_every) == 0:
+                        whole.params, whole.batch_stats)
+                if write_ckpt and self.is_main:
                     self._ckpt_writer.save_checkpoint(
-                        self.run_path, self.state, epoch, val_loss,
+                        self.run_path, whole, epoch, val_loss,
                         scheduler_state=self.scheduler.state_dict(),
                         best_loss=self.best_loss)
                 self._save_epoch_artifacts(
@@ -341,25 +449,34 @@ class Trainer:
                     l2_all, l2_per_point, epoch_secs)
         self._ckpt_writer.wait()  # land the write in flight, raise its error
         # tensorflow/train.py:102-104 ``final_confmaps_model.h5``
-        ckpt.save_params(os.path.join(self.run_path, "final_confmaps_model.pt"),
-                         self.state.params, self.state.batch_stats)
+        whole = self._whole_state()
+        if self.is_main:
+            ckpt.save_params(os.path.join(self.run_path, "final_confmaps_model.pt"),
+                             whole.params, whole.batch_stats)
         print("Total runtime first loss: %.1f mins" % ((time() - t0) / 60), flush=True)
         return {"train_loss": train_losses, "val_loss": val_losses, "l2": l2_means,
                 "epoch_seconds": epoch_secs}
 
     def _switch_to_pointwise_loss(self) -> None:
-        self.train_step = make_train_step(
-            self.model, self.cfg.replace(loss_function="pointwise"))
+        self._make_train_step(self.cfg.replace(loss_function="pointwise"))
         self._pointwise_switch_epoch = None
         print("Switched training loss to pointwise (decoded coordinates)", flush=True)
+
+    def _run_sharded_step(self, idx: np.ndarray):
+        """This process's rows of the (accum, B) step gathered, then the
+        data-parallel step (its loss the mean over ``data``)."""
+        batch = self.dataset.microbatch_arrays(idx[:, data_rows(self.mesh, idx.shape[1])])
+        return self._sharded_step(self.state, batch, self.scheduler.lr_scale)
 
     # ------------------------------------------------------------------
     def evaluate(self) -> tuple[float, np.ndarray, np.ndarray]:
         """Validation MSE (each batch weighted by its valid rows) and the
-        decoded-peak pixel L2, flat and (K, N) per point; fetched once."""
+        decoded-peak pixel L2, flat and (K, N) per point; fetched once.
+        Every process evaluates the whole split."""
         counts, mses, l2s = [], [], []
+        state = self._eval_state()
         for batch, n_valid in self.dataset.val_payloads(self.cfg.batch_size):
-            mse, l2 = self.eval_step(self.state, batch)
+            mse, l2 = self.eval_step(state, batch)
             counts.append(n_valid)
             mses.append(mse)
             l2s.append(l2)
@@ -367,12 +484,26 @@ class Trainer:
         l2_per_sample = torch.cat(l2s).cpu().numpy()  # (N, K)
         count = sum(counts)
         total = sum(float(m) * n for m, n in zip(mses, counts))
-        return total / max(count, 1), l2_per_sample.flatten(), l2_per_sample.T
+        val_loss = total / max(count, 1)
+        if self.world > 1:
+            # the first process's number on every process: the scheduler's
+            # lr and the checkpoint writes (collectives where the state is
+            # split) follow it alike everywhere
+            box = torch.tensor([val_loss], dtype=torch.float64, device=self.device)
+            dist.broadcast(box, src=0)
+            val_loss = float(box)
+        return val_loss, l2_per_sample.flatten(), l2_per_sample.T
 
     def _save_epoch_artifacts(
         self, epoch, train_losses, val_losses, l2_means, l2_stds, l2_max,
         l2_all, l2_per_point, epoch_secs,
     ) -> None:
+        # the first validation sample's maps: every process takes part
+        # where the state is split (the forward gathers it)
+        shown = (self._validation_prediction()
+                 if self._pngs_due(epoch) and viz.available() else None)
+        if not self.is_main:
+            return
         rp = self.run_path
         with open(os.path.join(rp, "losses.csv"), "w", newline="") as f:
             w = csv.writer(f)
@@ -391,11 +522,7 @@ class Trainer:
 
         savemat(os.path.join(rp, "history.mat"),
                 {"loss": train_losses, "val_loss": val_losses, "val_l2_loss": l2_means})
-        # the PNGs every viz_every epochs and on the final one (<= 0: the
-        # final one only); the CSV/MAT metrics above every epoch
-        every = int(self.cfg.viz_every)
-        is_final = (epoch + 1) == self.cfg.epochs
-        if not is_final and (every <= 0 or (epoch + 1) % every):
+        if not self._pngs_due(epoch):
             return
         if not viz.available():
             if not self.pngs_skipped:
@@ -410,16 +537,27 @@ class Trainer:
             rp, "l2_histograms", f"validation_epoch_{epoch + 1}.png"))
         viz.l2_histogram_per_point(l2_per_point, epoch, os.path.join(
             rp, "l2_histograms_per_point", f"validation_epoch_{epoch + 1}.png"))
-        self._save_validation_image(epoch)
+        if shown is not None:
+            self._save_validation_image(epoch, *shown)
 
-    def _save_validation_image(self, epoch: int) -> None:
+    def _pngs_due(self, epoch: int) -> bool:
+        """The PNGs every ``viz_every`` epochs and on the final one (<= 0:
+        the final one only); the CSV/MAT metrics every epoch."""
+        every = int(self.cfg.viz_every)
+        return (epoch + 1) == self.cfg.epochs or (every > 0 and (epoch + 1) % every == 0)
+
+    def _validation_prediction(self):
+        """(batch, maps) of the first validation sample, or None."""
+        if len(self.dataset.val_inds) == 0:
+            return None
+        batch = self.dataset.gather(np.asarray(self.dataset.val_inds[:1], np.int32))
+        state = self._eval_state()
+        return batch, self._predict(state.params, *model_args(batch),
+                                    batch_stats=state.batch_stats)
+
+    def _save_validation_image(self, epoch: int, batch: dict, pred: torch.Tensor) -> None:
         """Prediction overlay and map grid of the first validation sample
         (pytorch/train_pytorch.py:222-251)."""
-        if len(self.dataset.val_inds) == 0:
-            return
-        batch = self.dataset.gather(np.asarray(self.dataset.val_inds[:1], np.int32))
-        pred = self._predict(self.state.params, *model_args(batch),
-                             batch_stats=self.state.batch_stats)
         pts = peaks_ops.find_peaks(pred).cpu().numpy()[0]
         gt = peaks_ops.find_peaks(batch["confmaps"].float()).cpu().numpy()[0]
         viz.show_pred(batch["image"][0].float().cpu().numpy(), pts, gt, save_path=os.path.join(

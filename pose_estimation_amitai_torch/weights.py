@@ -26,6 +26,13 @@ takes), the layout the JAX package trains and checkpoints.
   and :func:`vit_state_dict` are these under their earlier names.
 * :func:`kernel_params` (models/fast_infer.py) — the fused kernels take the
   flax HWIO layout as it is.
+* The pipeline's stacked-blocks ViT layout (parallel/pipeline.py, and the
+  JAX package's) and ``ViTPoseNet``'s, both ways, on flax trees
+  (:func:`pipeline_tree_to_vit`, :func:`vit_tree_to_pipeline`) and on the
+  port's parameters (:func:`pipeline_state_dict_to_vit`,
+  :func:`vit_state_dict_to_pipeline`), and a stacked flax tree to the
+  port's pipelined parameters and back; the JAX package's MoE parameter
+  dict to tensors and back (:func:`moe_params_to_torch`).
 
 :func:`load_checkpoint` reads a checkpoint by what is on disk: the port's
 ``torch.save`` files (train/checkpoint.py) or, with a lazy ``import
@@ -236,19 +243,127 @@ def basicnet_params_from_state_dict(sd: Mapping) -> dict:
 
 
 def _is_pipeline_layout(params) -> bool:
-    """True for a pipeline-parallel-trained ViT tree (stacked ``blocks``
-    layout of the JAX package's parallel/pipeline.py)."""
+    """True for a pipeline-parallel-trained ViT flax tree (the stacked
+    ``blocks`` layout of parallel/pipeline.py, the JAX package's too)."""
     return isinstance(params, Mapping) and "blocks" in params and "embed" in params
 
 
+def is_pipeline_state_dict(sd: Mapping) -> bool:
+    """True for the port's pipelined ViT parameters (``embed.*``,
+    ``blocks.*`` stacks, ``final_norm.*``, ``decoder.*``)."""
+    return any(k.startswith("blocks.") for k in sd) and any(k.startswith("embed.") for k in sd)
+
+
+_BLOCK_PARTS = ("attn", "ff")
+
+
+def pipeline_tree_to_vit(tree: Mapping) -> dict:
+    """A flax tree in the pipeline's layout -> ``ViTPoseNet``'s (the JAX
+    package's ``pipeline_params_to_vit`` on numpy): row i of each
+    ``blocks/{attn,ff}`` stack becomes ``transformer/{attn,ff}{i}``."""
+    depth = int(np.asarray(_first_leaf(tree["blocks"])).shape[0])
+    transformer: dict = {}
+    for i in range(depth):
+        for name in _BLOCK_PARTS:
+            transformer[f"{name}{i}"] = _tree_map(lambda x: np.asarray(x)[i], tree["blocks"][name])
+    transformer["final_norm"] = tree["final_norm"]
+    return {"patch_embed": tree["embed"], "transformer": transformer, "decoder": tree["decoder"]}
+
+
+def vit_tree_to_pipeline(tree: Mapping, depth: int) -> dict:
+    """The inverse of :func:`pipeline_tree_to_vit`: the ``depth`` blocks'
+    leaves stacked on a leading axis."""
+    t = tree["transformer"]
+    blocks = {name: _tree_stack([t[f"{name}{i}"] for i in range(depth)])
+              for name in _BLOCK_PARTS}
+    return {"embed": tree["patch_embed"], "blocks": blocks,
+            "final_norm": t["final_norm"], "decoder": tree["decoder"]}
+
+
+def pipeline_state_dict_to_vit(sd: Mapping) -> dict[str, torch.Tensor]:
+    """The port's pipelined ViT parameters -> ``ViTPoseNet``'s
+    ``state_dict`` names, in its order: ``embed.*`` -> ``patch_embed.*``,
+    row i of ``blocks.{attn,ff}.*`` -> ``transformer.{attn,ff}{i}.*``,
+    ``final_norm.*`` -> ``transformer.final_norm.*``, ``decoder.*`` as it
+    is."""
+    depth = next(v for k, v in sd.items() if k.startswith("blocks.")).shape[0]
+    out = {f"patch_embed.{k[6:]}": v for k, v in sd.items() if k.startswith("embed.")}
+    for i in range(depth):
+        for name in _BLOCK_PARTS:
+            pre = f"blocks.{name}."
+            out.update({f"transformer.{name}{i}.{k[len(pre):]}": v[i]
+                        for k, v in sd.items() if k.startswith(pre)})
+    out.update({f"transformer.{k}": v for k, v in sd.items() if k.startswith("final_norm.")})
+    out.update({k: v for k, v in sd.items() if k.startswith("decoder.")})
+    return out
+
+
+def vit_state_dict_to_pipeline(sd: Mapping, depth: int) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`pipeline_state_dict_to_vit`, in the order of
+    parallel/pipeline.py's parameters."""
+    out = {f"embed.{k[12:]}": v for k, v in sd.items() if k.startswith("patch_embed.")}
+    for name in _BLOCK_PARTS:
+        pre = f"transformer.{name}0."
+        for k in sd:
+            if k.startswith(pre):
+                leaf = k[len(pre):]
+                out[f"blocks.{name}.{leaf}"] = torch.stack(
+                    [torch.as_tensor(sd[f"transformer.{name}{i}.{leaf}"]) for i in range(depth)])
+    out.update({k[12:]: v for k, v in sd.items() if k.startswith("transformer.final_norm.")})
+    out.update({k: v for k, v in sd.items() if k.startswith("decoder.")})
+    return out
+
+
+def pipeline_flax_to_state_dict(tree: Mapping) -> dict[str, torch.Tensor]:
+    """A flax tree in the pipeline's layout -> the port's pipelined
+    parameters (each block through :func:`flax_to_state_dict`, then
+    stacked)."""
+    depth = int(np.asarray(_first_leaf(tree["blocks"])).shape[0])
+    return vit_state_dict_to_pipeline(flax_to_state_dict(pipeline_tree_to_vit(tree)), depth)
+
+
+def pipeline_state_dict_to_flax(sd: Mapping) -> dict:
+    """The inverse of :func:`pipeline_flax_to_state_dict`: float32 numpy."""
+    depth = next(v for k, v in sd.items() if k.startswith("blocks.")).shape[0]
+    return vit_tree_to_pipeline(state_dict_to_flax(pipeline_state_dict_to_vit(sd)), depth)
+
+
+def moe_params_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's MoE parameter dict (``gate``, ``w1``, ``b1``,
+    ``w2``, ``b2``) -> the port's (parallel/expert.py): the same layout,
+    float32 tensors."""
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in params.items()}
+
+
+def moe_params_to_numpy(params: Mapping) -> dict[str, np.ndarray]:
+    """The inverse of :func:`moe_params_to_torch`."""
+    return {k: v.detach().float().cpu().numpy() for k, v in params.items()}
+
+
+def _first_leaf(tree):
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_stack(trees: list):
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
 def vit_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
-    """flax ``ViTPoseNet`` or ``ViT4Cameras`` params (torch or tf flavour)
-    -> the port's ``state_dict``: :func:`flax_to_state_dict`, which the
-    stacked-blocks layout of pipeline training does not fit."""
+    """flax ``ViTPoseNet`` or ``ViT4Cameras`` params (torch or tf flavour),
+    or a pipeline-trained ViT's stacked-blocks tree -> the port's
+    ``ViTPoseNet`` / ``ViT4Cameras`` ``state_dict``."""
     if _is_pipeline_layout(params):
-        raise NotImplementedError(
-            "pipeline-layout ViT checkpoints (stacked blocks) come with the "
-            "parallel strategies, ROADMAP Queue A item 14")
+        params = pipeline_tree_to_vit(params)
     return flax_to_state_dict(params)
 
 
@@ -427,6 +542,8 @@ def load_checkpoint(path: str, model: torch.nn.Module | None = None) -> tuple[di
         from .train.checkpoint import load_variables
 
         params, stats = load_variables(path)
+        if is_pipeline_state_dict(params):  # a pipeline-trained ViT serves as ViTPoseNet
+            params = pipeline_state_dict_to_vit(params)
         return state_dict_to_flax(params, model), batch_stats_to_flax(stats)
     return load_flax_checkpoint(path)
 

@@ -1133,3 +1133,124 @@ def test_loaded_fused_program_launches_the_kernels(cuda, tmp_path):
     torch.cuda.synchronize()
     assert hc.fused_encoder_stage.launches - e0 == 6 and hd.fused_decoder.launches - d0 == 2
     np.testing.assert_array_equal(got, pred(frames))
+
+
+# ---------------------------------------------------------------------------
+# the parallel strategies on a one-rank NCCL group (one card: degree 1)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def nccl_group():
+    """A one-process NCCL group on card 0 for the module's parallel cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is false)")
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    yield
+    dist.destroy_process_group()
+
+
+def test_sharded_step_on_nccl_equals_plain_step(cuda, nccl_group):
+    """The data-parallel step at degree 1 (augmentation, mask re-dilation
+    and dropout on) against the plain step on the same batch."""
+    from pose_estimation_amitai_torch.parallel.mesh import make_mesh
+    from pose_estimation_amitai_torch.parallel.sharded import make_sharded_train_step, shard_state
+
+    cfg, model, data, loop = _train_setup(cuda, wings_masks_dilation=3, accumulation_steps=2)
+    data["confmaps"] = torch.zeros(8, 48, 48, 6, device=cuda)
+    idx = np.arange(8, dtype=np.int32).reshape(2, 4)
+    mesh = make_mesh((1,), "cuda")
+    batch = {("image" if k == "box" else k): v[torch.from_numpy(idx).long().to(cuda)]
+             for k, v in data.items()}
+    torch.backends.cudnn.deterministic = True
+    try:
+        state = loop.create_train_state(model, cfg, device=cuda)
+        want, wl = loop.make_train_step(model, cfg)(state, data, idx)
+        got, gl = make_sharded_train_step(model, cfg, mesh)(shard_state(mesh, state), batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert abs(float(gl) - float(wl)) <= 1e-6 * abs(float(wl))
+    for k, v in want.params.items():
+        assert float((got.params[k] - v).abs().max()) <= 1e-6, k
+
+
+def test_cross_replica_batchnorm_on_nccl(cuda, nccl_group):
+    """RESNET_18_POINTS_PER_WING's moments through the NCCL all-reduce: the
+    running averages as the plain step's."""
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.parallel.mesh import make_mesh
+    from pose_estimation_amitai_torch.parallel.sharded import make_sharded_train_step, shard_state
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(model_type=C.RESNET_18_POINTS_PER_WING, compute_dtype="float32",
+                 do_augmentations=False)
+    model = build_model(cfg, (64, 64, 4), 6)
+    rng = np.random.default_rng(0)
+    data = {"box": torch.from_numpy(rng.random((4, 64, 64, 4), np.float32)).to(cuda),
+            "confmaps": torch.from_numpy(rng.random((4, 64, 64, 6), np.float32)).to(cuda)}
+    idx = np.arange(4, dtype=np.int32).reshape(1, 4)
+    mesh = make_mesh((1,), "cuda")
+    state = loop.create_train_state(model, cfg, device=cuda)
+    want, _ = loop.make_train_step(model, cfg)(state, data, idx)
+    got, _ = make_sharded_train_step(model, cfg, mesh)(
+        shard_state(mesh, state), {"image": data["box"][None], "confmaps": data["confmaps"][None]})
+    for k, v in want.batch_stats.items():
+        assert float((got.batch_stats[k] - v).abs().max()) <= 1e-5 * float(v.abs().max()), k
+
+
+def test_pipeline_ring_attention_and_moe_on_nccl(cuda, nccl_group):
+    """Degree 1 of the pipeline (2 microbatches), the ring and the experts:
+    each against its one-process function, forward and gradients."""
+    from pose_estimation_amitai_torch.parallel import expert, pipeline, sequence
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pipe = pipeline.PipelinedViT(
+        pipeline.make_pipeline_mesh(1, 1, "cuda"), image_hw=48, in_channels=4, out_channels=6,
+        dim=32, depth=2, heads=2, dim_head=16, mlp_expand=2, num_microbatches=2,
+        dtype=torch.float32)
+    params = pipe.init(gen)
+    x = torch.randn(4, 48, 48, 4, generator=gen, device=cuda)
+    outs = []
+    for fn in (pipe.apply, pipe.apply_sequential):
+        live = {k: v.clone().requires_grad_() for k, v in params.items()}
+        y = fn(live, x)
+        y.square().sum().backward()
+        outs.append((y.detach(), {k: v.grad for k, v in live.items()}))
+    (y1, g1), (y2, g2) = outs
+    assert float((y1 - y2).abs().max()) <= 1e-4 * float(y2.abs().max())
+    for k in g2:
+        assert float((g1[k] - g2[k]).abs().max()) <= 1e-4 * float(g2[k].abs().max()), k
+
+    q, k_, v = (torch.randn(2, 32, 2, 8, generator=gen, device=cuda) for _ in range(3))
+    ring = sequence.ring_attention(q, k_, v, sequence.make_seq_mesh(1, 1, "cuda"))
+    assert float((ring - sequence.reference_attention(q, k_, v)).abs().max()) <= 1e-5
+
+    moe = expert.MoEFeedForward(expert.make_expert_mesh(1, 1, "cuda"), dim=16, hidden_dim=32,
+                                num_experts=4)
+    p = moe.init(gen)
+    t = torch.randn(2, 6, 16, generator=gen, device=cuda)
+    assert float((moe.apply(moe.shard_params(p), t) - moe.apply_dense(p, t)).abs().max()) <= 1e-5
+
+
+def test_mesh_predictor_on_nccl_launches_the_kernels(cuda, nccl_group):
+    """Predictor(mesh=, use_fused=True): B1 and B2 launch, peaks as the
+    mesh-less fused route's."""
+    from pose_estimation_amitai_torch.parallel.mesh import make_mesh
+
+    cfg = Config(num_base_filters=8)
+    params = init_basicnet_params(np.random.default_rng(0), 4, 6, filters=8)
+    frames = np.random.default_rng(1).random((6, 48, 48, 4)).astype(np.float32)
+    want = Predictor(cfg, params, (48, 48, 4), 6, device="cuda", chunk_size=4,
+                     use_fused=True)(frames)
+    pred = Predictor(cfg, params, (48, 48, 4), 6, device="cuda", chunk_size=4, use_fused=True,
+                     mesh=make_mesh((1,), "cuda"))
+    b1, b2 = hc.fused_encoder_stage.launches, hd.fused_decoder.launches
+    got = pred(frames)
+    assert hc.fused_encoder_stage.launches > b1 and hd.fused_decoder.launches > b2
+    np.testing.assert_array_equal(got, want)

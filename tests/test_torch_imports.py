@@ -60,6 +60,14 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.deploy",
             "pose_estimation_amitai_torch.train.selfsup",
             "pose_estimation_amitai_torch.ops.custom_ops",
+            "pose_estimation_amitai_torch.ops.draws",
+            "pose_estimation_amitai_torch.parallel",
+            "pose_estimation_amitai_torch.parallel.mesh",
+            "pose_estimation_amitai_torch.parallel.sharded",
+            "pose_estimation_amitai_torch.parallel.tensor",
+            "pose_estimation_amitai_torch.parallel.pipeline",
+            "pose_estimation_amitai_torch.parallel.sequence",
+            "pose_estimation_amitai_torch.parallel.expert",
             "pose_estimation_amitai_torch.__main__"} <= set(mods)
     code = (
         "import importlib, sys\n"

@@ -2,8 +2,8 @@
 (compute_dtype float32), for all three decodes on both port routes, for the
 flagship BasicNet, for the two ViT families, and for the BatchNorm and
 camera-matrix families (``batch_stats``, ``cameras``), plus the
-flax-checkpoint reader and the options the port refuses so far (the int8
-routes are in tests/test_torch_quantized.py).
+flax-checkpoint reader and ``mesh`` serving in a 2-rank gloo world (the
+int8 routes are in tests/test_torch_quantized.py).
 
 Chunk 2 over 5 frames, so the last chunk is zero-padded and its padded row
 dropped. The JAX fused route has no interpret switch, so it cannot run on
@@ -339,11 +339,35 @@ def test_evaluate_l2_matches_jax(setup):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw, item", [({"mesh": object()}, "item 14")])
-def test_unported_options_raise(setup, kw, item):
-    _, params = setup
-    with pytest.raises(NotImplementedError, match=item):
-        tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", **kw)
+@pytest.mark.parametrize("kw, item", [({"mesh": 2}, "item 14")])
+def test_unported_options_raise(setup, kw, item, tmp_path):
+    """``mesh`` (ROADMAP Queue A item 14) is ported: a 2-rank gloo world
+    serves the flagship on the module route, each rank its rows of every
+    chunk, and every rank returns the whole answer, equal to the mesh-less
+    Predictor's on the same rows; a chunk that does not divide over the
+    mesh is refused."""
+    from test_torch_parallel_mesh import run_world, serve_body
+
+    frames, params = setup
+    ranks = run_world(serve_body, kw["mesh"], tmp_path, CFG, params, frames, SHAPE, K, 2)
+    # each rank runs one row of each 2-frame chunk: the same convolutions
+    # (oneDNN blocks by batch size) as a mesh-less chunk of 1
+    plain = tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", chunk_size=1,
+                             return_heatmaps=True)
+    maps, pts = plain(frames)
+    for res in ranks:
+        assert res["path"] == "module"
+        np.testing.assert_array_equal(res["maps"], maps)
+        np.testing.assert_array_equal(res["maps_pts"], pts)
+        np.testing.assert_array_equal(res["pts"], pts)
+        np.testing.assert_array_equal(res["movie"], pts)
+
+    class TwoRanks:
+        def size(self):
+            return 2
+
+    with pytest.raises(ValueError, match="chunk_size=3 must divide"):
+        tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", chunk_size=3, mesh=TwoRanks())
 
 
 @pytest.mark.parametrize("case", ["basicnet_dilation1", "gptnet", "disentangled"])
@@ -549,13 +573,16 @@ def test_vit_tf_flavour_serves_unnormalised(vit_setup):
 
 def test_vit_refusals(vit_setup):
     """int8 serving of a ViT takes "int8_generic"; the pipeline-parallel
-    layout raises naming item 14."""
+    layout (ROADMAP item 14, now ported) serves as the ViTPoseNet tree it
+    stacks."""
     frames, params = vit_setup["single"]
     pred = _port_vit("single", params, use_quantized=True, calibration_frames=frames)
     assert pred.serving_path == "int8_generic"
     assert np.isfinite(pred(frames)).all()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _port_vit("single", {"embed": {}, "blocks": {}, "decoder": {}})
+    depth = VIT["single"]["cfg"].transformer_layers
+    stacked = weights.vit_tree_to_pipeline(params, depth)
+    np.testing.assert_array_equal(_port_vit("single", stacked)(frames),
+                                  _port_vit("single", params)(frames))
 
 
 @pytest.mark.parametrize("kind", list(VIT))

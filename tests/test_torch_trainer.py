@@ -255,16 +255,17 @@ def test_all_cams_all_points_trains_end_to_end(tmp_path, no_pngs):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"mesh_shape": (1,)}, "item 14"),
+    ({"mesh_shape": (2,)}, "item 14"),
     ({"pipeline_stages": 2}, "item 14"),
     ({"pretrained_encoder_path": "encoder.pt"}, "items 12 and 13"),
     ({"model_type": C.C2F_PER_WING, "coarse_model_path": "h5"}, "item 13"),
 ])
 def test_unported_options_raise(tmp_path, arrays, kw, item):
-    """Item 14 raises NotImplementedError; items 12 and 13 are ported
-    (tests/test_torch_selfsup.py, test_torch_importers.py), so their
-    options now reach their readers, which refuse a missing encoder file and
-    a keras save with no weights."""
+    """Items 12, 13 and 14 are ported (tests/test_torch_selfsup.py,
+    test_torch_importers.py, test_torch_parallel_*.py), so their options
+    now reach their code, which refuses what cannot run: a 2-process mesh
+    and 2 pipeline stages in a one-process run (one process per device), a
+    missing encoder file and a keras save with no weights."""
     if kw.get("coarse_model_path") == "h5":  # a reference keras save: HDF5
         import h5py
 
@@ -273,7 +274,8 @@ def test_unported_options_raise(tmp_path, arrays, kw, item):
             f.create_group("model_weights")
         kw = {**kw, "coarse_model_path": path}
     error, match = {
-        "item 14": (NotImplementedError, item),
+        "item 14": ((RuntimeError, ValueError),
+                    r"needs a process group|must divide the device count 1"),
         "items 12 and 13": (FileNotFoundError, "encoder.pt"),
         "item 13": (ValueError, "no conv kernels"),
     }[item]

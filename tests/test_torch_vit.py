@@ -347,8 +347,17 @@ def test_init_vit_params_matches_flax_tree(kind):
 
 
 def test_pipeline_layout_is_queued():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        weights.vit_state_dict({"embed": {}, "blocks": {}, "decoder": {}})
+    """The stacked-blocks tree of pipeline training (ROADMAP item 14, now
+    ported) bridges to the same ViTPoseNet state_dict as the per-layer
+    tree it stacks, leaf for leaf."""
+    tree = weights.init_vit_params(np.random.default_rng(0), 4, 6, 48, dim=16, depth=2,
+                                   heads=2, dim_head=8, mlp_expand=2)
+    stacked = weights.vit_tree_to_pipeline(tree, 2)
+    assert set(stacked) == {"embed", "blocks", "final_norm", "decoder"}
+    want, got = weights.vit_state_dict(tree), weights.vit_state_dict(stacked)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v.numpy(), err_msg=k)
 
 
 def _train_net(cls, **kw):
