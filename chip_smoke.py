@@ -78,7 +78,8 @@ Phases, each printing one JSON line ({"phase": ...}):
              each take one more of its costs out, timed in turns;
 11. train  - flagship training at Config()'s defaults (filters 64, batch 8,
              bf16 compute over float32 parameters, augmentation with the
-             gather warp, dropout 0.5, Adam 1e-3) through the port's entry
+             separable warp on rotation buckets, JAX's default, dropout
+             0.5, Adam 1e-3) through the port's entry
              points, all on the card: (a) build_dataset of 16 synthetic
              192x192 frames with 32 wing points (128 per-wing samples of
              192x192x4 -> 18, half of them validation; from arrays, as the
@@ -96,7 +97,15 @@ Phases, each printing one JSON line ({"phase": ...}):
              one 256-frame chunk with the encoder-stage and decoder counters
              zeroed just before and read just after (every conv on a
              tensor-core kernel), its maps within 5% of max of the trained
-             module's eval forward;
+             module's eval forward; (g) the warp alone on the step's frames
+             in bf16, at batch 8 and 256: each call draws its bucket and
+             matrices as the step does, then the separable warp (on that
+             bucket's canvas) and the gather warp on the same matrices, in
+             turns, each timed by CUDA events from an idle card; the bucket
+             of every timed call, each bucket taken at least once; the
+             separable warp in float32 on the card against the CPU, each
+             bucket, within 1e-5; (h) the step timed with each warp in
+             blocks of 10 steps (separable, gather, gather, separable);
 12. trainer - the Trainer at Config() (filters 64, batch 8, augmentation
              and dropout on) on the train phase's 16 synthetic frames: 3
              epochs of 10 updates, then a second Trainer resuming the run
@@ -173,9 +182,10 @@ Phases, each printing one JSON line ({"phase": ...}):
              train phase's synthetic boxes as 64 five-channel crops: 3
              epochs of 10 updates (the validation loss must fall), then 3 +
              10 bare steps (CUDA events) beside the loop's steps/s; one
-             float32 step card vs CPU on the same holed and clean crops
+             float64 step card vs CPU on the same holed and clean crops
              (loss within 1e-4 relative, gradients within 1e-3 of the
-             largest); a Trainer at Config() with pretrained_encoder_path at
+             largest; the float32 step's differences, and the CPU's own
+             float32 step against its float64 one, reported); a Trainer at Config() with pretrained_encoder_path at
              its run directory (the encoder equal to the snapshot before the
              first step, then 1 epoch of 5 updates); the run directory
              through Predictor.from_checkpoint(use_fused=True), the
@@ -305,6 +315,11 @@ TRAIN_POINTS = 32
 TRAIN_WARMUP = 3  # steps before the timed ones
 TRAIN_STEPS = 20  # timed steps
 RESUME_STEPS = (3, 2)  # steps before the checkpoint, steps after the restore
+# the warp alone, separable against gather on the step's frames, in turns:
+WARP_CALLS = {8: 30, 256: 24}  # timed calls a batch size (every bucket drawn)
+WARP_WARMUP = 2  # calls of each before the timed ones
+WARP_F32_ATOL = 1e-5  # the separable warp card vs CPU, float32 (TF32 off)
+STEP_BLOCK = 10  # steps a block of the step timed with each warp (S, E, E, S)
 # one float32 step (TF32 off, dropout 0, targets from peaks), card vs CPU:
 TRAIN_LOSS_RTOL = 1e-4  # the loss
 TRAIN_GRAD_RTOL = 1e-3  # each gradient tensor, of its largest element
@@ -1650,6 +1665,8 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
           "the trained parameters left the card or float32")
     trained = state
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    warp = warp_timings(torch, cfg, ds.data["box"])
+    by_method = step_ms_by_method(torch, step, state, ds, cfg)
 
     # (c) one float32 step (TF32 off, dropout 0, targets from peaks), card vs
     # CPU, and (d) below, with deterministic cuDNN: the step's gradients are
@@ -1762,8 +1779,8 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
         "phase": "train", "device": device_name, "nvidia_smi": smi,
         "model": "BasicNet MODEL_18_POINTS_PER_WING filters 64, bf16 compute over "
                  "float32 parameters, dropout 0.5, Adam 1e-3, batch 8, augmentation "
-                 "(rotation 30, shifts 10, both flips, order 1, gather warp), "
-                 "192x192x4 -> 18",
+                 "(rotation 30, shifts 10, both flips, order 1, separable warp on "
+                 "rotation buckets, Catmull-Rom passes), 192x192x4 -> 18",
         "samples": n, "val_samples": len(ds.val_inds), "dataset_seconds": t_data,
         "timed_steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP,
         "step_ms": step_ms, "steps_per_s": steps_per_s,
@@ -1777,6 +1794,7 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
             "param_atol": TRAIN_PARAM_ATOL,
             "sign_flips": flips},
         "resume": {"steps": list(RESUME_STEPS), "losses": whole_losses, "equal": True},
+        "warp": warp, "step_ms_by_method": by_method,
         "eval": {"val_mse": float(np.mean(mses)), "val_l2_mean_px": float(l2s.mean())},
         "served": {"launches": launches, "encoder_convs_by_kernel": convs,
                    "decoder_convs_by_kernel": decoder_convs,
@@ -1786,6 +1804,114 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
     result["seconds"] = time.perf_counter() - t_phase
     emit(result)
     return result
+
+
+def warp_timings(torch, cfg, box) -> dict:
+    """The warp alone at batch 8 and 256 on the step's bf16 frames: each
+    call draws its bucket and matrices as the step does, then runs the
+    separable warp on that bucket's canvas and the gather warp on the same
+    matrices, in turns, each timed by CUDA events from an idle card; then
+    the separable warp in float32 on the card against the CPU, each bucket."""
+    from pose_estimation_amitai_torch.ops import affine
+
+    buckets = affine.rotation_buckets(cfg.rotation_range, cfg.shear_range)
+    check(buckets is not None and len(buckets) == 3, f"buckets {buckets}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def draw(images, bucket=None):
+        if bucket is None:
+            low, high, quad, limit = affine._draw_plan(
+                gen, images, "separable", cfg.rotation_range, cfg.shear_range)
+        else:
+            low, high, quad = bucket
+            limit = affine._shear_limit(high, cfg.shear_range)
+        p = affine.sample_augment_params(
+            gen, images.shape[0], rotation_range=high, xy_shifts=cfg.xy_shifts,
+            zoom_range=cfg.zoom_range, do_horizontal_flip=cfg.horizontal_flip,
+            do_vertical_flip=cfg.vertical_flip, shear_range=cfg.shear_range,
+            rotation_low=low, quadrants=quad)
+        mats = affine.make_affine_matrix(p, *images.shape[1:3])
+        return buckets.index((low, high, quad)), mats, limit
+
+    result = {}
+    for batch, calls in WARP_CALLS.items():
+        images = box[torch.arange(batch, device="cuda") % box.shape[0]].to(torch.bfloat16)
+        ms, taken = {"separable": [], "exact": []}, []
+        for i in range(WARP_WARMUP + calls):
+            bucket, mats, limit = draw(images)
+            run = {"separable": lambda: affine.affine_warp_separable_batch(
+                       images, mats, 1, shear_limit=limit),
+                   "exact": lambda: affine.affine_warp_batch(images, mats, 1)}
+            for method in (("separable", "exact") if i % 2 == 0 else ("exact", "separable")):
+                torch.cuda.synchronize()
+                start.record()
+                out = run[method]()
+                end.record()
+                end.synchronize()
+                check(out.shape == images.shape and out.dtype == torch.bfloat16,
+                      f"{method} warp gave {tuple(out.shape)} {out.dtype}")
+                if i >= WARP_WARMUP:
+                    ms[method].append(start.elapsed_time(end))
+            if i >= WARP_WARMUP:
+                taken.append(bucket)
+        check(sorted(set(taken)) == [0, 1, 2], f"batch {batch}: buckets taken {taken}")
+        result[f"batch_{batch}"] = {
+            "separable_ms": float(np.mean(ms["separable"])),
+            "exact_ms": float(np.mean(ms["exact"])),
+            "separable_ms_by_bucket": [float(np.mean([t for t, k in zip(ms["separable"], taken)
+                                                      if k == b])) for b in range(3)],
+            "buckets_taken": taken}
+    errs = []
+    images = box[: cfg.batch_size].float()
+    for bucket in buckets:
+        _, mats, limit = draw(images, bucket)
+        got = affine.affine_warp_separable_batch(images, mats, 1, shear_limit=limit)
+        want = affine.affine_warp_separable_batch(images.cpu(), mats.cpu(), 1,
+                                                  shear_limit=limit)
+        check(bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0.5,
+              "the separable warp gave non-finite or empty frames")
+        errs.append(float((got.cpu() - want).abs().max()))
+    check(max(errs) <= WARP_F32_ATOL,
+          f"separable warp card vs CPU, float32: {errs} > {WARP_F32_ATOL}")
+    result["float32_card_vs_cpu_max_abs_err"] = errs
+    result["float32_atol"] = WARP_F32_ATOL
+    return result
+
+
+def step_ms_by_method(torch, step, state, ds, cfg) -> dict:
+    """ms a step at Config() with the separable warp (the default) and with
+    the gather warp, in blocks of STEP_BLOCK steps timed by CUDA events:
+    separable, gather, gather, separable, after a warm-up of each."""
+    import functools
+
+    from pose_estimation_amitai_torch.ops import affine
+
+    real = affine.augment_views_and_peaks
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms = {"separable": [], "exact": []}
+    try:
+        for block, method in enumerate(("separable", "exact", "exact", "separable")):
+            affine.augment_views_and_peaks = functools.partial(real, method=method)
+            if block < 2:
+                for _ in range(TRAIN_WARMUP):
+                    state, _ = step(state, ds.data,
+                                    ds.step_indices(cfg.batch_size, cfg.accumulation_steps))
+            idx = [ds.step_indices(cfg.batch_size, cfg.accumulation_steps)
+                   for _ in range(STEP_BLOCK)]
+            torch.cuda.synchronize()
+            start.record()
+            for i in range(STEP_BLOCK):
+                state, loss = step(state, ds.data, idx[i])
+            end.record()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(loss)), f"{method} warp: non-finite loss")
+            ms[method].append(start.elapsed_time(end) / STEP_BLOCK)
+    finally:
+        affine.augment_views_and_peaks = real
+    return {m: float(np.mean(v)) for m, v in ms.items()}
 
 
 def phase_trainer(torch, device_name: str, smi: str, step_ms: float) -> dict:
@@ -2666,28 +2792,48 @@ def phase_selfsup(torch, device_name: str, smi: str) -> dict:
         torch.cuda.synchronize()
         step_ms = start.elapsed_time(end) / SELFSUP_STEPS
 
-        # one float32 step, card vs CPU, on the same (holed, clean) crops
+        # one step, card vs CPU, on the same (holed, clean) crops, held in
+        # float64: in float32 a few hundred max-pool and LeakyReLU near-ties
+        # of these crops round the other way from one device (or precision)
+        # to the other and move up to ~1e-3 of a tensor's largest gradient,
+        # as far as the CPU's own float32 step lies from its float64 step
+        # (both reported beside the check)
         f32 = cfg.replace(compute_dtype="float32", dropout_ratio=0.0)
-        with torch.device("meta"):
-            model = BasicNet(4, out_channels=4, filters=f32.num_base_filters,
-                             dropout=0.0, dtype=torch.float32)
-        params = _init_params(model, SEED)
         box = torch.from_numpy(crops[:SELFSUP_CHECK])
         holed, clean = selfsup.make_prepare(f32)(torch.Generator().manual_seed(SEED), box)
         # a hole is a constant patch, so the max-pools see exact ties there,
         # and cuDNN and the CPU route a tied window's gradient to different
         # (equally valid) elements: a little noise breaks the ties
         holed = holed + torch.rand(holed.shape, generator=torch.Generator().manual_seed(SEED)) * 1e-3
-        grads_fn = selfsup.make_loss_and_grads(model)
-        l_cpu, g_cpu = grads_fn(params, holed, clean, torch.Generator())
-        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
-            l_card, g_card = grads_fn({k: v.cuda() for k, v in params.items()}, holed.cuda(),
-                                      clean.cuda(), torch.Generator(device="cuda"))
-        loss_err = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
-        grad_err = max(float((g_card[k].cpu() - g_cpu[k]).abs().max())
-                       / float(g_cpu[k].abs().max()) for k in g_cpu)
-        check(loss_err <= TRAIN_LOSS_RTOL, f"selfsup f32 loss card vs CPU {loss_err}")
-        check(grad_err <= TRAIN_GRAD_RTOL, f"selfsup f32 gradients card vs CPU {grad_err}")
+        by_dtype = {}
+        for dt in (torch.float64, torch.float32):
+            with torch.device("meta"):
+                model = BasicNet(4, out_channels=4, filters=f32.num_base_filters,
+                                 dropout=0.0, dtype=dt)
+            params = {k: v.to(dt) for k, v in _init_params(model, SEED).items()}
+            grads_fn = selfsup.make_loss_and_grads(model)
+            cpu = grads_fn(params, holed.to(dt), clean.to(dt), torch.Generator())
+            with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+                card = grads_fn({k: v.cuda() for k, v in params.items()}, holed.to(dt).cuda(),
+                                clean.to(dt).cuda(), torch.Generator(device="cuda"))
+            by_dtype[dt] = (cpu, card)
+
+        def step_errs(a, b) -> tuple[float, float]:
+            """(loss relative error, largest gradient error of its tensor's
+            max) of step ``a`` against step ``b``."""
+            (la, ga), (lb, gb) = a, b
+            return (abs(float(la) - float(lb)) / abs(float(lb)),
+                    max(float((ga[k].cpu().double() - gb[k].double()).abs().max())
+                        / float(gb[k].abs().max()) for k in gb))
+
+        loss_err, grad_err = step_errs(by_dtype[torch.float64][1], by_dtype[torch.float64][0])
+        loss_err32, grad_err32 = step_errs(by_dtype[torch.float32][1], by_dtype[torch.float32][0])
+        _, cpu32_grad_err = step_errs(by_dtype[torch.float32][0], by_dtype[torch.float64][0])
+        check(loss_err <= TRAIN_LOSS_RTOL, f"selfsup f64 loss card vs CPU {loss_err}")
+        check(grad_err <= TRAIN_GRAD_RTOL, f"selfsup f64 gradients card vs CPU {grad_err}")
+        check(np.isfinite(loss_err32) and np.isfinite(grad_err32),
+              "selfsup f32 step: non-finite loss or gradients")
+        del by_dtype
 
         # the pretrained encoder re-heads the flagship in the Trainer
         arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
@@ -2727,8 +2873,11 @@ def phase_selfsup(torch, device_name: str, smi: str) -> dict:
         "epochs": SELFSUP_EPOCHS, "updates_per_epoch": SELFSUP_UPDATES,
         "step_ms": step_ms, "loop_steps_per_s": steps / t_train, "train_seconds": t_train,
         "val_loss_first": val[0], "val_loss_last": val[-1], "history": history,
-        "f32_card_vs_cpu": {"crops": SELFSUP_CHECK, "loss_rel_err": loss_err,
-                            "grad_err_of_max": grad_err},
+        "f64_card_vs_cpu": {"crops": SELFSUP_CHECK, "loss_rel_err": loss_err,
+                            "grad_err_of_max": grad_err, "loss_rtol": TRAIN_LOSS_RTOL,
+                            "grad_rtol": TRAIN_GRAD_RTOL},
+        "f32_card_vs_cpu": {"loss_rel_err": loss_err32, "grad_err_of_max": grad_err32,
+                            "cpu_f32_vs_f64_grad_err_of_max": cpu32_grad_err},
         "finetune": {"updates": SELFSUP_FT_UPDATES, "encoder_tensors": len(enc),
                      "history": ft_history},
         "served": {"launches": launches},

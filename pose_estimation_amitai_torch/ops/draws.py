@@ -9,7 +9,9 @@ this process's ``index``-th block of them. The generator then advances as
 it does on one process, and each row gets the draw it gets there, so an
 N-process step trains on what the 1-process step trains on (JAX's sharded
 step draws over the global batch too). Outside a share, the draws are
-``torch.rand`` / ``torch.randint`` as they are.
+``torch.rand`` / ``torch.randint`` as they are. A draw of one value for
+the whole batch (the augmentation's canvas bucket) is the same in and out
+of a share: :func:`scalar_randint`.
 """
 
 from __future__ import annotations
@@ -56,3 +58,11 @@ def randint(high: int, shape: tuple[int, ...], generator: torch.Generator,
     rows."""
     return _rows(
         lambda s: torch.randint(0, high, s, generator=generator, device=device), shape)
+
+
+def scalar_randint(high: int, generator: torch.Generator,
+                   device: torch.device | str) -> int:
+    """One ``torch.randint(0, high, ())`` from ``generator``: a value for
+    the whole batch, the same in every share (a row share does not touch
+    it)."""
+    return int(torch.randint(0, high, (), generator=generator, device=device))

@@ -9,8 +9,8 @@ pytorch/self supervision/train_self_supervision.py):
   ``sqrt(nnz(mask)) // 2``, and 5 holes of 16 px at random fly-body pixels
   (``create_holes``, :70-95);
 * the same random affine warp on the holed input and the clean target
-  (:46-63), the port's gather warp (``ops.affine.augment_pair``; JAX's
-  default is its separable warp, the known deviation of ROADMAP A6(ii));
+  (:46-63), by ``ops.affine.augment_pair``'s default separable warp on
+  rotation buckets, as JAX's pretraining warps;
 * objective: MSE of the reconstruction against the clean (warped) image in
   float32 (:132-224).
 

@@ -894,6 +894,63 @@ def test_train_steps_on_card_resume_exactly(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the separable warp (no hand-written kernel: the card's library ops against
+# the CPU's; the coordinates are the same bits on both)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [96, 192])
+def test_separable_warp_on_card_matches_cpu(cuda, hw, dtype):
+    """float32 within 1e-5; bf16 within 0.02, the bound its CPU test holds
+    the port to JAX by (tests/test_torch_affine_separable.py)."""
+    from pose_estimation_amitai_torch.ops import affine
+
+    gen = torch.Generator().manual_seed(hw)
+    images = torch.rand((6, hw, hw, 4), generator=gen).to(dtype)
+    p = affine.sample_augment_params(gen, 6, rotation_range=180.0, xy_shifts=10.0,
+                                     zoom_range=(0.9, 1.1))
+    mats = affine.make_affine_matrix(p, hw, hw)
+    torch.testing.assert_close(affine._inverse(mats.to(cuda)).cpu(), affine._inverse(mats),
+                               rtol=0, atol=0)
+    for limit in (affine._shear_limit(10.0), 1.0):
+        got = affine.affine_warp_separable_batch(images.to(cuda), mats.to(cuda), 1,
+                                                 shear_limit=limit)
+        want = affine.affine_warp_separable_batch(images, mats, 1, shear_limit=limit)
+        assert got.is_cuda and got.dtype == dtype and got.shape == images.shape
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= (1e-5 if dtype == torch.float32 else 0.02), (limit, err)
+
+
+def test_bucketed_augment_on_card_draws_as_on_cpu(cuda):
+    """A bucketed ``augment_views_and_peaks`` at 192 px on the card draws
+    its bucket first, then the rows, as on the CPU: a replay of those
+    draws from the same seed gives its matrices, and the CPU's warp on
+    them its frames."""
+    from pose_estimation_amitai_torch.ops import affine, draws
+
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((4, 192, 192, 4), np.float32))
+    pk = torch.from_numpy(rng.uniform(30, 160, (4, 6, 2)).astype(np.float32))
+    buckets = affine.rotation_buckets(30.0)
+    seen = set()
+    for seed in range(6):
+        warped, maps, mats = affine.augment_views_and_peaks(
+            torch.Generator(device=cuda).manual_seed(seed), images.to(cuda), pk.to(cuda),
+            torch.ones((4, 6), device=cuda), rotation_range=30.0)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        lo, hi, quad = buckets[draws.scalar_randint(3, gen, cuda)]
+        seen.add(hi)
+        p = affine.sample_augment_params(gen, 4, rotation_range=hi, rotation_low=lo,
+                                         quadrants=quad)
+        torch.testing.assert_close(mats.reshape(4, 3, 3),
+                                   affine.make_affine_matrix(p, 192, 192), rtol=0, atol=0)
+        want = affine.affine_warp_separable_batch(images, mats.reshape(4, 3, 3).cpu(), 1,
+                                                  shear_limit=affine._shear_limit(hi))
+        assert float((warped.cpu() - want).abs().max()) <= 1e-5
+        assert maps.is_cuda and bool(torch.isfinite(maps).all())
+    assert len(seen) >= 2, seen
+
+
+# ---------------------------------------------------------------------------
 # the BatchNorm families and the camera-matrix model (no hand-written kernel:
 # the card's library ops against the CPU's)
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ numpy-seeded inputs (CPU): Gaussian targets and morphology (exact or within
 and 3 on fixed parameters (within 1e-5), the training decodes and losses,
 and reprojection; then the augmentation draws, whose streams cannot match
 JAX's, by their statistics and consistency, and the gather warp against
-JAX's default separable one at 192 px."""
+the separable one (JAX's default, and the port's) at 192 px."""
 
 import numpy as np
 import pytest
@@ -164,9 +164,22 @@ def test_affine_warp_identity_flips_and_dtype(rng):
 
 
 def test_separable_method_is_refused():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        affine.augment_pair(torch.Generator(), torch.zeros(1, 8, 8, 1),
-                            torch.zeros(1, 8, 8, 1), method="separable")
+    """Only "separable" (the default) and "exact" name a warp: both run in
+    every ``augment_*`` function, and any other name is refused."""
+    images, maps = torch.rand(1, 8, 8, 1), torch.rand(1, 8, 8, 1)
+    pk, vals = torch.full((1, 1, 2), 4.0), torch.ones(1, 1)
+    for method in ("exact", "separable"):
+        gen = torch.Generator().manual_seed(0)
+        assert affine.augment_pair(gen, images, maps, method=method)[0].shape == images.shape
+        assert affine.augment_images_and_peaks(gen, images, pk, vals,
+                                               method=method)[0].shape == images.shape
+        assert affine.augment_views_and_peaks(gen, images, pk, vals,
+                                              method=method)[2].shape == (1, 1, 3, 3)
+    for fn, args in ((affine.augment_pair, (images, maps)),
+                     (affine.augment_images_and_peaks, (images, pk, vals)),
+                     (affine.augment_views_and_peaks, (images, pk, vals))):
+        with pytest.raises(ValueError, match="separable"):
+            fn(torch.Generator(), *args, method="gather")
 
 
 def test_sample_augment_params_statistics():
@@ -224,7 +237,7 @@ def test_view_blocks_warped_by_their_own_matrix(rng):
     pk = T(rng.uniform(8, 24, (b, v * 2, 2)).astype(np.float32))
     warped, maps, mats = affine.augment_views_and_peaks(
         torch.Generator().manual_seed(3), images, pk, torch.ones(b, v * 2),
-        num_views=v, rotation_range=25.0, xy_shifts=4.0)
+        num_views=v, rotation_range=25.0, xy_shifts=4.0, method="exact")
     assert mats.shape == (b, v, 3, 3) and maps.shape == (b, hw, hw, v * 2)
     assert not torch.allclose(mats[0, 0], mats[0, 1], atol=1e-3)
     for view in range(v):
@@ -245,18 +258,20 @@ def test_augment_pair_clamps_cubic_targets(rng):
 
 @pytest.mark.parametrize("order", [1, 3])
 def test_gather_warp_vs_jax_default_separable_at_192(rng, order):
-    """What training by gather in place of JAX's default separable warp
-    changes, at the production size, held to the tolerance of
+    """The gap between the port's two warps at the production size: the
+    gather (``method="exact"``) against the separable one, JAX's default
+    (tests/test_torch_affine_separable.py holds it to JAX's), held to the
+    tolerance of
     tests/test_ops_affine.py::test_separable_matches_exact_at_production_size
-    (max 0.05, mean 1e-3). JAX's separable passes run Catmull-Rom whatever
+    (max 0.05, mean 1e-3). The separable passes run Catmull-Rom whatever
     the order, so at order 1 this is also bilinear against cubic."""
     pk = rng.uniform(30, 160, (2, 8, 2)).astype(np.float32)
     img = _np(jgaussian.confmaps_from_peaks(jnp.asarray(pk), (192, 192), 5.0))
     kw = dict(angle_deg=[37.0, -22.0], scale=[0.9, 1.1], shift_x=[6.0, -8.0],
               shift_y=[-5.0, 7.0], flip_h=[True, False])
     mats = _np(jaffine.make_affine_matrix(_params(jaffine, 2, **kw), 192, 192))
-    sep = _np(jaffine.affine_warp_separable_batch(jnp.asarray(img), jnp.asarray(mats),
-                                                  order, shear_limit=jaffine._shear_limit(30.0)))
+    sep = affine.affine_warp_separable_batch(T(img), T(mats), order,
+                                             shear_limit=affine._shear_limit(30.0)).numpy()
     got = affine.affine_warp_batch(T(img), T(mats), order).numpy()
     d = np.abs(got - sep)
     print(f"gather vs separable at 192 px, order {order}: max {d.max():.2e}, "
