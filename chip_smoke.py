@@ -37,7 +37,15 @@ Phases, each printing one JSON line ({"phase": ...}):
              one predict_movie call, with the kernels' launch counters
              zeroed just before and read just after (every conv of the path,
              the 4-channel first one and the decoder's two, must have taken a
-             tensor-core kernel); then the same frames
+             tensor-core kernel); then the staging movie, 16 chunks (4,096
+             frames) of distinct frames made from the 612 (chunk j from
+             frame 37 j on, wrapping, plus j / 64), through predict_movie at
+             prefetch 1 and 4, the counters zeroed just before each and read
+             just after, its peaks bit-equal to each chunk served alone from
+             a device-resident tensor; per chunk, the stager's host fill of
+             a pinned buffer (host clock), its pinned H2D copy (CUDA events
+             on its copy stream) and the compute from a resident tensor
+             (CUDA events); then the same frames
              through the "module" route (cuDNN), timed; then the first
              request's maps and peaks, fused vs module, in bf16 (as served,
              and equal to the main path's answer) and in float32 (TF32 off);
@@ -57,7 +65,8 @@ Phases, each printing one JSON line ({"phase": ...}):
              MLP 1024, bf16) on seeded weights: the same requests and movie
              on the "fused" route (every attention core on the attention
              kernel, its counter zeroed just before and read just after: 8
-             launches a chunk), then on the "module" route with the bf16
+             launches a chunk), the staging movie as in the slice phase,
+             then on the "module" route with the bf16
              softmax chain (the default) and with the exact softmax; then
              fused vs module on one chunk in float32 and in bf16;
 9. vit4cam - ALL_CAMS_18_POINTS_VIT (192x192x16 -> 72 maps), full width, 64
@@ -256,7 +265,9 @@ decoder rows also carry ``train_launches``, their launches on the trained
 weights' chunk, and ``trainer_launches``, theirs on the Trainer's run
 directory served through ``Predictor.from_checkpoint``; the attention row
 ``vit_train_launches``, its launches on the trained ViT's run directory.
-The rows of B1, B2, B3 and S1 carry ``export_launches``, their launches
+The rows of B1, B2 and S1 carry ``movie_launches``, their launches in the
+staging movie at prefetch 4 (16 chunks). The rows of B1, B2, B3 and S1
+carry ``export_launches``, their launches
 from the loaded serving artifacts; B1, B2 and S1 ``parallel_launches``, theirs
 on the parallel phase's serving paths (the mesh Predictor, the
 pipeline-trained ViT); B1 and B2 ``selfsup_launches`` (the
@@ -286,6 +297,9 @@ import numpy as np
 SEED = 0
 CHUNK = 256  # Predictor chunk: the batch of every kernel call on the main path
 REQUESTS = (256, 256, 100)  # slice-phase request sizes (ragged tail)
+MOVIE_CHUNKS = 16  # the staging movie of the slice and vit phases: 4,096 frames
+MOVIE_STRIDE = 37  # its chunk j starts at frame 37 j of the 612, wrapping
+MOVIE_PREFETCH = (1, 4)  # predict_movie's prefetch, each timed
 F32_ATOL = 1e-4  # kernel vs plain, float32: sums in another order only
 BF16_RTOL = 1e-2  # kernel vs plain, bf16: of max|plain|; x1/x2 rounding flips
 ROUTE_F32_ATOL = 1e-4  # fused vs module maps, float32, TF32 off
@@ -917,7 +931,77 @@ def check_peaks(answers, movie, n: int, k: int) -> np.ndarray:
     return peaks
 
 
-def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
+def movie_frames(frames: np.ndarray) -> np.ndarray:
+    """MOVIE_CHUNKS chunks of distinct frames made cheaply from ``frames``:
+    chunk j is the frames from index MOVIE_STRIDE * j on, wrapping, plus
+    j / 64."""
+    n = len(frames)
+    out = np.empty((MOVIE_CHUNKS * CHUNK, *frames.shape[1:]), frames.dtype)
+    for j in range(MOVIE_CHUNKS):
+        idx = (np.arange(CHUNK) + MOVIE_STRIDE * j) % n
+        np.add(frames[idx], np.float32(j / 64), out=out[j * CHUNK : (j + 1) * CHUNK])
+    return out
+
+
+def staging(torch, pred, movie: np.ndarray, counters, zero) -> dict:
+    """The movie of distinct frames through ``pred.predict_movie`` at each
+    of MOVIE_PREFETCH (host clock), its peaks bit-equal to each chunk served
+    alone from a device-resident tensor, ``counters()`` read just after each
+    movie and ``zero()`` called just before; and per chunk: the stager's
+    host fill of a pinned buffer (host clock), its pinned H2D copy (CUDA
+    events on its copy stream), the compute from a resident tensor (CUDA
+    events)."""
+    from pose_estimation_amitai_torch.infer import fill_pinned
+
+    cs = pred.chunk_size
+    chunks = [movie[i : i + cs] for i in range(0, len(movie), cs)]
+    resident = [torch.from_numpy(c).to("cuda") for c in chunks]
+    want = np.concatenate([pred(r) for r in resident])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r in resident:
+        pred._run(r)
+    end.record()
+    torch.cuda.synchronize()
+    compute_ms = start.elapsed_time(end) / len(chunks)
+    del resident
+
+    st = pred._stager
+    buf = st.buffers(torch.float32, movie.shape[1:])[0]
+    t0 = time.perf_counter()
+    for c in chunks:
+        fill_pinned(buf, c)
+    fill_ms = (time.perf_counter() - t0) * 1e3 / len(chunks)
+    dev = torch.empty(buf.shape, dtype=buf.dtype, device="cuda")
+    with torch.cuda.stream(st.stream):
+        dev.copy_(buf, non_blocking=True)  # warm-up
+        start.record(st.stream)
+        for _ in chunks:
+            dev.copy_(buf, non_blocking=True)
+        end.record(st.stream)
+    torch.cuda.synchronize()
+    h2d_ms = start.elapsed_time(end) / len(chunks)
+    del dev
+
+    rates, launches = {}, {}
+    for p in MOVIE_PREFETCH:
+        zero()
+        t0 = time.perf_counter()
+        got = pred.predict_movie(movie, prefetch=p)
+        t = time.perf_counter() - t0
+        launches[p] = counters()
+        check(np.array_equal(got, want),
+              f"predict_movie at prefetch {p} differs from the chunks served one at a time")
+        rates[p] = len(movie) / t
+    return {"frames": len(movie), "chunk_size": cs, "movie_frames_per_s": rates,
+            "host_fill_ms_per_chunk": fill_ms, "pinned_h2d_ms_per_chunk": h2d_ms,
+            "h2d_gb_per_s": buf.numel() * buf.element_size() / h2d_ms * 1e-6,
+            "resident_compute_ms_per_chunk": compute_ms, "launches": launches,
+            "movie_launches": launches[MOVIE_PREFETCH[-1]]}
+
+
+def phase_slice(torch, cfg, params, frames, movie, device_name: str, smi: str) -> dict:
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.ops import hopper_conv as hc
     from pose_estimation_amitai_torch.ops import hopper_deconv as hd
@@ -937,7 +1021,7 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
 
     # ---- the main path: counters zeroed just before, read just after ----
     zero_conv_counters(hc, hd)
-    answers, movie, t_req, t_movie = serve(fused, frames)
+    answers, movie_peaks, t_req, t_movie = serve(fused, frames)
     launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
                 "fused_decoder": hd.fused_decoder.launches}
     convs = dict(hc.fused_encoder_stage.convs_by_kernel)
@@ -953,7 +1037,17 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
     check(launches["fused_encoder_stage"] == 3 * chunks
           and launches["fused_decoder"] == chunks,
           f"launch counts {launches}, expected {3 * chunks} and {chunks}")
-    check_peaks(answers, movie, n, k)
+    check_peaks(answers, movie_peaks, n, k)
+
+    # ---- the staging movie: counters zeroed just before, read just after ----
+    staged = staging(
+        torch, fused, movie,
+        lambda: {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                 "fused_decoder": hd.fused_decoder.launches},
+        lambda: zero_conv_counters(hc, hd))
+    for p, got in staged["launches"].items():
+        check(got == {"fused_encoder_stage": 3 * MOVIE_CHUNKS, "fused_decoder": MOVIE_CHUNKS},
+              f"the movie at prefetch {p} launched {got}")
 
     module = predictor(cfg, False)
     check(module.serving_path == "module", module.serving_path)
@@ -991,7 +1085,7 @@ def phase_slice(torch, cfg, params, frames, device_name: str, smi: str) -> dict:
         "decoder_convs_by_kernel": decoder_convs,
         "decoder_up2_by_kernel": decoder_up2,
         "fused_frames_per_s": n / t_req, "fused_movie_frames_per_s": n / t_movie,
-        "module_frames_per_s": n / t_mod,
+        "module_frames_per_s": n / t_mod, "staging": staged,
         "routes": routes,
     }
     emit(result)
@@ -1196,7 +1290,7 @@ def vit_params(cfg, in_channels: int, out_channels: int, four: bool) -> dict:
         four_cameras=four)
 
 
-def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
+def phase_vit(torch, frames, movie, device_name: str, smi: str) -> dict:
     """ViT serving through Predictor at full width: the fused route (the
     attention kernel) and the module route."""
     from pose_estimation_amitai_torch import Config
@@ -1223,7 +1317,7 @@ def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
     # ---- the ViT path: counter zeroed just before, read just after ----
     ha.fused_attention.launches = 0
     ha.fused_attention.launches_by_kernel = dict.fromkeys(ha.KERNEL_CODES, 0)
-    answers, movie, t_req, t_movie = serve(fused, frames)
+    answers, movie_peaks, t_req, t_movie = serve(fused, frames)
     launches = ha.fused_attention.launches
     by_kernel = dict(ha.fused_attention.launches_by_kernel)
     # --------------------------------------------------------------------
@@ -1233,7 +1327,18 @@ def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
           f"the served attention launches took {by_kernel}")
     check(launches == depth * chunks,
           f"fused_attention launched {launches} times, expected {depth * chunks}")
-    check_peaks(answers, movie, n, k)
+    check_peaks(answers, movie_peaks, n, k)
+
+    # ---- the staging movie: counter zeroed just before, read just after ----
+    def zero_attention():
+        ha.fused_attention.launches = 0
+
+    staged = staging(torch, fused, movie,
+                     lambda: {"fused_attention": ha.fused_attention.launches}, zero_attention)
+    for p, got in staged["launches"].items():
+        check(got == {"fused_attention": depth * MOVIE_CHUNKS},
+              f"the movie at prefetch {p} launched {got}")
+    before_module = ha.fused_attention.launches
 
     rates = {}
     for name, kw in (("module", {}), ("module_exact_softmax", {"fast_softmax": False})):
@@ -1244,7 +1349,7 @@ def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
         ans, mov, t, _ = serve(pred, frames)
         check_peaks(ans, mov, n, k)
         rates[name + "_frames_per_s"] = n / t
-    check(ha.fused_attention.launches == launches,
+    check(ha.fused_attention.launches == before_module,
           "the module route launched the attention kernel")
 
     # one chunk's normalised maps and peaks, fused vs module (exact softmax
@@ -1271,7 +1376,7 @@ def phase_vit(torch, frames, device_name: str, smi: str) -> dict:
         "launches": {"fused_attention": launches},
         "attention_launches_by_kernel": by_kernel,
         "fused_frames_per_s": n / t_req, "fused_movie_frames_per_s": n / t_movie,
-        **rates, "routes": routes,
+        **rates, "staging": staged, "routes": routes,
     }
     emit(result)
     return result
@@ -3666,12 +3771,14 @@ def main() -> int:
     )
     frames = np.random.default_rng(SEED).random(
         (sum(REQUESTS), 192, 192, 4), dtype=np.float32)
+    movie = movie_frames(frames)
     rows = phase_kernels(torch, params)
-    sl = phase_slice(torch, cfg, params, frames, name, smi)
+    sl = phase_slice(torch, cfg, params, frames, movie, name, smi)
     q8 = phase_int8(torch, cfg, params, frames, name, smi)
     im = phase_im2col(torch, name, smi)
     phase_lift(torch)
-    vt = phase_vit(torch, frames, name, smi)
+    vt = phase_vit(torch, frames, movie, name, smi)
+    del movie
     phase_vit4cam(torch, name, smi)
     probe_rows = phase_probes(torch, name, smi)
     tr = phase_train(torch, name, smi)
@@ -3688,8 +3795,12 @@ def main() -> int:
                 "quantized_conv3x3": im["launches"]}
     imported = {**{k: v for k, v in imp["launches"]["BasicNet"].items() if v},
                 **{k: v for k, v in imp["launches"]["ViT"].items() if v}}
+    staged = {**sl["staging"]["movie_launches"], **vt["staging"]["movie_launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
+        if r["name"] in staged:  # the staging movies of distinct frames
+            r["movie_launches"] = staged[r["name"]]
+            check(r["movie_launches"] > 0, f"{r['name']}: no launch in the staging movie")
         if r["name"] in ex["launches"]:  # the loaded serving artifacts
             r["export_launches"] = ex["launches"][r["name"]]
             check(r["export_launches"] > 0, f"{r['name']}: no launch from a loaded program")

@@ -44,6 +44,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .infer import FrameStager
+
 MAGIC = b"PEATORCH"
 FORMAT = "pose-estimation-amitai-torch/exported-predictor"
 
@@ -121,13 +123,12 @@ class ExportedPredictor:
         self.chunk_size = int(header["chunk_size"])
         self.image_shape = tuple(header["image_shape"])
         self.module = program.module()
+        self._stager = FrameStager(device, self.chunk_size)
 
     def _stage(self, chunk) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(chunk, np.float32)).to(self.device)
-        pad = self.chunk_size - t.shape[0]
-        if pad:
-            t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
-        return t
+        """One chunk as float32 (JAX's ``np.asarray(..., np.float32)``) on
+        the device through the Predictor's stager, zero-padded."""
+        return self._stager(np.asarray(chunk, np.float32))
 
     def __call__(self, frames) -> np.ndarray:
         n = frames.shape[0]

@@ -19,6 +19,9 @@ family: the CNN family (the flagship per-wing ``BasicNet``, coarse and C2F,
   kernel; ``"int8_generic"``, every other model with its linear and conv
   layers on int8 (models/quantized_generic.py);
 * ``predict_movie`` — keeps up to ``prefetch`` chunks in flight;
+* ``FrameStager`` — a chunk's frames onto the device: on a ``cuda`` device
+  from pinned host buffers on a copy stream of its own, so the copy of one
+  chunk overlaps the compute of the ones before it;
 * ``lift_to_3d`` — decoded per-camera peaks + cropZone + DLT cameras ->
   multi-view triangulated 3D points;
 * ``evaluate_l2`` — pixel-L2 statistics of decoded against true peaks.
@@ -50,6 +53,108 @@ from .ops import geometry, peaks
 from .parallel.mesh import DATA_AXIS, data_rows
 
 DECODES = ("argmax", "soft", "refined")
+RING = 2  # pinned host buffers a stager fills in turn
+
+
+def fill_pinned(dst: torch.Tensor, src) -> None:
+    """Copy ``src`` (a numpy array or a CPU tensor of ``dst``'s shape) into
+    the pinned host tensor ``dst``: by ``copy_``, on torch's intra-op
+    threads, where torch can wrap the array (a tensor, or a C-contiguous,
+    writeable numpy array in native byte order), else by numpy's one-thread
+    assignment (read-only memmaps, strided or foreign-order arrays)."""
+    if torch.is_tensor(src):
+        dst.copy_(src)
+    elif src.flags.c_contiguous and src.flags.writeable and src.dtype.isnative:
+        dst.copy_(torch.from_numpy(src))
+    else:
+        dst.numpy()[...] = src
+
+
+class FrameStager:
+    """Chunks of frames onto one device, each zero-padded to ``rows`` rows
+    (JAX pads with zeros): the port's counterpart of JAX's ``jnp.asarray``
+    / ``jax.device_put``, whose runtime copies on a transfer stream of its
+    own. The frames keep their dtype, as ``jnp.asarray`` keeps it.
+
+    On a ``cuda`` device, a chunk on the host (numpy, or a CPU tensor) is
+    filled into the next of a ring of ``RING`` pinned host buffers, made at
+    first use for its dtype and frame shape and reused; the host waits, before
+    refilling a buffer, for the event recorded after the last copy out of it.
+    The buffer is copied with ``non_blocking=True`` on the stager's copy
+    stream into a device tensor allocated on that stream, the padded rows
+    zeroed there, and a "copied" event recorded, which the compute stream
+    (the current stream at staging) waits on. The device tensor outlives its
+    use by ``record_stream`` on the compute stream: the caching allocator
+    hands its memory out again only after the work queued there on it has
+    run. Nothing falls back to a pageable copy: a failed pin or stream
+    raises.
+
+    On the CPU: ``torch.as_tensor`` and the zero pad. A tensor already on a
+    ``cuda`` device is used as it is (padded there)."""
+
+    def __init__(self, device: torch.device, rows: int):
+        self.device = torch.device(device)
+        self.rows = rows
+        self.stream = (torch.cuda.Stream(device=self.device)
+                       if self.device.type == "cuda" else None)
+        self._key = None  # (dtype, frame shape) of the ring
+        self._buffers: list[torch.Tensor] = []
+        self._copied: list = []  # the event after the last copy out of each buffer
+        self._next = 0
+
+    def buffers(self, dtype: torch.dtype, frame_shape: tuple) -> list[torch.Tensor]:
+        """The pinned ring for frames of ``dtype`` and ``frame_shape``, made
+        here at first use (after the copies out of an earlier ring)."""
+        key = (dtype, tuple(frame_shape))
+        if key != self._key:
+            for ev in self._copied:
+                if ev is not None:
+                    ev.synchronize()
+            self._buffers = []
+            for _ in range(RING):
+                buf = torch.empty((self.rows, *frame_shape), dtype=dtype, pin_memory=True)
+                if not buf.is_pinned():
+                    raise RuntimeError("the staging buffer was not pinned")
+                self._buffers.append(buf)
+            self._copied = [None] * RING
+            self._next = 0
+            self._key = key
+        return self._buffers
+
+    def __call__(self, chunk) -> torch.Tensor:
+        """``chunk`` (at most ``rows`` frames, numpy or tensor) on the
+        device, its rows then zeros up to ``rows``."""
+        on_card = torch.is_tensor(chunk) and chunk.device.type == "cuda"
+        if self.stream is None or on_card:
+            t = torch.as_tensor(chunk).to(self.device, non_blocking=True)
+            pad = self.rows - t.shape[0]
+            return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) if pad else t
+        if not torch.is_tensor(chunk):
+            chunk = np.asarray(chunk)
+        dtype = chunk.dtype if torch.is_tensor(chunk) else _torch_dtype(chunk.dtype)
+        n = chunk.shape[0]
+        ring = self.buffers(dtype, chunk.shape[1:])
+        i = self._next
+        buf = ring[i]
+        self._next = (i + 1) % RING
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()  # the last copy out of it has run
+        fill_pinned(buf[:n], chunk)
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(buf.shape, dtype=dtype, device=self.device)
+            out[:n].copy_(buf[:n], non_blocking=True)
+            out[n:].zero_()
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        self._copied[i] = copied
+        compute.wait_event(copied)
+        out.record_stream(compute)
+        return out
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 class Predictor:
@@ -146,6 +251,8 @@ class Predictor:
         self.device = torch.device(device)
         self.image_shape = tuple(image_shape)
         self.chunk_size = chunk_size
+        rows = self._rows()
+        self._stager = FrameStager(self.device, rows.stop - rows.start)
         self.return_heatmaps = return_heatmaps
         self.decode = decode
         self.num_output_channels = num_output_channels
@@ -332,12 +439,12 @@ class Predictor:
             return self.model(frames, *cameras)
 
     def _run(self, frames: torch.Tensor, *cameras: torch.Tensor):
-        """Maps and peaks of one padded chunk; with a mesh, this process's
-        rows of it over ``data``, gathered so every process holds them all."""
+        """Maps and peaks of one padded chunk as :meth:`_stage` gives it;
+        with a mesh, of this process's rows of it over ``data``, gathered so
+        every process holds them all."""
         if self.mesh is None:
             return self._run_rows(frames, *cameras)
-        rows = data_rows(self.mesh, frames.shape[0])
-        res = self._run_rows(frames[rows], *(c[rows] for c in cameras))
+        res = self._run_rows(frames, *cameras)
         group = self.mesh.get_group(DATA_AXIS)
         if self.return_heatmaps:
             return tuple(_gather_rows(t, group) for t in res)
@@ -360,16 +467,22 @@ class Predictor:
             return maps, pts
         return pts
 
-    def _stage(self, chunk) -> torch.Tensor:
-        """One chunk of frames on the device, zero-padded to chunk_size."""
-        t = torch.as_tensor(chunk).to(self.device, non_blocking=True)
-        pad = self.chunk_size - t.shape[0]
-        if pad:
-            t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
-        return t
+    def _rows(self) -> slice:
+        """This process's rows of a chunk: all of them without a mesh."""
+        if self.mesh is None:
+            return slice(0, self.chunk_size)
+        return data_rows(self.mesh, self.chunk_size)
+
+    def _stage(self, frames, start: int) -> torch.Tensor:
+        """This process's rows of the chunk of ``frames`` from ``start`` on
+        the device, zero-padded to their full count (JAX pads with zeros);
+        with a mesh only those rows are copied, as JAX's batch-sharded
+        ``device_put`` places each device's own."""
+        return self._stager(frames[start : start + self.chunk_size][self._rows()])
 
     def _stage_cameras(self, start: int, stop: int) -> tuple[torch.Tensor, ...]:
-        """The camera rows of samples [start, stop) on the device, padded to
+        """This process's camera rows of samples [start, stop) on the device
+        (issued on the compute stream after their chunk's frames), padded to
         chunk_size with the last row (a zero camera would feed the FTL
         nothing sensible; the padded rows' outputs are dropped)."""
         if not self._needs_cams:
@@ -378,7 +491,8 @@ class Predictor:
         for c in self.cameras:
             t = torch.from_numpy(c[start:stop]).to(self.device, non_blocking=True)
             pad = self.chunk_size - t.shape[0]
-            out.append(torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad else t)
+            t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad else t
+            out.append(t[self._rows()])
         return tuple(out)
 
     def __call__(self, frames):
@@ -397,8 +511,7 @@ class Predictor:
         outs, maps = [], []
         for i in range(0, n, cs):
             keep = min(cs, n - i)
-            res = self._run(self._stage(frames[i : i + cs]),
-                            *self._stage_cameras(i, i + keep))
+            res = self._run(self._stage(frames, i), *self._stage_cameras(i, i + keep))
             if self.return_heatmaps:
                 m, p = res
                 maps.append(m[:keep].cpu().numpy())
@@ -410,14 +523,31 @@ class Predictor:
             return np.concatenate(maps), pts
         return pts
 
+    def _fetch(self, res: torch.Tensor):
+        """Start copying one chunk's peaks to the host: on a ``cuda`` device
+        into pinned memory right behind the chunk's kernels on the compute
+        stream, with an event, so that :func:`_fetched` waits for this chunk
+        alone. A plain ``.cpu()`` would queue behind every chunk dispatched
+        since, and drain the pipeline at each fetch."""
+        if self.device.type != "cuda":
+            return res, None
+        host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+        host.copy_(res, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
     def predict_movie(self, frames, prefetch: int = 4) -> np.ndarray:
         """Throughput-oriented decode of a whole movie.
 
-        Keeps at most ``prefetch`` chunks in flight: the device queue runs
-        chunk i + prefetch while the host waits for chunk i's small peak
-        output, and device memory stays bounded at ``prefetch`` chunks
-        whatever the movie's length. The ragged tail goes through
-        ``__call__``, as does a camera model's whole movie.
+        Keeps at most ``prefetch`` chunks in flight: chunk i + prefetch is
+        staged (on a ``cuda`` device, copied from pinned memory on the
+        stager's own stream) and dispatched while the host waits for chunk
+        i's small peak output (copied to pinned memory as its kernels end),
+        so copies, compute and host work overlap, and device memory stays
+        bounded at about ``prefetch`` chunks whatever the movie's length.
+        The ragged tail goes through ``__call__``, as does a camera model's
+        whole movie.
         """
         if self.return_heatmaps:
             raise ValueError("predict_movie decodes peaks only")
@@ -428,17 +558,25 @@ class Predictor:
         cs = self.chunk_size
         n_full = n // cs
         out: list[np.ndarray] = []
-        in_flight: list[torch.Tensor] = []
+        in_flight: list[tuple] = []  # (host peaks, their copy's event)
         for i in range(n_full):
-            in_flight.append(self._run(self._stage(frames[i * cs : (i + 1) * cs])))
+            in_flight.append(self._fetch(self._run(self._stage(frames, i * cs))))
             if len(in_flight) >= prefetch:
-                out.append(in_flight.pop(0).cpu().numpy())
-        out.extend(r.cpu().numpy() for r in in_flight)
+                out.append(_fetched(in_flight.pop(0)))
+        out.extend(_fetched(r) for r in in_flight)
         if n_full * cs < n:
             out.append(self(frames[n_full * cs :]))
         if not out:
             return np.zeros((0, 3, self.num_output_channels), np.float32)
         return np.concatenate(out)
+
+
+def _fetched(pending) -> np.ndarray:
+    """The host array of a :meth:`Predictor._fetch`, once its copy has run."""
+    host, done = pending
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
 
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:

@@ -16,16 +16,20 @@ serving, so the bf16 softmax chain) at ``Config(model_type=
 MODEL_18_POINTS_PER_WING_VIT)`` (patch 16, dim 256, depth 8, heads 8,
 dim_head 256, bf16, chunk 256, seeded random weights). Per route: one warm-up
 call, one call on ``--frames`` frames timed on the host clock, then the
-same call under ``torch.profiler``. ``--model train``: ``TRAIN_STEPS`` steps
+same call under ``torch.profiler``; then the same for ``predict_movie`` on
+the same frames (``"predict_movie"``), whose chunks' copies overlap the
+kernels of the chunks before them. ``--model train``: ``TRAIN_STEPS`` steps
 of ``train.loop.make_train_step`` at ``Config()`` (batch 8, augmentation,
 dropout, Adam) on the 128 per-wing samples of 16 synthetic frames, after 3
 warm-up steps, timed, then traced the same way (``--frames`` and
 ``--routes`` do not apply). Prints one JSON object (and writes it to
 ``--out`` if given): the card's ``nvidia-smi`` name and power limit, and
-for each route the wall seconds untraced and traced, the device's busy time
-(the union of its activity intervals) and busy share of the traced wall,
-host-to-device copy time, and device time by kernel name. Needs a CUDA
-device.
+for each route (and its ``predict_movie``) the wall seconds untraced and
+traced, the device's busy time (the union of its activity intervals) and
+busy share of the traced wall, host-to-device copy time, the busy time of
+everything else (``compute_busy_us``: copy time hidden under it is
+``htod_us + compute_busy_us - device_busy_us``), and device time by kernel
+name. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -101,7 +105,8 @@ def profile_route(
     pred(frames[: pred.chunk_size])  # warm-up: kernel load, allocator
     # each call ends in a device-to-host copy, which synchronises
     return {"serving_path": pred.serving_path, "frames": len(frames),
-            "chunk_size": pred.chunk_size, **_traced(lambda: pred(frames))}
+            "chunk_size": pred.chunk_size, **_traced(lambda: pred(frames)),
+            "predict_movie": _traced(lambda: pred.predict_movie(frames))}
 
 
 def profile_train(steps: int) -> dict:
@@ -157,11 +162,14 @@ def _traced(call) -> dict:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
     busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in dev])
+    compute_us = _union_us([(e.time_range.start, e.time_range.end) for e in dev
+                            if "HtoD" not in e.name])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     return {
         "wall_s_untraced": untraced, "wall_s_traced": traced,
         "device_busy_us": busy_us, "device_busy_share": busy_us * 1e-6 / traced,
         "htod_us": sum(v[0] for n, v in by_name.items() if "HtoD" in n),
+        "compute_busy_us": compute_us,
         "device_us_by_name": [
             {"name": n[:NAME_CHARS], "us": v[0], "count": v[1]} for n, v in top
         ],

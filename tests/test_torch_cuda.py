@@ -122,6 +122,108 @@ def test_predictor_fused_matches_module_on_card(cuda):
     np.testing.assert_allclose(out[1][1], out[0][1], atol=1e-4)
 
 
+def _fused_predictor(chunk_size: int, hw: int = 48) -> Predictor:
+    params = init_basicnet_params(np.random.default_rng(0), 4, 6, filters=16)
+    pred = Predictor(Config(num_base_filters=16), params, (hw, hw, 4), 6, device="cuda",
+                     chunk_size=chunk_size, use_fused=True)
+    assert pred.serving_path == "fused"
+    return pred
+
+
+def test_staged_copies_are_pinned_and_off_the_compute_stream(cuda):
+    """__call__ and predict_movie copy every chunk from the stager's two
+    pinned buffers, on its own stream: the profiler sees one pinned H2D copy
+    a chunk, none pageable, on no stream the kernels ran on."""
+    from torch.autograd import DeviceType
+
+    pred = _fused_predictor(8)
+    st = pred._stager
+    assert st.stream is not None and st.stream != torch.cuda.current_stream()
+    frames = np.random.default_rng(1).random((19, 48, 48, 4), dtype=np.float32)
+    want = pred(frames)
+    assert len(st._buffers) == 2 and all(b.is_pinned() for b in st._buffers)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = [pred(frames), pred.predict_movie(frames, prefetch=2)]
+        torch.cuda.synchronize()
+    for g in got:
+        np.testing.assert_array_equal(g, want)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if "HtoD" in e.name]
+    kernel_streams = {e.device_resource_id for e in dev if "conv3x3" in e.name}
+    assert len(copies) == 6 and all("Pinned" in e.name for e in copies), \
+        [e.name for e in copies]
+    assert kernel_streams and not kernel_streams & {e.device_resource_id for e in copies}
+
+
+def test_movie_of_distinct_chunks_equals_resident_chunks(cuda):
+    """7 chunks of distinct frames and a tail: predict_movie at prefetch 1,
+    2 and 4, and __call__, bit for bit each chunk served alone from a
+    device-resident tensor, for float32, uint8, read-only and strided numpy
+    (numpy's assignment fills those) and CPU-tensor frames. A pinned buffer
+    refilled before its copy ran, or a staged tensor reused before the
+    compute stream read it, gives another chunk's peaks."""
+    cs, hw = 32, 96
+    pred = _fused_predictor(cs, hw)
+    rng = np.random.default_rng(2)
+    base = rng.random((7 * cs + 5, hw, hw, 5), dtype=np.float32)
+    read_only = base[..., :4].copy()
+    read_only.setflags(write=False)
+    movies = {"float32": base[..., :4].copy(), "read_only": read_only,
+              "strided": base[..., :4], "uint8": (base[..., :4] * 255).astype(np.uint8),
+              "tensor": torch.from_numpy(base[..., :4].copy())}
+    for kind, movie in movies.items():
+        want = np.concatenate([pred(torch.as_tensor(movie[i : i + cs]).cuda())
+                               for i in range(0, len(movie), cs)])
+        for prefetch in (1, 2, 4):
+            np.testing.assert_array_equal(pred.predict_movie(movie, prefetch=prefetch), want,
+                                          err_msg=f"{kind} prefetch {prefetch}")
+        np.testing.assert_array_equal(pred(movie), want, err_msg=kind)
+
+
+@pytest.mark.parametrize("lagging", ["copy", "compute"])
+def test_staging_holds_while_a_stream_lags(cuda, lagging):
+    """A spin kernel (~50 ms) queued first on the copy stream holds the
+    copies back while the host refills the pinned ring: each buffer must
+    wait for the copy out of it. Queued first on the compute stream, it
+    holds the kernels back while the host stages the next chunks: a staged
+    tensor must not be handed out again before the kernels read it. Either
+    way the movie's peaks are the resident chunks', bit for bit."""
+    cs = 8
+    pred = _fused_predictor(cs)
+    frames = np.random.default_rng(3).random((6 * cs, 48, 48, 4), dtype=np.float32)
+    want = np.concatenate([pred(torch.from_numpy(frames[i : i + cs]).cuda())
+                           for i in range(0, len(frames), cs)])
+    st = pred._stager
+    st.buffers(torch.float32, frames.shape[1:])
+    torch.cuda.synchronize()
+    stream = st.stream if lagging == "copy" else torch.cuda.current_stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(100_000_000)
+    np.testing.assert_array_equal(pred.predict_movie(frames, prefetch=4), want)
+
+
+@pytest.mark.parametrize("failure", ["alloc", "unpinned"])
+def test_a_pin_failure_raises(cuda, monkeypatch, failure):
+    """No fallback to a pageable copy: a pinned allocation that raises, or
+    that comes back unpinned, fails the call."""
+    pred = _fused_predictor(4)
+    empty = torch.empty
+
+    def fake(*args, **kw):
+        if kw.get("pin_memory"):
+            if failure == "alloc":
+                raise RuntimeError("cudaHostAlloc failed")
+            kw["pin_memory"] = False
+        return empty(*args, **kw)
+
+    monkeypatch.setattr(torch, "empty", fake)
+    frames = np.zeros((5, 48, 48, 4), np.float32)
+    with pytest.raises(RuntimeError, match="cudaHostAlloc failed" if failure == "alloc"
+                       else "not pinned"):
+        pred(frames)
+
+
 def _int8(rng, *shape, lim=127):
     return torch.from_numpy(rng.integers(-lim, lim + 1, shape).astype(np.int8)).cuda()
 

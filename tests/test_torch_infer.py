@@ -108,6 +108,81 @@ def test_predict_movie_and_peaks_only(setup):
                          return_heatmaps=True).predict_movie(frames)
 
 
+MOVIE_CHUNK = 2
+MOVIE_LENGTHS = (0, MOVIE_CHUNK - 1, MOVIE_CHUNK, 3 * MOVIE_CHUNK + 1)
+
+
+def _movie(length: int, dtype: str) -> np.ndarray:
+    rng = np.random.default_rng(length)
+    if dtype == "uint8":
+        return rng.integers(0, 256, (length, *SHAPE), dtype=np.uint8)
+    return rng.random((length, *SHAPE), dtype=np.float32)
+
+
+def _spy_on_run(pred, staged: list, chunk_of) -> None:
+    """Record ``chunk_of(args)``, the chunk of each ``pred._run(*args)`` as
+    numpy (JAX's ``_run`` is an attribute its constructor sets; the port's
+    a method, shadowed here)."""
+    run = pred._run
+
+    def spy(*args):
+        staged.append(chunk_of(args))
+        return run(*args)
+
+    pred._run = spy
+
+
+@pytest.fixture(scope="module")
+def jax_movies(setup):
+    """JAX's predict_movie of each length and dtype: (its staged chunks,
+    its peaks)."""
+    _, params = setup
+    pred = jinfer.Predictor(CFG, jax.tree_util.tree_map(jnp.asarray, params), SHAPE, K,
+                            chunk_size=MOVIE_CHUNK)
+    staged: list = []
+    _spy_on_run(pred, staged, lambda a: np.asarray(a[1]))  # a[0]: variables
+    out = {}
+    for length in MOVIE_LENGTHS:
+        for dtype in ("float32", "uint8"):
+            staged.clear()
+            pts = np.asarray(pred.predict_movie(_movie(length, dtype), prefetch=2))
+            out[length, dtype] = (list(staged), pts)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+@pytest.mark.parametrize("prefetch", [1, 2, 4])
+@pytest.mark.parametrize("length", MOVIE_LENGTHS)
+def test_predict_movie_stages_as_jax(setup, jax_movies, length, prefetch, dtype, kind):
+    """predict_movie through the stager against JAX's: every chunk reaches
+    the model bit for bit as JAX stages it (the frames' own dtype, the tail
+    zero-padded); peak positions bit for bit, vals within 2e-5 of the maps'
+    scale (oneDNN and XLA sum the convs in other orders); and bit for bit
+    the port's own chunk-by-chunk __call__ on the same frames."""
+    _, params = setup
+    want_staged, want = jax_movies[length, dtype]
+    frames = _movie(length, dtype)
+    if kind == "tensor":
+        frames = torch.from_numpy(frames)
+    pred = tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", chunk_size=MOVIE_CHUNK)
+    staged: list = []
+    _spy_on_run(pred, staged, lambda a: a[0].numpy().copy())
+    got = pred.predict_movie(frames, prefetch=prefetch)
+    assert len(staged) == len(want_staged) == -(-length // MOVIE_CHUNK)
+    for a, b in zip(staged, want_staged):
+        assert a.dtype == b.dtype == np.dtype(dtype) and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    if length == 0:  # JAX returns (0, 3, 1) here (ROADMAP, "Differences from JAX")
+        assert got.shape == (0, 3, K) and want.size == 0
+        return
+    assert got.shape == want.shape == (length, 3, K) and got.dtype == want.dtype
+    np.testing.assert_array_equal(got[:, :2], want[:, :2])
+    np.testing.assert_allclose(got[:, 2], want[:, 2],
+                               atol=2e-5 * max(1.0, float(np.abs(want[:, 2]).max())))
+    np.testing.assert_array_equal(got, pred(frames))
+
+
 def test_bf16_fused_close_to_module(setup):
     """bf16 compute on the CPU: the two routes round at other places, so
     they agree to bf16 precision, not exactly."""
@@ -339,17 +414,27 @@ def test_evaluate_l2_matches_jax(setup):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def mesh_ranks(setup, tmp_path_factory):
+    """What each rank of a 2-rank gloo world returns from ``serve_body``
+    (tests/test_torch_parallel_mesh.py), chunk 2 over the 5 frames."""
+    from test_torch_parallel_mesh import run_world, serve_body
+
+    frames, params = setup
+    return run_world(serve_body, 2, tmp_path_factory.mktemp("mesh_serving"), CFG, params,
+                     frames, SHAPE, K, 2)
+
+
 @pytest.mark.parametrize("kw, item", [({"mesh": 2}, "item 14")])
-def test_unported_options_raise(setup, kw, item, tmp_path):
+def test_unported_options_raise(setup, mesh_ranks, kw, item):
     """``mesh`` (ROADMAP Queue A item 14) is ported: a 2-rank gloo world
     serves the flagship on the module route, each rank its rows of every
     chunk, and every rank returns the whole answer, equal to the mesh-less
     Predictor's on the same rows; a chunk that does not divide over the
     mesh is refused."""
-    from test_torch_parallel_mesh import run_world, serve_body
-
     frames, params = setup
-    ranks = run_world(serve_body, kw["mesh"], tmp_path, CFG, params, frames, SHAPE, K, 2)
+    ranks = mesh_ranks
+    assert len(ranks) == kw["mesh"]
     # each rank runs one row of each 2-frame chunk: the same convolutions
     # (oneDNN blocks by batch size) as a mesh-less chunk of 1
     plain = tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", chunk_size=1,
@@ -368,6 +453,23 @@ def test_unported_options_raise(setup, kw, item, tmp_path):
 
     with pytest.raises(ValueError, match="chunk_size=3 must divide"):
         tinfer.Predictor(CFG, params, SHAPE, K, device="cpu", chunk_size=3, mesh=TwoRanks())
+
+
+def test_mesh_stages_only_its_rows(setup, mesh_ranks):
+    """Each rank of the 2-rank world stages its own row of every 2-frame
+    chunk, as JAX's batch-sharded ``device_put`` places it, in the call and
+    in the movie: one row in (none for rank 1's share of the padded tail),
+    one row out, a zero row where the tail is padding; the answer is the
+    mesh-less one (the test above)."""
+    frames, _ = setup
+    for rank, res in enumerate(mesh_ranks):
+        rows_in = [n for n, _ in res["staged"]]
+        assert rows_in == ([1, 1, 1] if rank == 0 else [1, 1, 0]) * 2
+        for i, (n, t) in enumerate(res["staged"]):
+            assert t.shape == (1, *SHAPE)
+            row = 2 * (i % 3) + rank
+            want = frames[row : row + 1] if n else np.zeros((1, *SHAPE))
+            np.testing.assert_array_equal(t.numpy(), want)
 
 
 @pytest.mark.parametrize("case", ["basicnet_dilation1", "gptnet", "disentangled"])

@@ -255,12 +255,22 @@ def test_distributed_init_before_dataset(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 def serve_body(rank, world, cfg, params, frames, shape, k, chunk_size):
     """One Predictor(mesh=) per rank on the module route: its peaks, its
-    maps and peaks with ``return_heatmaps``, and a ``predict_movie``."""
+    maps and peaks with ``return_heatmaps``, and a ``predict_movie``; and
+    what the first Predictor's stager was given and gave in its call and its
+    movie, (rows in, staged chunk) a chunk."""
     from pose_estimation_amitai_torch.infer import Predictor
 
     mesh = pmesh.make_mesh((), "cpu")
     pred = Predictor(cfg, params, shape, k, device="cpu", chunk_size=chunk_size, mesh=mesh)
+    stager, staged = pred._stager, []
+
+    def spy(chunk):
+        out = stager(chunk)
+        staged.append((chunk.shape[0], out.clone()))
+        return out
+
+    pred._stager = spy
     maps, pts = Predictor(cfg, params, shape, k, device="cpu", chunk_size=chunk_size,
                           return_heatmaps=True, mesh=mesh)(frames)
-    return {"path": pred.serving_path, "pts": pred(frames), "maps": maps,
+    return {"path": pred.serving_path, "pts": pred(frames), "staged": staged, "maps": maps,
             "maps_pts": pts, "movie": pred.predict_movie(frames)}
