@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, pretraining, import,
-export and parallel paths on one NVIDIA H100.
+"""Drive the PyTorch port's serving, training, config-file entry points,
+pretraining, import, export and parallel paths on one NVIDIA H100.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --repeat-train N`` runs the phases up to the train
+phase as the full run does, then the train phase N times, on the shared
+synthetic arrays and on freshly made ones in turns, and exits 1 if any run
+failed (a check for a fault that depends on what ran before).
 
 Phases, each printing one JSON line ({"phase": ...}):
 
@@ -91,8 +96,8 @@ Phases, each printing one JSON line ({"phase": ...}):
              0.5, Adam 1e-3) through the port's entry
              points, all on the card: (a) build_dataset of 16 synthetic
              192x192 frames with 32 wing points (128 per-wing samples of
-             192x192x4 -> 18, half of them validation; from arrays, as the
-             card's machine has no h5py); (b) create_train_state and 3 + 20
+             192x192x4 -> 18, half of them validation; from arrays: the
+             entry phase trains from the H5 file); (b) create_train_state and 3 + 20
              steps, every loss finite and every parameter moved, the 20
              timed with CUDA events (steps/s, frames/s); (c) with
              deterministic cuDNN, one float32 step (TF32 off, dropout 0,
@@ -128,7 +133,32 @@ Phases, each printing one JSON line ({"phase": ...}):
              encoder-stage and decoder counters zeroed just before and read
              just after, its maps within 5% of max of the module route on
              the same run directory;
-13. multicam - ALL_CAMS_18_POINTS MultiCamNet at full width (filters 64,
+13. entry  - the config-file entry points on the card, the contract file
+             read and written by the port's own HDF5 reader and writer
+             (data/h5.py; the machine has no h5py): (a) write_synthetic_h5
+             of the train phase's 16 frames (32 wing points) in MATLAB's
+             transposed dialect, read back with read_datasets, every dataset
+             equal to the arrays written; (b) a Config() JSON at full width
+             (filters 64, batch 8, augmentation and dropout on) with that
+             file as its data_path, 2 epochs of 5 updates, run as
+             ``python -m pose_estimation_amitai_torch.train.trainer cfg.json``
+             in a child process with no --device: exit code 0, "training on
+             cuda:0" on its output, the run directory's files, finite losses;
+             (c) ``cli eval`` and ``cli infer --mat`` on that config, run
+             directory and file on the default device: eval's L2 statistics
+             finite, infer's .npz peaks of the samples' shape and finite;
+             (d) the run directory through Predictor.from_checkpoint(
+             use_fused=True) on one 256-frame chunk (each camera's frame
+             with one wing's mask, and the flips) with the encoder-stage and decoder counters zeroed
+             just before and read just after, its maps within 5% of max of
+             the module route; (e) the reader's rate at a real file size: a
+             256-frame uint8 box (256, 4, 192, 192, 5), 189 MB, written,
+             read from a warm page cache by read_datasets and by np.fromfile
+             of the same bytes, in turns, GB/s of each, the file deleted;
+             and one deflated chunk (one synthetic frame of one camera as
+             uint8, deflate level 4 as h5py's gzip) undone by the reader's
+             filter path, MB/s. The seconds of the phase, the child, eval and infer;
+14. multicam - ALL_CAMS_18_POINTS MultiCamNet at full width (filters 64,
              192x192x16 -> 72, torch flavour, bf16) through the Trainer: 2
              epochs of 5 updates, batch 8, per-view augmentation; its run
              directory served on 64 frames folded and unfolded, in float32
@@ -137,7 +167,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              then one forward each of TwoWingsNet, C2FPerWing and the tf
              flavour MultiCamNet with attention fusion, at full width and
              batch 8: finite maps of the right shapes;
-14. zoo    - the BatchNorm families and the camera-matrix model at full
+15. zoo    - the BatchNorm families and the camera-matrix model at full
              width (bf16 compute over float32 parameters) on the train
              phase's 16 synthetic frames: (a) ResNetHeatmapNet
              (RESNET_18_POINTS_PER_WING, tpu flavour, ResNet50 3-4-6-3,
@@ -158,7 +188,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              Predictor(cameras=...) on the 32 tiled to 356 with their camera
              rows (256 + a padded 100), the padded tail's peaks equal to the
              same samples' inside the full chunk;
-15. vit_train - the ViT at full width (patch 16, dim 256, depth 8, heads 8,
+16. vit_train - the ViT at full width (patch 16, dim 256, depth 8, heads 8,
              dim_head 256, MLP 1024, bf16 compute over float32 parameters,
              batch 8) on the train phase's 16 synthetic frames: (a)
              MODEL_18_POINTS_PER_WING_VIT (torch flavour) through the
@@ -174,7 +204,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              attention probabilities within 0.9 +- 0.01; (e)
              ALL_CAMS_18_POINTS_VIT (4 fusion blocks, 192x192x16 -> 72)
              through the Trainer, 1 epoch of 3 updates, then its bare step;
-16. int8_generic - Predictor(use_quantized=True) off the flagship geometry at
+17. int8_generic - Predictor(use_quantized=True) off the flagship geometry at
              full width on seeded weights, calibrated on 32 frames, serving
              the 612-frame requests and movie: ViTPoseNet ('all' and
              'conv_only'), MultiCamNet (ALL_CAMS_18_POINTS, filters 64),
@@ -186,7 +216,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              1e-5 relative), every quantised layer call card vs CPU on the
              CPU's input (bit-equal: the float64 sums of int8 products are
              exact), and the maps card vs CPU;
-17. selfsup - SelfSupTrainer at Config() (inpainting BasicNet, 4 -> 4,
+18. selfsup - SelfSupTrainer at Config() (inpainting BasicNet, 4 -> 4,
              filters 64, batch 8, bf16, augmentation, dropout 0.5) on the
              train phase's synthetic boxes as 64 five-channel crops: 3
              epochs of 10 updates (the validation loss must fall), then 3 +
@@ -199,7 +229,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              first step, then 1 epoch of 5 updates); the run directory
              through Predictor.from_checkpoint(use_fused=True), the
              encoder-stage and decoder counters read around one chunk;
-18. import - a reference-layout torch BasicNet (filters 64, 4 -> 18) and
+19. import - a reference-layout torch BasicNet (filters 64, 4 -> 18) and
              ViT (patch 16, dim 256, depth 8, heads 8, dim_head 256) built
              here from the seed, each saved as a checkpoint.pth dict and a
              traced TorchScript best_model.pth, imported (both equal) and
@@ -209,7 +239,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              and bf16 (within 5%); B1, B2 and S1's counters around the bf16
              fused run; the keras importers need h5py, absent there, and are
              CPU-tested only (a line says so);
-19. export - the flagship's "module", "fused" and "int8_fused" (scales from
+20. export - the flagship's "module", "fused" and "int8_fused" (scales from
              128 frames) routes and the ViT's "fused" route exported at
              chunk 256 (deploy.export_predictor), loaded with
              load_exported(path, "cuda") and served over the 612 frames:
@@ -219,7 +249,7 @@ Phases, each printing one JSON line ({"phase": ...}):
              Predictor's, the artifact's bytes; then the float32 module,
              fused and ViT fused programs on one chunk (peak values within
              1e-4 of max);
-20. parallel - the parallel strategies (parallel/) in this process on a
+21. parallel - the parallel strategies (parallel/) in this process on a
              one-rank NCCL group on card 0 (tcp://localhost, a free port), at
              full width: (a) the data-parallel step at Config() (batch 8,
              augmentation and dropout on) against the plain train step on the
@@ -263,7 +293,9 @@ that have one, named in ``library_probes``, beside ``ms_of_library_probes``,
 the kernels' time on the same probes), else null. The encoder-stage and
 decoder rows also carry ``train_launches``, their launches on the trained
 weights' chunk, and ``trainer_launches``, theirs on the Trainer's run
-directory served through ``Predictor.from_checkpoint``; the attention row
+directory served through ``Predictor.from_checkpoint``, and
+``entry_launches``, theirs on the run directory that ``python -m
+...train.trainer cfg.json`` wrote in the entry phase; the attention row
 ``vit_train_launches``, its launches on the trained ViT's run directory.
 The rows of B1, B2 and S1 carry ``movie_launches``, their launches in the
 staging movie at prefetch 4 (16 chunks). The rows of B1, B2, B3 and S1
@@ -287,6 +319,7 @@ nonzero without the ok line.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -348,6 +381,12 @@ ADAM_EPS = 1e-8  # torch.optim.Adam's and optax.adam's default
 TRAINER_EPOCHS = (3, 5)  # the first run's epochs, the resumed run's
 TRAINER_UPDATES = 10  # batches_per_epoch (accumulation 1)
 VAL_REPS = 3  # timed validation passes after the run
+# the entry phase: the trainer's module entry point on an H5 file
+ENTRY_EPOCHS = 2
+ENTRY_UPDATES = 5
+ENTRY_TIMEOUT = 600  # seconds the child may take
+READ_FRAMES = 256  # the reader's rate: a uint8 box of (256, 4, 192, 192, 5), 189 MB
+READ_REPS = 5  # timed reads of each, in turns
 # the multicam phase: ALL_CAMS_18_POINTS at full width
 MULTICAM_EPOCHS = 2
 MULTICAM_UPDATES = 5
@@ -457,6 +496,42 @@ def bound(ops: float, kind: str, moved: int) -> tuple[float, str]:
 def stage_ops(b: int, h: int, w: int, cin: int, cout: int) -> float:
     """Multiply-adds x 2 of one encoder stage's three 3x3 convs."""
     return 2.0 * 9 * b * h * w * (cin * cout + 2 * cout * cout)
+
+
+@functools.cache
+def _made_train_arrays() -> dict:
+    from pose_estimation_amitai_torch.data import make_synthetic_arrays
+
+    return make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                                 image_size=192, seed=SEED)
+
+
+def train_arrays() -> dict:
+    """The training phases' contract arrays (16 synthetic 192x192 frames,
+    32 wing points, seed 0): made once, and a fresh copy a call, which the
+    caller may change."""
+    return {k: v.copy() for k, v in _made_train_arrays().items()}
+
+
+def repeat_train(torch, device_name: str, smi: str, runs: int) -> int:
+    """The train phase ``runs`` times after the phases before it: one JSON
+    line a run, the shared arrays (``train_arrays()``) and freshly made
+    ones in turns; 1 if any run failed."""
+    global train_arrays
+    shared, failed = train_arrays, 0
+    for i in range(runs):
+        source = "fresh" if i % 2 else "shared"
+        train_arrays = _made_train_arrays.__wrapped__ if i % 2 else shared
+        t0 = time.perf_counter()
+        try:
+            phase_train(torch, device_name, smi)
+            error = None
+        except AssertionError as e:
+            error, failed = str(e), failed + 1
+        emit({"repeat_train": i, "arrays": source, "ok": error is None, "error": error,
+              "seconds": time.perf_counter() - t0})
+    train_arrays = shared
+    return 1 if failed else 0
 
 
 def phase_device(torch) -> tuple[str, str]:
@@ -1706,7 +1781,7 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
     import tempfile
 
     from pose_estimation_amitai_torch import Config, weights
-    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.data import build_dataset
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.models import build_model
     from pose_estimation_amitai_torch.ops import hopper_conv as hc
@@ -1725,8 +1800,7 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
 
     # (a) the dataset on the card
     t0 = time.perf_counter()
-    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                   image_size=192, seed=SEED)
+    arrays = train_arrays()
     ds, _ = build_dataset(cfg, arrays, device="cuda")
     t_data = time.perf_counter() - t0
     n, k = 8 * TRAIN_FRAMES, TRAIN_POINTS // 2 + 2
@@ -1792,7 +1866,8 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
                     {key: g.cpu().numpy() for key, g in grads.items()},
                     {key: p.cpu().numpy() for key, p in new.params.items()})
     (lg, slg, gg, pg), (lc, slc, gc, pc) = one["cuda"], one["cpu"]
-    check(slg == lg and slc == lc, "the step's loss is not its gradient's loss")
+    check(slg == lg and slc == lc, f"the step's loss is not its gradient's loss: card "
+          f"{slg!r} vs {lg!r}, CPU {slc!r} vs {lc!r}")
     loss_err = abs(lg - lc) / abs(lc)
     check(loss_err <= TRAIN_LOSS_RTOL, f"card vs CPU loss {lg} vs {lc}")
     grad_err, param_err, unexplained, flips = 0.0, 0.0, 0.0, 0
@@ -2026,15 +2101,13 @@ def phase_trainer(torch, device_name: str, smi: str, step_ms: float) -> dict:
     import tempfile
 
     from pose_estimation_amitai_torch import Config, viz
-    from pose_estimation_amitai_torch.data import make_synthetic_arrays
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.ops import hopper_conv as hc
     from pose_estimation_amitai_torch.ops import hopper_deconv as hd
     from pose_estimation_amitai_torch.train.trainer import LOSSES_HEADER, RUN_SUBFOLDERS, Trainer
 
     t_phase = time.perf_counter()
-    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                   image_size=192, seed=SEED)
+    arrays = train_arrays()
     k = TRAIN_POINTS // 2 + 2
     with tempfile.TemporaryDirectory() as out:
         cfg = Config(base_output_path=out, epochs=TRAINER_EPOCHS[0],
@@ -2146,6 +2219,209 @@ def phase_trainer(torch, device_name: str, smi: str, step_ms: float) -> dict:
     return result
 
 
+def reader_rates(tmp: str, frame: np.ndarray) -> dict:
+    """GB/s of read_datasets and of np.fromfile on the same bytes of a
+    256-frame uint8 box (random) from a warm page cache, timed in turns;
+    MB/s of the reader's decode of one deflated chunk (``zlib.decompress``,
+    which the reader calls once a chunk) on ``frame`` (one synthetic frame
+    of one camera as uint8, deflate level 4 as h5py's gzip writes it)."""
+    import os
+    import zlib
+
+    from pose_estimation_amitai_torch.data import h5
+
+    box = np.random.default_rng(SEED).integers(0, 256, (READ_FRAMES, 4, 192, 192, 5),
+                                              dtype=np.uint8)
+    path = os.path.join(tmp, "box.h5")
+    try:
+        t0 = time.perf_counter()
+        h5.write_datasets(path, {"box": box})
+        write_s = time.perf_counter() - t0
+        offset = os.path.getsize(path) - box.nbytes  # the writer puts the data last
+        reader_s, fromfile_s = [], []
+        for i in range(2 * READ_REPS + 1):  # the first read warms the page cache
+            t0 = time.perf_counter()
+            if i % 2:
+                got = np.fromfile(path, np.uint8, box.size, offset=offset).reshape(box.shape)
+            else:
+                got = h5.read_datasets(path, ["box"])["box"]
+            dt = time.perf_counter() - t0
+            check(got.dtype == box.dtype and np.array_equal(got, box), "the box read back differs")
+            if i:
+                (fromfile_s if i % 2 else reader_s).append(dt)
+            del got
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    chunk = frame.tobytes()
+    packed = zlib.compress(chunk, 4)
+    chunk_s = []
+    for _ in range(READ_REPS):
+        t0 = time.perf_counter()
+        raw = zlib.decompress(packed)  # the reader's step for each deflated chunk
+        chunk_s.append(time.perf_counter() - t0)
+        check(raw == chunk, "the deflated chunk decodes to other bytes")
+    return {"bytes": int(box.nbytes), "write_s": write_s,
+            "read_datasets_s": reader_s, "fromfile_s": fromfile_s,
+            "read_datasets_gb_per_s": box.nbytes / min(reader_s) / 1e9,
+            "fromfile_gb_per_s": box.nbytes / min(fromfile_s) / 1e9,
+            "deflated_chunk": {"bytes": len(chunk), "deflated_bytes": len(packed),
+                               "seconds": chunk_s,
+                               "mb_per_s": len(chunk) / min(chunk_s) / 1e6}}
+
+
+def phase_entry(torch, device_name: str, smi: str) -> dict:
+    """The config-file entry points on the card: the contract file written
+    and read by the port's own HDF5 writer and reader, the trainer's module
+    entry point in a child process, ``cli eval`` and ``cli infer`` on its
+    run directory, that run directory served on B1/B2; the reader's rate."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from pose_estimation_amitai_torch import Config, cli
+    from pose_estimation_amitai_torch.data import write_synthetic_h5
+    from pose_estimation_amitai_torch.data.h5 import read_datasets
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.train.trainer import LOSSES_HEADER, RUN_SUBFOLDERS
+
+    t_phase = time.perf_counter()
+    k = TRAIN_POINTS // 2 + 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as out:
+        # (a) the contract file, MATLAB's transposed dialect, read back
+        data = os.path.join(out, "data.h5")
+        write_synthetic_h5(data, num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
+                           image_size=192, seed=SEED)
+        arrays = train_arrays()
+        written = {"box": arrays["box"].T, "confmaps": arrays["confmaps"].T,
+                   "points_3D": np.transpose(arrays["points_3D"], (2, 0, 1)),
+                   "cropZone": arrays["cropZone"],
+                   "cameras_dlt_array": arrays["cameras_dlt_array"].T}
+        got = read_datasets(data, list(written))
+        for name, want in written.items():
+            check(got[name].dtype == want.dtype and got[name].shape == want.shape
+                  and np.array_equal(got[name], want),
+                  f"{name} read back as {got[name].dtype} {got[name].shape}")
+        file_bytes = os.path.getsize(data)
+        frame = (arrays["box"][0, 0] * 255).astype(np.uint8)  # for the reader's rates
+        # the served chunk: each camera's frame with one wing's mask, and the flips
+        box = arrays["box"].reshape(-1, 192, 192, 5)
+        samples = np.concatenate([box[..., [0, 1, 2, 3]], box[..., [0, 1, 2, 4]]])
+        frames = np.concatenate([samples, samples[:, ::-1]])
+        del got, arrays, written, box, samples
+
+        # (b) python -m ...train.trainer cfg.json: a child process, no --device
+        runs = os.path.join(out, "runs")
+        cfg = Config(data_path=data, base_output_path=runs, epochs=ENTRY_EPOCHS,
+                     batches_per_epoch=ENTRY_UPDATES)
+        cfg_path = os.path.join(out, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump({**cfg.to_dict(), "base output path": runs}, f)
+        check(Config.from_json(cfg_path) == cfg, "the config did not round-trip its JSON")
+        torch.cuda.empty_cache()  # the child's card memory
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "pose_estimation_amitai_torch.train.trainer", cfg_path],
+            cwd=root, capture_output=True, text=True, timeout=ENTRY_TIMEOUT)
+        t_child = time.perf_counter() - t0
+        check(child.returncode == 0,
+              f"the trainer's entry point exited {child.returncode}: {child.stderr[-3000:]}")
+        check("training on cuda:0" in child.stdout.splitlines(),
+              f"the child did not train on the card: {child.stdout[:2000]}")
+        (run,) = os.listdir(runs)
+        run = os.path.join(runs, run)
+        files = sorted(os.listdir(run))
+        want = {"configuration.json", "losses.csv", "history.csv", "history.mat",
+                "checkpoint.pt", "checkpoint_meta.json", "best_model.pt", "initial_model.pt",
+                "final_confmaps_model.pt", "training code", *RUN_SUBFOLDERS}
+        check(want <= set(files), f"run directory lacks {sorted(want - set(files))}")
+        with open(os.path.join(run, "losses.csv")) as f:
+            rows = [line.strip().split(",") for line in f]
+        check(rows[0] == LOSSES_HEADER and len(rows) == 1 + ENTRY_EPOCHS
+              and all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:] if v),
+              f"losses.csv {rows}")
+
+        # (c) cli eval and cli infer on the default device
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(["eval", cfg_path, run, data]) == 0, "cli eval failed")
+        t_eval = time.perf_counter() - t0
+        text = buf.getvalue()
+        stats = json.loads(text[text.index("{"):])
+        check(all(np.isfinite(stats[key]).all() for key in ("l2_mean", "l2_std", "l2_max",
+                                                             "l2_per_point"))
+              and len(stats["l2_per_point"]) == k, f"eval {stats}")
+        npz = os.path.join(out, "predictions.npz")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli.main(["infer", cfg_path, run, data, npz, "--mat"]) == 0, "cli infer failed")
+        t_infer = time.perf_counter() - t0
+        pts = np.load(npz)["points_2d"]
+        samples = 8 * TRAIN_FRAMES
+        check(pts.shape == (samples, 3, k) and bool(np.isfinite(pts).all())
+              and os.path.isfile(os.path.join(out, "predictions.mat")),
+              f"infer wrote points_2d {pts.shape}")
+
+        # (d) the run directory served through the kernels
+        check(frames.shape == (CHUNK, 192, 192, 4), f"frames {frames.shape}")
+        pred = Predictor.from_checkpoint(cfg, run, (192, 192, 4), k, use_fused=True,
+                                         device="cuda", chunk_size=CHUNK, return_heatmaps=True)
+        check(pred.serving_path == "fused", f"serving_path {pred.serving_path}")
+        pred(frames[:1])  # warm-up
+        # ---- the served chunk: counters zeroed just before, read just after ----
+        zero_conv_counters(hc, hd)
+        maps, peaks = pred(frames)
+        launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                    "fused_decoder": hd.fused_decoder.launches}
+        convs = dict(hc.fused_encoder_stage.convs_by_kernel)
+        up2 = dict(hd.fused_decoder.up2_by_kernel)
+        # -----------------------------------------------------------------------
+        check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1}
+              and convs == {"fma": 0, "mma": 8, "mma_c4": 1} and up2 == {"fma": 0, "mma": 2},
+              f"the entry point's run directory took {launches}, {convs}, {up2}")
+        check(maps.shape == (CHUNK, 192, 192, k) and bool(np.isfinite(peaks).all()),
+              f"served {maps.shape}")
+        module = Predictor.from_checkpoint(cfg, run, (192, 192, 4), k, device="cuda",
+                                           chunk_size=CHUNK, return_heatmaps=True)
+        want_maps, _ = module(frames)
+        top = float(np.abs(want_maps).max())
+        serve_err = float(np.abs(maps - want_maps).max())
+        check(serve_err <= ROUTE_RTOL * top,
+              f"fused vs module on the entry point's run directory: {serve_err} > "
+              f"{ROUTE_RTOL} * {top}")
+        del pred, module, maps, want_maps, frames
+
+        # (e) the reader's rate at a real file size
+        rates = reader_rates(out, frame)
+
+    result = {
+        "phase": "entry", "device": device_name, "nvidia_smi": smi,
+        "model": "BasicNet MODEL_18_POINTS_PER_WING at Config(): filters 64, batch 8, "
+                 "bf16 compute, augmentation, dropout 0.5, 192x192x4 -> 18",
+        "data_file_bytes": file_bytes, "epochs": ENTRY_EPOCHS,
+        "updates_per_epoch": ENTRY_UPDATES, "run_files": files,
+        "child_seconds": t_child, "eval_seconds": t_eval, "infer_seconds": t_infer,
+        "eval": {key: stats[key] for key in ("l2_mean", "l2_std", "l2_max")},
+        "infer_points_2d": list(pts.shape),
+        "served": {"launches": launches, "encoder_convs_by_kernel": convs,
+                   "decoder_up2_by_kernel": up2, "max_abs_err_vs_module": serve_err,
+                   "max_abs_maps": top, "rtol": ROUTE_RTOL},
+        "reader": rates,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    print(f"entry phase: {result['seconds']:.1f} s (child {t_child:.1f} s, eval {t_eval:.1f} s, "
+          f"infer {t_infer:.1f} s); reader {rates['read_datasets_gb_per_s']:.2f} GB/s, "
+          f"np.fromfile {rates['fromfile_gb_per_s']:.2f} GB/s, a deflated chunk "
+          f"{rates['deflated_chunk']['mb_per_s']:.0f} MB/s", flush=True)
+    return result
+
+
 def top_two_gap(maps: np.ndarray) -> np.ndarray:
     """(N, K) gap between each map's largest and second largest values."""
     flat = maps.reshape(maps.shape[0], -1, maps.shape[-1])
@@ -2160,7 +2436,6 @@ def phase_multicam(torch, device_name: str, smi: str) -> dict:
 
     from pose_estimation_amitai_torch import Config
     from pose_estimation_amitai_torch import constants as C
-    from pose_estimation_amitai_torch.data import make_synthetic_arrays
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.models import build_model
     from pose_estimation_amitai_torch.ops.peaks import find_peaks
@@ -2168,8 +2443,7 @@ def phase_multicam(torch, device_name: str, smi: str) -> dict:
     from pose_estimation_amitai_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                   image_size=192, seed=SEED)
+    arrays = train_arrays()
     shape, k = (192, 192, 16), 4 * (TRAIN_POINTS // 2 + 2)
     with tempfile.TemporaryDirectory() as out:
         cfg = Config(model_type=C.ALL_CAMS_18_POINTS, base_output_path=out,
@@ -2289,7 +2563,8 @@ def card_vs_cpu_step(torch, model_type: str, data: dict, idx: np.ndarray,
     finally:
         torch.backends.cudnn.deterministic = False
     (lg, slg, gg, pg, sg), (lc, slc, gc, pc, sc) = out["cuda"], out["cpu"]
-    check(slg == lg and slc == lc, "the step's loss is not its gradient's loss")
+    check(slg == lg and slc == lc, f"the step's loss is not its gradient's loss: card "
+          f"{slg!r} vs {lg!r}, CPU {slc!r} vs {lc!r}")
     check(set(sg) == set(sc), f"running averages {sorted(sg)} vs {sorted(sc)}")
     top = max(float(np.abs(g).max()) for g in gc.values())
     grad_err, unexplained, flips = 0.0, 0.0, 0
@@ -2382,14 +2657,13 @@ def phase_zoo(torch, device_name: str, smi: str) -> dict:
 
     from pose_estimation_amitai_torch import Config, weights
     from pose_estimation_amitai_torch import constants as C
-    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.data import build_dataset
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.models import build_model
     from pose_estimation_amitai_torch.train import loop
 
     t_phase = time.perf_counter()
-    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                   image_size=192, seed=SEED)
+    arrays = train_arrays()
     k = TRAIN_POINTS // 2 + 2
     models = {}
     with tempfile.TemporaryDirectory() as out:
@@ -2496,7 +2770,6 @@ def phase_vit_train(torch, device_name: str, smi: str) -> dict:
 
     from pose_estimation_amitai_torch import Config
     from pose_estimation_amitai_torch import constants as C
-    from pose_estimation_amitai_torch.data import make_synthetic_arrays
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.models import build_model, vit
     from pose_estimation_amitai_torch.ops import hopper_attention as ha
@@ -2504,8 +2777,7 @@ def phase_vit_train(torch, device_name: str, smi: str) -> dict:
     from pose_estimation_amitai_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
-    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                   image_size=192, seed=SEED)
+    arrays = train_arrays()
     k = TRAIN_POINTS // 2 + 2
     result = {"phase": "vit_train", "device": device_name, "nvidia_smi": smi,
               "model": "ViTPoseNet MODEL_18_POINTS_PER_WING_VIT patch 16 dim 256 depth 8 "
@@ -2836,10 +3108,8 @@ EXPORT_REPS = 2  # timed passes over the frames, program and Predictor in turns
 def selfsup_crops(torch) -> np.ndarray:
     """The train phase's synthetic boxes as (N, 192, 192, 5) crops, one a
     camera view: 16 frames x 4 cameras."""
-    from pose_estimation_amitai_torch.data import make_synthetic_arrays
 
-    box = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                image_size=192, seed=SEED)["box"]
+    box = train_arrays()["box"]
     return box.reshape(-1, *box.shape[2:])
 
 
@@ -2851,7 +3121,6 @@ def phase_selfsup(torch, device_name: str, smi: str) -> dict:
     import tempfile
 
     from pose_estimation_amitai_torch import Config
-    from pose_estimation_amitai_torch.data import make_synthetic_arrays
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.models.cnn import BasicNet
     from pose_estimation_amitai_torch.ops import hopper_conv as hc
@@ -2941,8 +3210,7 @@ def phase_selfsup(torch, device_name: str, smi: str) -> dict:
         del by_dtype
 
         # the pretrained encoder re-heads the flagship in the Trainer
-        arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                       image_size=192, seed=SEED)
+        arrays = train_arrays()
         ft = Trainer(Config(base_output_path=out, pretrained_encoder_path=run, epochs=1,
                             batches_per_epoch=SELFSUP_FT_UPDATES), arrays=arrays,
                      device="cuda")
@@ -3484,7 +3752,7 @@ def parallel_checks(torch, world: int) -> dict:
     (augmentation, dropout 0.5) from the seed over the same global batch,
     and the pipelined ViT's float32 forward at pipe ``world``."""
     from pose_estimation_amitai_torch import Config
-    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.data import build_dataset
     from pose_estimation_amitai_torch.models import build_model, vit_single_kwargs
     from pose_estimation_amitai_torch.parallel import pipeline
     from pose_estimation_amitai_torch.parallel.mesh import data_rows, make_mesh
@@ -3492,8 +3760,7 @@ def parallel_checks(torch, world: int) -> dict:
     from pose_estimation_amitai_torch.train import loop
 
     cfg = Config(compute_dtype="float32")
-    arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                   image_size=192, seed=SEED)
+    arrays = train_arrays()
     ds, _ = build_dataset(cfg, arrays, device="cuda")
     k = TRAIN_POINTS // 2 + 2
     with torch.device("meta"):
@@ -3579,7 +3846,7 @@ def phase_parallel(torch, params, frames, device_name: str, smi: str) -> dict:
     from pose_estimation_amitai_torch import Config
     from pose_estimation_amitai_torch import constants as C
     from pose_estimation_amitai_torch import weights
-    from pose_estimation_amitai_torch.data import build_dataset, make_synthetic_arrays
+    from pose_estimation_amitai_torch.data import build_dataset
     from pose_estimation_amitai_torch.infer import Predictor
     from pose_estimation_amitai_torch.models import build_model, vit_single_kwargs
     from pose_estimation_amitai_torch.ops import hopper_attention as ha
@@ -3601,8 +3868,7 @@ def phase_parallel(torch, params, frames, device_name: str, smi: str) -> dict:
 
         # (a) data parallelism: the flagship at Config(), then RESNET's BatchNorm
         cfg = Config()
-        arrays = make_synthetic_arrays(num_frames=TRAIN_FRAMES, num_points=TRAIN_POINTS,
-                                       image_size=192, seed=SEED)
+        arrays = train_arrays()
         ds, _ = build_dataset(cfg, arrays, device="cuda")
         k = TRAIN_POINTS // 2 + 2
         with torch.device("meta"):
@@ -3760,6 +4026,9 @@ def main() -> int:
 
     from pose_estimation_amitai_torch import Config, weights
 
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--repeat-train" or not args[1].isdigit()):
+        raise SystemExit("usage: chip_smoke.py [--repeat-train N]")
     name, smi = phase_device(torch)
     torch.backends.cudnn.allow_tf32 = False  # cuDNN f32 convs default to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3781,8 +4050,11 @@ def main() -> int:
     del movie
     phase_vit4cam(torch, name, smi)
     probe_rows = phase_probes(torch, name, smi)
+    if args:
+        return repeat_train(torch, name, smi, int(args[1]))
     tr = phase_train(torch, name, smi)
     trn = phase_trainer(torch, name, smi, tr["step_ms"])
+    ent = phase_entry(torch, name, smi)
     phase_multicam(torch, name, smi)
     phase_zoo(torch, name, smi)
     vtr = phase_vit_train(torch, name, smi)
@@ -3816,6 +4088,8 @@ def main() -> int:
         if r["name"] in tr["served"]["launches"]:  # the trained weights' chunk
             r["train_launches"] = tr["served"]["launches"][r["name"]]
             r["trainer_launches"] = trn["served"]["launches"][r["name"]]
+            r["entry_launches"] = ent["served"]["launches"][r["name"]]
+            check(r["entry_launches"] > 0, f"{r['name']}: no launch on the entry point's run")
     rows += probe_rows
     for r in rows:
         check(r["launches"] > 0, f"{r['name']} never launched on its path")

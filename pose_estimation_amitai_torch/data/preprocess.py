@@ -6,8 +6,8 @@ imports nothing of the JAX package): the reference ``Preprocessor``
 vectorised. Its two device computations go through the port's ops, on
 CPU tensors: the body masks (``ops.morphology.body_masks``) and the
 consistency checker's score (``ops.geometry.reprojection_error_score``,
-all flip options of a frame in one call). ``h5py`` is imported only when a
-file is read, so a machine without it preprocesses from ``arrays=``.
+all flip options of a frame in one call). The H5 file is read by the port's
+own reader (data/h5.py), so a machine without ``h5py`` reads it too.
 
 Covered semantics, with reference citations:
 
@@ -34,6 +34,7 @@ import numpy as np
 
 from .. import constants as C
 from ..config import Config
+from .h5 import read_datasets
 
 MIN_IN_MASK = 3  # pytorch/preprocessor.py:153
 WHICH_TO_FLIP = np.array(
@@ -230,14 +231,13 @@ class Preprocessor:
         """Load the five contract datasets, normalising storage layout with
         explicit validation (replaces the reference's transpose heuristics,
         pytorch/preprocessor.py:102-118, 54, 60-62)."""
-        import h5py
-
-        with h5py.File(path, "r") as f:
-            box = cls._canonicalize_frames("box", f["box"][:])
-            confmaps = cls._canonicalize_frames("confmaps", f["confmaps"][:])
-            cropzone = f["cropZone"][:]
-            cams_raw = f["cameras_dlt_array"][:]
-            pts = f["points_3D"][:]
+        raw = read_datasets(path, ("box", "confmaps", "cropZone", "cameras_dlt_array",
+                                   "points_3D"))
+        box = cls._canonicalize_frames("box", raw["box"])
+        confmaps = cls._canonicalize_frames("confmaps", raw["confmaps"])
+        cropzone = raw["cropZone"]
+        cams_raw = raw["cameras_dlt_array"]
+        pts = raw["points_3D"]
         if cams_raw.shape != (4, 3, 4):
             raise ValueError(
                 f"cameras_dlt_array: expected (4, 3, 4) DLT matrices"

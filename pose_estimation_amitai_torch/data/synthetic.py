@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..constants import IMAGE_SIZE, NUM_CAMERAS, SENSOR_HEIGHT
+from .h5 import write_datasets
 
 
 def _synthetic_cameras(rng: np.random.Generator) -> np.ndarray:
@@ -321,28 +322,20 @@ def write_synthetic_h5(
     canonicalisation; reference dialect pytorch/preprocessor.py:110-118,
     ``cameras_dlt_array[:].T`` at :54, ``points_3D`` permute at :60-62);
     ``h5_layout="canonical"`` stores the post-fixup layouts directly — the
-    loader accepts both. Remaining ``**kw`` (including the *wing* ``layout``
-    — "cloud"/"outline") pass through to :func:`make_synthetic_arrays`.
+    loader accepts both. The file is written by the port's own writer
+    (data/h5.py), as ``h5py``'s defaults would write it. Remaining ``**kw``
+    (including the *wing* ``layout`` — "cloud"/"outline") pass through to
+    :func:`make_synthetic_arrays`.
     """
-    import h5py
-
     arrs = make_synthetic_arrays(num_frames, num_points, seed=seed, **kw)
     transposed = h5_layout == "transposed"
-    with h5py.File(path, "w") as f:
-        f.create_dataset(
-            "box", data=arrs["box"].T if transposed else arrs["box"]
-        )
-        f.create_dataset(
-            "confmaps",
-            data=arrs["confmaps"].T if transposed else arrs["confmaps"],
-        )
+    return write_datasets(path, {
+        "box": arrs["box"].T if transposed else arrs["box"],
+        "confmaps": arrs["confmaps"].T if transposed else arrs["confmaps"],
         # reference dialect: raw (3, frames, pts); canonical (frames, pts, 3)
-        f.create_dataset(
-            "points_3D",
-            data=np.transpose(arrs["points_3D"], (2, 0, 1))
-            if transposed else arrs["points_3D"],
-        )
-        f.create_dataset("cropZone", data=arrs["cropZone"])
+        "points_3D": np.transpose(arrs["points_3D"], (2, 0, 1))
+        if transposed else arrs["points_3D"],
+        "cropZone": arrs["cropZone"],
         # loader: h5["cameras_dlt_array"][:].T -> (4,3,4); store (4,3,4).T
-        f.create_dataset("cameras_dlt_array", data=arrs["cameras_dlt_array"].T)
-    return path
+        "cameras_dlt_array": arrs["cameras_dlt_array"].T,
+    })

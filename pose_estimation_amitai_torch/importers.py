@@ -33,8 +33,10 @@ the bridge every model family already goes through, with the model passed
   is the port's ``ViTPoseNet(ref_token_grid=True)``.
 
 Files are told apart by what they hold, never by a failed read: HDF5 by its
-8-byte signature (``h5py`` is imported only to read a keras file, and the
-card's machine has none), a TorchScript archive by its ``code/`` entries and
+8-byte signature (``h5py`` is imported only to read a keras file: a keras
+save keeps its layer and weight names in HDF5 attributes of nested groups,
+which the port's own reader, data/h5.py, does not read; the card's machine
+has no ``h5py``), a TorchScript archive by its ``code/`` entries and
 ``constants.pkl``, a ``torch.save`` archive by the keys of its state dict.
 The port's own ``.pt`` files are ``torch.save`` archives too; their keys are
 the port's module names, which match no reference layout. Snapshots of
@@ -55,6 +57,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .data.h5 import SIGNATURE as HDF5_SIGNATURE
+
 __all__ = [
     "ImportedModel",
     "import_torch_checkpoint",
@@ -65,8 +69,6 @@ __all__ = [
     "load_imported_snapshot",
     "adapt_stem_in_channels",
 ]
-
-HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
 
 
 def is_hdf5(path: str) -> bool:

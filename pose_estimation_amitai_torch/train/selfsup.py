@@ -298,12 +298,10 @@ def main(argv: list[str] | None = None, *, device: torch.device | str = "cuda") 
         files = sorted(os.listdir(src))
         crops = np.stack([np.load(os.path.join(src, f)) for f in files])
     else:
-        import h5py
-
+        from ..data.h5 import read_datasets
         from ..data.preprocess import normalize
 
-        with h5py.File(src, "r") as f:
-            box = f["box"][:]
+        box = read_datasets(src, ["box"])["box"]
         if box.ndim == 5:  # (F, cams, H, W, C) -> flatten cameras
             box = box.reshape(-1, *box.shape[2:])
         crops = normalize(box)

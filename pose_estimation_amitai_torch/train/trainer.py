@@ -4,7 +4,9 @@ resume (PyTorch port).
 Counterpart of ``pose_estimation_amitai_tpu/train/trainer.py``'s
 single-device path (reference: pytorch/train_pytorch.py:37-397,
 tensorflow/train.py:34-153), with the same run-directory contract and the
-port's ``.pt`` files in place of ``.msgpack``:
+port's ``.pt`` files in place of ``.msgpack``. Run it as ``python -m
+pose_estimation_amitai_torch.train.trainer cfg.json`` (:func:`main`) or
+``python -m pose_estimation_amitai_torch train cfg.json``:
 
 * auto-suffixed run folder ``<model_type>_<Mon DD>[_NN]`` with weights/,
   viz_pred/, viz_confmaps/, histograms/, l2_histograms/,
@@ -564,3 +566,26 @@ class Trainer:
             self.run_path, "viz_pred", f"validation_epoch_{epoch + 1}.png"))
         viz.show_confmap_grid(pred[0].cpu().numpy(), save_path=os.path.join(
             self.run_path, "viz_confmaps", f"confmaps_{epoch + 1:03d}.png"))
+
+
+def main(argv: list[str] | None = None) -> None:
+    """``python -m pose_estimation_amitai_torch.train.trainer cfg.json
+    [--device cpu]``: one training run of the config, its run directory
+    under the config's "base output path" (JAX's ``train.trainer.main``).
+    ``--device`` defaults to ``cuda``, as ``cli train``'s does; there is no
+    automatic fall-back to the CPU."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m pose_estimation_amitai_torch.train.trainer",
+                                description="supervised training of one config")
+    p.add_argument("config", help="the JSON config (its data_path is the H5 file)")
+    p.add_argument("--device", default="cuda",
+                   help="where the model trains (default cuda; cpu for the CPU)")
+    args = p.parse_args(argv)
+    tr = Trainer(args.config, device=args.device)
+    print(f"training on {next(iter(tr.state.params.values())).device}", flush=True)
+    tr.train()
+
+
+if __name__ == "__main__":
+    main()

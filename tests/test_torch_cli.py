@@ -3,18 +3,29 @@
 JAX's ``cli eval`` on the same checkpoint carried to msgpack through the
 weight bridge (the disentangled camera model's too), ``infer``'s .npz keys
 and shapes as JAX's, and the subcommands and options that wait for later
-Queue A items."""
+Queue A items. Then ``train.trainer.main`` (``python -m
+pose_estimation_amitai_torch.train.trainer cfg.json``) against ``cli train``
+and the ``Trainer``, and the H5 file read by the port's own reader against
+JAX's ``Preprocessor`` (``h5py``)."""
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from pose_estimation_amitai_torch import cli, weights
+from pose_estimation_amitai_torch.config import Config
+from pose_estimation_amitai_torch.data.preprocess import Preprocessor
 from pose_estimation_amitai_torch.data.synthetic import write_synthetic_h5
+from pose_estimation_amitai_torch.train import trainer
 from pose_estimation_amitai_tpu import cli as jcli
+from pose_estimation_amitai_tpu.config import Config as JConfig
+from pose_estimation_amitai_tpu.data import preprocess as jpreprocess
+from pose_estimation_amitai_tpu.data import synthetic as jsynthetic
 from pose_estimation_amitai_tpu.train import checkpoint as jckpt
 
 from test_torch_resnet import one_thread  # noqa: F401 (a fixture)
@@ -121,6 +132,88 @@ def test_device_defaults_to_cuda(trained):
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         cli.main(["eval", cfg_path, run, data])
+
+
+def _config_in(cfg_path: str, root) -> str:
+    """The fixture's config with its run directories under ``root``."""
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["base output path"] = str(root / "runs")
+    path = str(root / "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def test_trainer_main_trains_as_cli_train_and_the_trainer(trained, tmp_path):
+    """``trainer.main([cfg, "--device", "cpu"])`` writes the run directory
+    ``cli train`` writes, and its final parameters are, bit for bit, those
+    of ``Trainer(cfg, device="cpu").train()`` on the same config."""
+    _, cfg_path, _, cli_run, _ = trained
+    cfg_path = _config_in(cfg_path, tmp_path)
+    assert trainer.main([cfg_path, "--device", "cpu"]) is None
+    (run,) = os.listdir(tmp_path / "runs")
+    run = str(tmp_path / "runs" / run)
+    assert sorted(os.listdir(run)) == sorted(os.listdir(cli_run))
+    tr = trainer.Trainer(cfg_path, device="cpu")
+    tr.train()
+    assert tr.run_path != run
+    got = torch.load(os.path.join(run, "final_confmaps_model.pt"), weights_only=True)
+    want = torch.load(os.path.join(tr.run_path, "final_confmaps_model.pt"), weights_only=True)
+    assert got.keys() == want.keys() and set(tr.state.params) <= set(got)
+    for k in got:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    for k, v in tr.state.params.items():
+        assert torch.equal(got[k], v.detach()), k
+
+
+def test_trainer_main_defaults_to_cuda(trained, tmp_path):
+    """No automatic CPU: without --device the card is asked for, and no run
+    directory is written."""
+    _, cfg_path, _, _, _ = trained
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg_path = _config_in(cfg_path, tmp_path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        trainer.main([cfg_path])
+    assert not os.path.exists(tmp_path / "runs") or not os.listdir(tmp_path / "runs")
+
+
+def test_trainer_module_runs_as_a_script():
+    """``python -m ...train.trainer --help`` exits 0, and runpy gives no
+    RuntimeWarning (train/__init__.py imports the trainer only on use)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-W", "default", "-m",
+                        "pose_estimation_amitai_torch.train.trainer", "--help"],
+                       cwd=root, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "--device" in r.stdout and "RuntimeWarning" not in r.stderr, r.stderr
+
+
+@pytest.mark.parametrize("writer", ["h5py", "port"])
+def test_preprocessor_reads_the_file_as_jax_does(trained, tmp_path, writer):
+    """The fixture's config on its data written by JAX's writer (h5py) or by
+    the port's (data/h5.py): the port's Preprocessor, reading through its own
+    reader, gives JAX's arrays, every one equal in dtype and value."""
+    _, cfg_path, data, _, _ = trained
+    if writer == "h5py":
+        data = jsynthetic.write_synthetic_h5(str(tmp_path / "data.h5"), num_frames=4,
+                                             num_points=8, image_size=48, seed=0)
+    with open(cfg_path) as f:
+        raw = json.load(f)
+    pre = Preprocessor(Config.from_dict(raw).replace(data_path=data))
+    jpre = jpreprocess.Preprocessor(JConfig.from_dict(raw).replace(data_path=data))
+    for p in (pre, jpre):
+        p.do_preprocess()
+    pairs = {"box": (pre.get_box(), jpre.get_box()),
+             "confmaps": (pre.get_confmaps(), jpre.get_confmaps()),
+             "cropzone": (pre.get_cropzone(), jpre.get_cropzone()),
+             "points_3D_per_wing": (pre.get_points_3D_per_wing(), jpre.get_points_3D_per_wing())}
+    loaded, want = Preprocessor._load_h5(data), jpreprocess.Preprocessor._load_h5(data)
+    pairs.update({f"loaded {k}": (loaded[k], want[k]) for k in want})
+    for name, (got, want) in pairs.items():
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 @pytest.fixture(scope="module")

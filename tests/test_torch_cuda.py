@@ -1413,3 +1413,29 @@ def test_mesh_predictor_on_nccl_launches_the_kernels(cuda, nccl_group):
     got = pred(frames)
     assert hc.fused_encoder_stage.launches > b1 and hd.fused_decoder.launches > b2
     np.testing.assert_array_equal(got, want)
+
+
+def test_trainer_main_trains_on_the_card_by_default(cuda, tmp_path, capsys):
+    """``train.trainer.main([cfg])`` with no ``--device`` trains a 48-px
+    config from an H5 file the port wrote (no h5py on the card's machine):
+    its parameters live on the card and its run directory is written."""
+    import json
+    import os
+
+    from pose_estimation_amitai_torch.data.synthetic import write_synthetic_h5
+    from pose_estimation_amitai_torch.train import trainer
+
+    data = write_synthetic_h5(str(tmp_path / "data.h5"), num_frames=4, num_points=8,
+                              image_size=48, seed=0)
+    cfg = {"model type": "MODEL_18_POINTS_PER_WING", "batch_size": 4, "epochs": 1,
+           "batches per epoch": 2, "number of base filters": 8,
+           "base output path": str(tmp_path / "runs"), "data_path": data,
+           "val_fraction": 0.5, "viz_every": 0}
+    cfg_path = str(tmp_path / "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    trainer.main([cfg_path])
+    assert "training on cuda:0" in capsys.readouterr().out
+    (run,) = os.listdir(tmp_path / "runs")
+    files = set(os.listdir(tmp_path / "runs" / run))
+    assert {"checkpoint.pt", "best_model.pt", "final_confmaps_model.pt"} <= files, files

@@ -44,6 +44,7 @@ def test_every_port_module_imports_without_jax():
             "pose_estimation_amitai_torch.ops.gaussian",
             "pose_estimation_amitai_torch.ops.morphology",
             "pose_estimation_amitai_torch.data.synthetic",
+            "pose_estimation_amitai_torch.data.h5",
             "pose_estimation_amitai_torch.data.preprocess",
             "pose_estimation_amitai_torch.data.pipeline",
             "pose_estimation_amitai_torch.train.loop",
@@ -83,6 +84,28 @@ def test_every_port_module_imports_without_jax():
     r = _run(code, dict(os.environ))
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_h5_paths_load_no_h5py(tmp_path):
+    """The config-file paths read and write the contract file through the
+    port's own reader and writer: with ``h5py`` made unimportable, the
+    modules import, ``write_synthetic_h5`` writes and the Preprocessor
+    loads, and no ``h5py`` module is loaded."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None  # an import of h5py now raises\n"
+        "from pose_estimation_amitai_torch.data import preprocess, synthetic\n"
+        "from pose_estimation_amitai_torch.train import selfsup, trainer\n"
+        f"p = synthetic.write_synthetic_h5({str(tmp_path / 'd.h5')!r}, num_frames=2,\n"
+        "                                 num_points=8, image_size=32)\n"
+        "d = preprocess.Preprocessor._load_h5(p)\n"
+        "assert d['box'].shape == (2, 4, 32, 32, 5), d['box'].shape\n"
+        "assert [m for m in sys.modules if m.split('.')[0] == 'h5py'] == ['h5py']\n"
+        "print('ok')\n"
+    )
+    r = _run(code, dict(os.environ))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_kernel_modules_import_and_refuse_without_nvcc_or_cuda():
