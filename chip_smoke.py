@@ -237,8 +237,23 @@ Phases, each printing one JSON line ({"phase": ...}):
              on "module" and "fused" over the 612 frames, in float32 (TF32
              off, maps within 1e-4 of max of the reference module's forward)
              and bf16 (within 5%); B1, B2 and S1's counters around the bf16
-             fused run; the keras importers need h5py, absent there, and are
-             CPU-tested only (a line says so);
+             fused run; then (a) the flagship's seeded tree written as the
+             JAX package's best_model.msgpack (weights.pack_flax_msgpack:
+             flax's bytes), read back bit-equal by load_flax_checkpoint, and
+             the run directory served through Predictor.from_checkpoint on
+             "fused" as three requests (256, 256, 100), B1 and B2's counters
+             around them, maps and peaks bit-equal to a Predictor of the tree
+             in memory; (b) keras saves written by the port's HDF5 writer
+             (data/h5.py) in model.save's layout and read back by its
+             reader (no h5py or msgpack there): the tf basic_nn at Config()
+             (filters 64, 4 -> 18) served on "module" in float32 (maps
+             within 1e-4 of max of the CPU's on 2 frames), and the ViT at
+             Config()'s widths through ``cli import`` to a snapshot, served
+             on "fused" from the .h5 (import_reference=True; S1's counter
+             around the bf16 run) and on "module" from the snapshot, the
+             routes within 1e-4 (float32) and 5% (bf16) of max of each
+             other; _keras_weight_list reads back the names and bits
+             written;
 20. export - the flagship's "module", "fused" and "int8_fused" (scales from
              128 frames) routes and the ViT's "fused" route exported at
              chunk 256 (deploy.export_predictor), loaded with
@@ -304,7 +319,9 @@ from the loaded serving artifacts; B1, B2 and S1 ``parallel_launches``, theirs
 on the parallel phase's serving paths (the mesh Predictor, the
 pipeline-trained ViT); B1 and B2 ``selfsup_launches`` (the
 pretraining run directory's chunk) and, with S1, ``import_launches`` (the
-imported reference checkpoints' 612 frames). The rows of the kernels that
+imported reference checkpoints' 612 frames); B1 and B2
+``jax_checkpoint_launches`` (the JAX run directory's 612 frames) and S1
+``keras_launches`` (the keras ViT's). The rows of the kernels that
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
@@ -3099,6 +3116,7 @@ SELFSUP_FT_UPDATES = 5  # the fine-tuning Trainer: 1 epoch of these
 # the import phase: reference-layout checkpoints at full width
 IMPORT_F32_RTOL = 1e-4  # served maps vs the reference module's forward, float32, of max
 IMPORT_BF16_RTOL = 5e-2  # the same in bf16
+KERAS_CPU_FRAMES = 2  # the keras BasicNet's maps card vs CPU on these frames
 # the export phase
 EXPORT_GAP = 2e-4  # peaks equal wherever the top-two gap exceeds this
 EXPORT_F32_RTOL = 1e-4  # float32 programs' peak values vs the Predictor's, of max
@@ -3416,10 +3434,281 @@ def reference_maps(torch, net, frames: np.ndarray, batch: int = CHUNK) -> np.nda
     return np.concatenate(outs)
 
 
-def phase_import(torch, frames, device_name: str, smi: str) -> dict:
+def keras_save(path: str, layers: list) -> list:
+    """Write ``layers`` -- [(layer name, [(weight name, array), ...]), ...]
+    in the model's order -- as keras' ``model.save`` lays out an .h5 file,
+    through the port's own HDF5 writer (data/h5.py): the root's
+    ``backend``, ``keras_version`` and ``model_config`` strings,
+    ``model_weights`` with its ``layer_names``, a group a layer with its
+    ``weight_names`` ([] for a weightless layer) and each weight at
+    ``model_weights/<layer>/<weight name>`` (tests/test_importers.py's
+    ``_write_keras_h5`` and ``_write_keras_vit_h5`` compose it so). The
+    (weight name, array) list in the model's order: what
+    importers._keras_weight_list must read back."""
+    from pose_estimation_amitai_torch.data import h5
+
+    config = json.dumps({"class_name": "Functional", "config": {
+        "name": "model", "layers": [{"name": name} for name, _ in layers]}})
+    strings = {"backend": "tensorflow", "keras_version": "2.4.0"}
+    attrs = {"": {**strings, "model_config": config},
+             "model_weights": {"layer_names": [n.encode() for n, _ in layers], **strings}}
+    arrays = {}
+    for name, ws in layers:
+        attrs[f"model_weights/{name}"] = {"weight_names": [w.encode() for w, _ in ws]}
+        arrays.update((f"model_weights/{name}/{w}", a) for w, a in ws)
+    h5.write_datasets(path, arrays, attrs)
+    return [w for _, ws in layers for w in ws]
+
+
+def keras_basicnet_layers(rng, filters: int, cin: int, cout: int, nb: int) -> list:
+    """The reference's keras basic_nn (tensorflow/Network.py:127-145,
+    416-474) as keras saves it, seeded: an input layer, then the
+    Encoder2DAtrous and Decoder2D sub-models, each one group of
+    ``conv2d_<i>`` kernels (kh, kw, I, O; a Conv2DTranspose's (kh, kw, O,
+    I)) and biases -- 3 convs a block and 3 bottleneck convs, then a
+    deconv and 2 convs a block up and the head deconv."""
+
+    def conv(i, o, transposed=False):
+        k = rng.normal(0, (9 * i) ** -0.5, (3, 3, o, i) if transposed else (3, 3, i, o))
+        return k.astype(np.float32), rng.normal(0, 0.05, o).astype(np.float32)
+
+    enc, c = [], cin
+    for b in range(nb + 1):  # the last triple is the bottleneck
+        f = filters * 2 ** b
+        enc += [conv(c, f), conv(f, f), conv(f, f)]
+        c = f
+    dec = []
+    for b in range(nb - 1, 0, -1):
+        f = filters * 2 ** b
+        dec += [conv(c, f, transposed=True), conv(f, f), conv(f, f)]
+        c = f
+    dec.append(conv(c, cout, transposed=True))
+
+    def group(name, pairs):
+        return name, [(f"{name}/conv2d{f'_{i}' if i else ''}/{leaf}:0", a)
+                      for i, pair in enumerate(pairs) for leaf, a in zip(("kernel", "bias"), pair)]
+
+    return [("x_in", []), group("Encoder2DAtrous", enc), group("Decoder2D", dec)]
+
+
+def keras_vit_layers(rng, cfg, cin: int, cout: int, image: int = 192) -> list:
+    """The reference's keras ViT (tensorflow/vitPose.py:100-130) as keras
+    saves it, seeded, at ``cfg``'s widths for ``image``-pixel frames: patch
+    extraction, the Dense patch
+    embedding, the position Embedding, a block a layer of
+    MultiHeadAttention (biased query, key, value, attention_output), a
+    LayerNorm, two Dense and a LayerNorm, then 4 channel-halving
+    Conv2DTranspose."""
+    p, dim, heads = cfg.patch_size, cfg.projection_dim, cfg.num_heads
+    dh = dim if cfg.dim_head else 64
+    mlp = dim * cfg.fully_connected_expand
+
+    def w(*shape, scale=0.05):
+        return rng.normal(0, scale, shape).astype(np.float32)
+
+    def named(layer, *leaves):
+        return layer, [(f"{layer}/{leaf}:0", a) for leaf, a in leaves]
+
+    def norm(n):
+        name = f"layer_normalization_{n}" if n else "layer_normalization"
+        return named(name, ("gamma", 1 + w(dim)), ("beta", w(dim)))
+
+    layers = [("patch_extraction_layer", []),
+              named("dense", ("kernel", w(p * p * cin, dim)), ("bias", w(dim))),
+              named("embedding", ("embeddings", w((image // p) ** 2, dim)))]
+    for i in range(cfg.transformer_layers):
+        qkv = [(f"{part}/{leaf}", w(dim, heads, dh) if leaf == "kernel" else w(heads, dh))
+               for part in ("query", "key", "value") for leaf in ("kernel", "bias")]
+        layers += [
+            named(f"multi_head_attention_{i}" if i else "multi_head_attention", *qkv,
+                  ("attention_output/kernel", w(heads, dh, dim)),
+                  ("attention_output/bias", w(dim))),
+            norm(2 * i),
+            named(f"dense_{2 * i + 1}", ("kernel", w(dim, mlp)), ("bias", w(mlp))),
+            named(f"dense_{2 * i + 2}", ("kernel", w(mlp, dim)), ("bias", w(dim))),
+            norm(2 * i + 1),
+        ]
+    c = dim
+    for i, o in enumerate((dim // 2, dim // 4, dim // 8, cout)):
+        layers.append(named(f"conv2d_transpose_{i}" if i else "conv2d_transpose",
+                            ("kernel", w(3, 3, o, c, scale=(9 * c) ** -0.5)), ("bias", w(o))))
+        c = o
+    return layers
+
+
+def flat_tree(tree: dict, prefix: str = "") -> list:
+    """A nested dict's (path, leaf) pairs in path order."""
+    return sorted((pair for k, v in tree.items() for pair in (
+        flat_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else [(f"{prefix}{k}", v)])),
+        key=lambda pair: pair[0])
+
+
+def same_weights(got: list, want: list) -> bool:
+    """Names, dtypes, shapes and bits of two (name, array) lists equal."""
+    return [n for n, _ in got] == [n for n, _ in want] and all(
+        a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+        for (_, a), (_, b) in zip(got, want))
+
+
+def import_jax_run_directory(torch, params, frames, out: str) -> dict:
+    """(a) of the import phase: the flagship's seeded tree written as the
+    JAX package's save_params writes best_model.msgpack (the port's
+    pack_flax_msgpack), read back bit-equal by load_flax_checkpoint, and
+    the run directory served on "fused" through Predictor.from_checkpoint,
+    its maps and peaks bit-equal to a Predictor built from the tree in
+    memory; B1 and B2's counters around the 612 frames."""
+    import os
+
+    from pose_estimation_amitai_torch import Config, weights
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+
+    t0 = time.perf_counter()
+    run = os.path.join(out, "jax_run")
+    os.makedirs(run)
+    blob = weights.pack_flax_msgpack(params)
+    with open(os.path.join(run, "best_model.msgpack"), "wb") as f:
+        f.write(blob)
+    t1 = time.perf_counter()
+    tree, stats = weights.load_flax_checkpoint(run)
+    t_read = time.perf_counter() - t1
+    check(stats == {} and same_weights(flat_tree(tree), flat_tree(params)),
+          "the JAX run directory's tree is not the tree written")
+    kw = dict(use_fused=True, device="cuda", chunk_size=CHUNK, return_heatmaps=True)
+    pred = Predictor.from_checkpoint(Config(), run, (192, 192, 4), 18, **kw)
+    check(pred.serving_path == "fused", f"the JAX run directory served {pred.serving_path}")
+    pred(frames[:1])  # warm-up
+    # ---- the 612 frames: counters zeroed just before, read just after ----
+    zero_conv_counters(hc, hd)
+    answers, start = [], 0
+    for n in REQUESTS:
+        answers.append(pred(frames[start:start + n]))
+        start += n
+    launches = {"fused_encoder_stage": hc.fused_encoder_stage.launches,
+                "fused_decoder": hd.fused_decoder.launches}
+    # ----------------------------------------------------------------------
+    chunks = sum(-(-n // CHUNK) for n in REQUESTS)
+    check(launches == {"fused_encoder_stage": 3 * chunks, "fused_decoder": chunks},
+          f"the JAX run directory's requests took {launches}")
+    maps = np.concatenate([m for m, _ in answers])
+    pts = np.concatenate([p for _, p in answers])
+    del answers
+    want_maps, want_pts = Predictor(Config(), params, (192, 192, 4), 18, **kw)(frames)
+    check(np.array_equal(maps, want_maps) and np.array_equal(pts, want_pts),
+          "the JAX run directory's maps differ from the in-memory tree's")
+    return {"checkpoint_bytes": len(blob), "read_seconds": t_read, "route": "fused",
+            "frames": len(frames), "launches": launches, "maps_bit_equal": True,
+            "seconds": time.perf_counter() - t0}
+
+
+def import_keras_saves(torch, frames, out: str) -> dict:
+    """(b) of the import phase: keras saves written by the port's HDF5
+    writer and read by its reader. The tf-flavour basic_nn at Config()
+    (filters 64, 4 -> 18) served on "module" in float32 (its maps within
+    1e-4 of max of the same import's on the CPU, on 2 frames); the ViT at
+    Config()'s widths through ``cli import`` to a snapshot, then served on
+    "fused" from the .h5 (import_reference=True; S1's counter around the
+    bf16 run) and on "module" from the snapshot, the routes within the
+    import tolerances of each other. For each, _keras_weight_list reads
+    back exactly the names and bits written."""
+    import contextlib
+    import io
+    import os
+
+    from pose_estimation_amitai_torch import Config, cli, importers
+    from pose_estimation_amitai_torch import constants as C
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import hopper_attention as ha
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    cfg = Config(compute_dtype="float32")
+    path = os.path.join(out, "basic_nn.h5")
+    layers = keras_basicnet_layers(rng, cfg.num_base_filters, 4, 18, cfg.num_blocks)
+    t1 = time.perf_counter()
+    written = keras_save(path, layers)
+    t2 = time.perf_counter()
+    check(importers.is_reference_checkpoint(path) and same_weights(
+        importers._keras_weight_list(path), written), "the keras basic_nn did not read back")
+    io_s = {"write_seconds": t2 - t1, "read_seconds": time.perf_counter() - t2}
+    arch = importers.import_reference_checkpoint(path).arch_kwargs
+    check(arch == {"out_channels": 18, "in_channels": 4, "filters": cfg.num_base_filters,
+                   "kernel_size": 3, "dilation": 2, "num_blocks": cfg.num_blocks},
+          f"the keras basic_nn imported as {arch}")
+    pred = Predictor.from_checkpoint(cfg, path, (192, 192, 4), 18, device="cuda",
+                                     chunk_size=CHUNK, return_heatmaps=True)
+    check(pred.serving_path == "module", f"the keras basic_nn served {pred.serving_path}")
+    maps, pts = pred(frames)
+    cpu, _ = Predictor.from_checkpoint(cfg, path, (192, 192, 4), 18, device="cpu",
+                                       chunk_size=KERAS_CPU_FRAMES,
+                                       return_heatmaps=True)(frames[:KERAS_CPU_FRAMES])
+    top = float(np.abs(cpu).max())
+    basic_err = float(np.abs(maps[:KERAS_CPU_FRAMES] - cpu).max())
+    check(basic_err <= IMPORT_F32_RTOL * top and bool(np.isfinite(maps).all())
+          and pts.shape == (len(frames), 3, 18),
+          f"the keras basic_nn's maps, card vs CPU: {basic_err} > {IMPORT_F32_RTOL} x {top}")
+    basic = {"arch_kwargs": arch, "route": "module", "max_abs_err_vs_cpu": basic_err,
+             "max_abs_maps": top, "weights": len(written),
+             "file_bytes": os.path.getsize(path), **io_s}
+    del maps, pred
+
+    vcfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
+    vpath, snap = os.path.join(out, "vit_model.h5"), os.path.join(out, "vit_snapshot.pt")
+    layers = keras_vit_layers(rng, vcfg, 4, 18)
+    t1 = time.perf_counter()
+    written = keras_save(vpath, layers)
+    t2 = time.perf_counter()
+    check(same_weights(importers._keras_weight_list(vpath), written),
+          "the keras ViT did not read back")
+    t3 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        check(cli.main(["import", vpath, snap]) == 0, "cli import of the keras ViT failed")
+    io_s = {"write_seconds": t2 - t1, "read_seconds": t3 - t2,
+            "cli_import_seconds": time.perf_counter() - t3}
+    imported = importers.import_reference_checkpoint(vpath)
+    snapped = importers.load_imported_snapshot(snap)
+    check(snapped.arch_kwargs == imported.arch_kwargs and same_weights(
+        flat_tree(snapped.params), flat_tree(imported.params)),
+        "the keras ViT's snapshot differs from its import")
+    routes, launches = {}, 0
+    for dt, rtol in (("float32", IMPORT_F32_RTOL), ("bfloat16", IMPORT_BF16_RTOL)):
+        maps = {}
+        for route, src, flags in (("fused", vpath, {"import_reference": True}),
+                                  ("module", snap, {})):
+            pred = Predictor.from_checkpoint(vcfg.replace(compute_dtype=dt), src,
+                                             (192, 192, 4), 18, device="cuda",
+                                             chunk_size=CHUNK, return_heatmaps=True,
+                                             use_fused=route == "fused", **flags)
+            check(pred.serving_path == route, f"the keras ViT served {pred.serving_path}")
+            if route == "fused" and dt == "bfloat16":
+                pred(frames[:1])  # warm-up
+                # ---- counters zeroed just before, read just after ----
+                ha.fused_attention.launches = 0
+                maps[route] = pred(frames)[0]
+                launches = ha.fused_attention.launches
+                # ------------------------------------------------------
+            else:
+                maps[route] = pred(frames)[0]
+        top = float(np.abs(maps["module"]).max())
+        err = float(np.abs(maps["fused"] - maps["module"]).max())
+        check(err <= rtol * top and bool(np.isfinite(maps["fused"]).all()),
+              f"the keras ViT {dt}: fused vs module {err} > {rtol} x {top}")
+        routes[dt] = {"max_abs_err": err, "max_abs_maps": top}
+    check(launches == vcfg.transformer_layers * -(-len(frames) // CHUNK),
+          f"the keras ViT's fused run took {launches} attention launches")
+    vit = {"arch_kwargs": imported.arch_kwargs, "cli_import": json.loads(said.getvalue()),
+           "fused_vs_module": routes, "launches": {"fused_attention": launches},
+           "weights": len(written), "file_bytes": os.path.getsize(vpath), **io_s}
+    return {"BasicNet": basic, "ViT": vit, "seconds": time.perf_counter() - t0}
+
+
+def phase_import(torch, params, frames, device_name: str, smi: str) -> dict:
     """Reference-layout checkpoints at full width, imported and served
     through Predictor.from_checkpoint(import_reference=True) on the module
-    and fused routes, held to the reference module's own forward."""
+    and fused routes, held to the reference module's own forward; then a
+    JAX run directory and keras saves, read by the port's own msgpack and
+    HDF5 readers."""
     import os
     import tempfile
 
@@ -3431,8 +3720,6 @@ def phase_import(torch, frames, device_name: str, smi: str) -> dict:
     from pose_estimation_amitai_torch.ops import hopper_deconv as hd
 
     t_phase = time.perf_counter()
-    print("import: the keras (.h5) importers need h5py, which this machine lacks; they are "
-          "tested on the CPU only (tests/test_torch_importers.py)", flush=True)
     RefBasicNet, RefViTNet = reference_modules(torch)
     vcfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT)
     dim, dim_head = vcfg.projection_dim, vcfg.projection_dim if vcfg.dim_head else 64
@@ -3490,6 +3777,9 @@ def phase_import(torch, frames, device_name: str, smi: str) -> dict:
             models[name] = {"arch_kwargs": a.arch_kwargs, "max_abs_maps": top,
                             "max_abs_err": routes}
             del net
+        t_torch = time.perf_counter() - t_phase
+        jax_run = import_jax_run_directory(torch, params, frames, out)
+        keras = import_keras_saves(torch, frames, out)
     chunks = -(-len(frames) // CHUNK)
     check(launches["BasicNet"] == {"fused_encoder_stage": 3 * chunks,
                                    "fused_decoder": chunks, "fused_attention": 0}
@@ -3503,16 +3793,14 @@ def phase_import(torch, frames, device_name: str, smi: str) -> dict:
                        "TorchScript best_model.pth",
               "frames": len(frames), "models": models, "launches": launches,
               "rtol": {"float32": IMPORT_F32_RTOL, "bfloat16": IMPORT_BF16_RTOL},
-              "keras": "not run: no h5py on this machine (CPU-tested)",
+              "torch_seconds": t_torch, "jax_run_directory": jax_run, "keras": keras,
               "seconds": time.perf_counter() - t_phase}
     emit(result)
     return result
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-    return [tree]
+    return [leaf for _, leaf in flat_tree(tree)]
 
 
 def export_case(torch, name: str, pred, frames, gaps, tmp: str, timed: bool) -> dict:
@@ -4060,13 +4348,15 @@ def main() -> int:
     vtr = phase_vit_train(torch, name, smi)
     phase_int8_generic(torch, frames, name, smi)
     ss = phase_selfsup(torch, name, smi)
-    imp = phase_import(torch, frames, name, smi)
+    imp = phase_import(torch, params, frames, name, smi)
     ex = phase_export(torch, params, frames, name, smi)
     par = phase_parallel(torch, params, frames, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
                 "quantized_conv3x3": im["launches"]}
     imported = {**{k: v for k, v in imp["launches"]["BasicNet"].items() if v},
                 **{k: v for k, v in imp["launches"]["ViT"].items() if v}}
+    jax_run = imp["jax_run_directory"]["launches"]  # the JAX run directory (B1, B2)
+    keras = imp["keras"]["ViT"]["launches"]  # the keras ViT (S1)
     staged = {**sl["staging"]["movie_launches"], **vt["staging"]["movie_launches"]}
     for r in rows:
         r["launches"] = launches[r["name"]]
@@ -4080,6 +4370,10 @@ def main() -> int:
             r["selfsup_launches"] = ss["served"]["launches"][r["name"]]
         if r["name"] in imported:  # the imported reference checkpoints
             r["import_launches"] = imported[r["name"]]
+        if r["name"] in jax_run:
+            r["jax_checkpoint_launches"] = jax_run[r["name"]]
+        if r["name"] in keras:
+            r["keras_launches"] = keras[r["name"]]
         if r["name"] in par["launches"]:  # the parallel phase's serving paths
             r["parallel_launches"] = par["launches"][r["name"]]
             check(r["parallel_launches"] > 0, f"{r['name']}: no launch on the parallel paths")

@@ -1,58 +1,69 @@
-"""The port's reader and writer of the contract's HDF5 files, in numpy and
-the standard library.
+"""The port's reader and writer of HDF5 files, in numpy and the standard
+library: the contract's data files and keras ``.h5`` saves.
 
 The JAX package reads the contract file (``box``, ``confmaps``,
-``points_3D``, ``cropZone``, ``cameras_dlt_array``) through ``h5py``; the
-port's machines need not have it, so this module reads what the contract's
-known producers write, ``h5py`` at its default settings (JAX's
-``write_synthetic_h5``, the lab's own files) and this module's writer, by
-the HDF5 file format specification (version 3.0):
+``points_3D``, ``cropZone``, ``cameras_dlt_array``) and keras saves
+(``importers.py``) through ``h5py``; the port's machines need not have it,
+so this module reads what their known producers write, ``h5py`` at its
+default settings (JAX's ``write_synthetic_h5``, the lab's own files, keras'
+``model.save``) and this module's writer, by the HDF5 file format
+specification (version 3.0):
 
 * superblock version 0, at the start of the file or after a user block of
   512, 1024, 2048, ... bytes;
 * version-1 object headers, continuation blocks followed;
-* a root group held by a symbol table (a version-1 B-tree over symbol-table
-  nodes, names in a local heap);
+* groups held by symbol tables (a version-1 B-tree over symbol-table nodes,
+  names in a local heap), at any depth, walked by path (:class:`File`,
+  :class:`Group`);
 * fixed-point (1 to 8 bytes, signed or not) and IEEE floats (4 or 8 bytes)
   in either byte order, returned as ``h5py`` returns them: an array in the
   file's byte order, a 0-d dataset in native order (``h5py`` gives a numpy
   scalar);
 * contiguous layouts (one ``np.fromfile``) and chunked layouts indexed by a
   version-1 B-tree, deflated or not (a chunk's filter mask may skip
-  deflate), edge chunks cropped to the extent.
+  deflate), edge chunks cropped to the extent;
+* version-1 attribute messages of those numeric types, of fixed-length
+  strings (a numpy ``S`` array) and of variable-length strings held in
+  global heap collections (``str``, in an object array unless scalar),
+  each as ``h5py``'s ``attrs[name]`` returns it.
 
 MATLAB's ``-v7.3`` exports use this same format with a 512-byte user block
 (column-major arrays come back in ``h5py``'s reversed shape, for the loader
 to canonicalise); no real MATLAB export has been read by the tests.
 
-Anything else raises ``ValueError`` naming the feature and the dataset:
-superblocks 1 to 3 (``h5py``'s ``libver="v108"`` and later, with their
-version-2 headers, link messages and chunk indexes), compact layouts,
-storage or chunks never written, filters other than deflate (shuffle,
-fletcher32, lzf, szip, blosc, ...), non-numeric types, shared messages and
-datasets below the root group. Nothing falls back to ``h5py`` and nothing
-is read in part.
+Anything else raises ``ValueError`` naming the feature (and the dataset or
+attribute): superblocks 1 to 3 (``h5py``'s ``libver="v108"`` and later),
+version-2 object headers (``track_order=True`` groups too), link messages
+(compact or dense link storage), dense attribute storage, attribute
+messages of versions 2 and 3, compact layouts, storage or chunks never
+written, filters other than deflate (shuffle, fletcher32, lzf, szip, blosc,
+...), other datatypes (compound, enumerated, variable-length sequences,
+...), shared messages and soft links. Nothing falls back to ``h5py`` and
+nothing is read in part.
 
-:func:`write_datasets` writes root-level contiguous numeric datasets as
-``h5py``'s defaults write them (superblock 0, a symbol-table root group,
-version-1 object headers), for ``data/synthetic.py``.
+:func:`write_datasets` writes contiguous numeric datasets at any depth and
+attributes on any group as ``h5py``'s defaults write them (superblock 0,
+symbol-table groups, version-1 object headers and attribute messages), for
+``data/synthetic.py`` and for keras-layout saves.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import struct
 import zlib
-from typing import BinaryIO, Iterator, Mapping
+from typing import Any, BinaryIO, Iterator, Mapping
 
 import numpy as np
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 
 # object header message types (specification IV.A.2)
-_DATASPACE, _DATATYPE, _FILL, _LAYOUT, _FILTERS = 0x1, 0x3, 0x5, 0x8, 0xB
-_CONTINUATION, _SYMBOL_TABLE = 0x10, 0x11
+_DATASPACE, _LINK_INFO, _DATATYPE, _FILL, _LINK = 0x1, 0x2, 0x3, 0x5, 0x6
+_LAYOUT, _FILTERS, _ATTRIBUTE, _CONTINUATION, _SYMBOL_TABLE = 0x8, 0xB, 0xC, 0x10, 0x11
+_ATTRIBUTE_INFO = 0x15
 
 _DEFLATE = 1
 _FILTER_NAMES = {2: "shuffle", 3: "fletcher32", 4: "szip", 5: "nbit", 6: "scaleoffset",
@@ -99,7 +110,7 @@ class _Cursor:
 
 
 class _Reader:
-    """One open file: its superblock, root group links and datasets."""
+    """One open file: its superblock, groups, attributes and datasets."""
 
     def __init__(self, f: BinaryIO):
         self.f = f
@@ -121,6 +132,7 @@ class _Reader:
         c.addr()  # the root entry's link name offset
         self.root = c.addr()
         self.undefined = (1 << (8 * self.sizeof_addr)) - 1
+        self._heaps: dict[int, dict[int, bytes]] = {}  # global heap collections read
 
     # -- bytes -------------------------------------------------------------
     def _cursor(self, data: bytes, pos: int = 0) -> _Cursor:
@@ -142,6 +154,9 @@ class _Reader:
         """(type, flags, body) of every message of the version-1 object
         header at ``addr``, continuation blocks followed."""
         head = self.read(addr, 16)
+        if head[:4] == b"OHDR":
+            raise ValueError(f"the version-2 object header at {addr} (h5py's track_order=True,"
+                             " libver v108 and later) is not read")
         if head[0] != 1:
             raise ValueError(f"the object header at {addr} is not version 1")
         (size,) = struct.unpack_from("<I", head, 8)
@@ -160,20 +175,28 @@ class _Reader:
                     out.append((mtype, mflags, body))
         return out
 
-    # -- the root group ----------------------------------------------------
-    def root_links(self) -> dict[str, int | str]:
-        """Name -> object header address of every link of the root group;
-        a soft link maps to a string naming its kind."""
-        for mtype, _, body in self.messages(self.root):
+    # -- groups ------------------------------------------------------------
+    def links(self, addr: int) -> dict[str, int | str]:
+        """Name -> object header address of every link of the group at
+        ``addr``, in name order (h5py's); a soft link maps to a string
+        naming its kind."""
+        for mtype, _, body in self.messages(addr):
             if mtype == _SYMBOL_TABLE:
                 c = self._cursor(body)
                 return self._symbol_table(c.addr(), c.addr())
-        raise ValueError("the root group has no symbol table")
+            if mtype in (_LINK_INFO, _LINK):
+                raise ValueError("link messages (compact or dense link storage) are not read")
+        raise ValueError("the group has no symbol table")
+
+    def is_group(self, addr: int) -> bool:
+        """Whether the object at ``addr`` is a group (a symbol table, or
+        link messages this reader refuses) rather than a dataset."""
+        return any(t in (_SYMBOL_TABLE, _LINK_INFO, _LINK) for t, _, _ in self.messages(addr))
 
     def _symbol_table(self, btree: int, heap: int) -> dict[str, int | str]:
         head = self.read(heap, 8 + 2 * self.sizeof_len + self.sizeof_addr)
         if head[:4] != b"HEAP":
-            raise ValueError("the root group's local heap lacks its signature")
+            raise ValueError("a group's local heap lacks its signature")
         c = self._cursor(head, 8)
         seg_size = c.length()
         c.length()  # free list
@@ -210,6 +233,92 @@ class _Reader:
             else:
                 yield child, key
 
+    # -- attributes --------------------------------------------------------
+    def attributes(self, addr: int) -> dict[str, Any]:
+        """Name -> value of every attribute of the object at ``addr``, in
+        name order, each as ``h5py``'s ``attrs[name]`` returns it."""
+        out = {}
+        for mtype, mflags, body in self.messages(addr):
+            if mtype == _ATTRIBUTE_INFO:
+                raise ValueError("an attribute info message (dense attribute storage) is not read")
+            if mtype == _ATTRIBUTE:
+                if mflags & 0x02:
+                    raise ValueError("a shared attribute message is not read")
+                name, value = self._attribute(body)
+                out[name] = value
+        return dict(sorted(out.items()))
+
+    def _attribute(self, body: bytes) -> tuple[str, Any]:
+        """A version-1 attribute message: its name, then its datatype,
+        dataspace and data, the first three each padded to 8 bytes."""
+        name_size, type_size, space_size = struct.unpack_from("<HHH", body, 2)
+        pos = 9 if body[0] == 3 else 8  # version 3 has a name encoding byte first
+        name = body[pos:pos + name_size].split(b"\0")[0].decode("utf-8", "replace")
+        if body[0] != 1:
+            raise ValueError(f"attribute {name!r}: attribute message version {body[0]} is not"
+                             " read (only version 1, h5py's default)")
+        pos += _pad8(name_size)
+        dtype = body[pos:pos + type_size]
+        pos += _pad8(type_size)
+        try:
+            shape = self._dataspace(body[pos:pos + space_size])
+            return name, self._attribute_value(dtype, shape, body[pos + _pad8(space_size):])
+        except ValueError as e:
+            raise ValueError(f"attribute {name!r}: {e}") from None
+
+    def _attribute_value(self, dt: bytes, shape: tuple[int, ...], data: bytes) -> Any:
+        """Fixed-length strings as a numpy ``S`` array, variable-length
+        strings as ``str`` (in an object array unless scalar), numbers as
+        their array; a scalar as a numpy scalar, as h5py gives them."""
+        cls, count = dt[0] & 0x0F, math.prod(shape)
+        if cls == 9:
+            return self._vlen_strings(dt, shape, data)
+        dtype = np.dtype(f"S{struct.unpack_from('<I', dt, 4)[0]}") if cls == 3 else _datatype(dt)
+        if len(data) < count * dtype.itemsize:
+            raise ValueError(f"{len(data)} bytes of data for {count} elements of {dtype}")
+        a = np.frombuffer(data, dtype, count).reshape(shape).copy()
+        return a if a.ndim else a[()]
+
+    def _vlen_strings(self, dt: bytes, shape: tuple[int, ...], data: bytes) -> Any:
+        """Each element a 4-byte length and a global heap ID (a collection's
+        address and a 4-byte object index)."""
+        if dt[1] & 0x0F != 1:
+            raise ValueError("the variable-length sequence datatype is not read (only strings)")
+        c = self._cursor(data)
+        out = []
+        for _ in range(math.prod(shape)):
+            length, collection, index = c.uint(4), c.addr(), c.uint(4)
+            raw = self._heap_object(collection, index)[:length] if length else b""
+            out.append(raw.decode("utf-8", "surrogateescape"))
+        if not shape:
+            return out[0]
+        a = np.empty(len(out), object)
+        a[:] = out
+        return a.reshape(shape)
+
+    def _heap_object(self, addr: int, index: int) -> bytes:
+        """Object ``index`` of the global heap collection at ``addr``: its
+        objects follow the header, each an index, a reference count and a
+        size, then its bytes padded to 8; index 0 is the free space."""
+        if addr not in self._heaps:
+            head = self.read(addr, 8 + self.sizeof_len)
+            if head[:4] != b"GCOL":
+                raise ValueError(f"the global heap collection at {addr} lacks its signature")
+            size = self._cursor(head, 8).length()
+            data, objects = self.read(addr, size), {}
+            pos = step = 8 + self.sizeof_len
+            while pos + step <= size:
+                (i,) = struct.unpack_from("<H", data, pos)
+                if i == 0:
+                    break
+                n = self._cursor(data, pos + 8).length()
+                objects[i] = data[pos + step:pos + step + n]
+                pos += step + _pad8(n)
+            self._heaps[addr] = objects
+        if index not in self._heaps[addr]:
+            raise ValueError(f"no object {index} in the global heap collection at {addr}")
+        return self._heaps[addr][index]
+
     # -- datasets ----------------------------------------------------------
     def dataset(self, addr: int) -> np.ndarray:
         msgs: dict[int, bytes] = {}
@@ -219,7 +328,7 @@ class _Reader:
                     raise ValueError(f"a shared message (type {mtype}) is not read")
                 msgs.setdefault(mtype, body)
         if _LAYOUT not in msgs:
-            raise ValueError("the object has no data layout message: a group, not a dataset")
+            raise ValueError("the object has no data layout message (not a dataset)")
         shape = self._dataspace(msgs[_DATASPACE])
         dtype = _datatype(msgs[_DATATYPE])
         deflated = _deflated(msgs[_FILTERS]) if _FILTERS in msgs else False
@@ -332,40 +441,144 @@ def _deflated(body: bytes) -> bool:
     return bool(fids)
 
 
-def read_datasets(path: str, names) -> dict[str, np.ndarray]:
-    """The root-level datasets ``names`` of the HDF5 file at ``path``, each
-    equal bit for bit to ``h5py.File(path)[name][()]`` (dtype and shape
-    too). A missing name raises ``KeyError``; a file, layout or type this
-    module does not read raises ``ValueError`` naming it."""
-    names = list(names)
-    for name in names:
-        if "/" in name:
-            raise ValueError(f"{path}: dataset {name!r}: only datasets of the root group"
-                             " are read")
-    out: dict[str, np.ndarray] = {}
-    with open(path, "rb") as f:
+def _pad8(n: int) -> int:
+    return n + -n % 8
+
+
+class Dataset:
+    """A dataset of an open :class:`File`: ``ds.attrs``, and its data from
+    ``ds[()]`` or ``np.asarray(ds, dtype)``, read on each access (equal bit
+    for bit to h5py's ``ds[()]``; a 0-d dataset as a 0-d array in native
+    order)."""
+
+    def __init__(self, reader: _Reader, addr: int, name: str):
+        self._reader, self._addr, self.name = reader, addr, name
+
+    @functools.cached_property
+    def attrs(self) -> dict[str, Any]:
+        return self._reader.attributes(self._addr)
+
+    def __getitem__(self, key) -> np.ndarray:
+        if key != ():
+            raise ValueError(f"{self.name}: only ds[()] (the whole dataset) is read")
+        data = self._reader.dataset(self._addr)
+        return data if data.ndim else data.astype(data.dtype.newbyteorder("="))
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        data = self[()]
+        return data if dtype is None else data.astype(dtype)
+
+
+class Group:
+    """A group of an open :class:`File`, with the part of ``h5py.Group``'s
+    interface that a walk over a keras save uses: ``path in g``, ``g[path]``
+    (a :class:`Group` or a :class:`Dataset`; a path walks group by group, a
+    leading "/" from the root), ``g.keys()`` in h5py's order (name order)
+    and ``g.attrs`` (a dict, each value as h5py's ``attrs[name]`` gives
+    it)."""
+
+    def __init__(self, reader: _Reader, addr: int, name: str):
+        self._reader, self._addr, self.name = reader, addr, name
+
+    @functools.cached_property
+    def attrs(self) -> dict[str, Any]:
+        return self._reader.attributes(self._addr)
+
+    @functools.cached_property
+    def _links(self) -> dict[str, int | str]:
+        return self._reader.links(self._addr)
+
+    def keys(self) -> list[str]:
+        return list(self._links)
+
+    def __contains__(self, path: str) -> bool:
         try:
-            reader = _Reader(f)
-            links = reader.root_links()
+            self[path]
+        except KeyError:
+            return False
+        return True
+
+    def __getitem__(self, path: str) -> "Group | Dataset":
+        node: Group | Dataset = self
+        if path.startswith("/"):
+            node = Group(self._reader, self._reader.root, "/")
+        for part in filter(None, path.split("/")):
+            if not isinstance(node, Group):
+                raise KeyError(f"{node.name!r} is a dataset, not a group")
+            if part not in node._links:
+                raise KeyError(f"no {part!r} in the group {node.name!r}")
+            target, name = node._links[part], f"{node.name.rstrip('/')}/{part}"
+            if isinstance(target, str):
+                raise ValueError(f"{name!r}: {target} is not followed")
+            node = (Group if self._reader.is_group(target) else Dataset)(self._reader, target,
+                                                                          name)
+        return node
+
+
+class File(Group):
+    """An HDF5 file opened for reading, as its root group (``with
+    File(path) as f``). A file this module does not read raises
+    ``ValueError`` naming the feature, here or when the part that holds it
+    is read; nothing falls back to ``h5py``."""
+
+    def __init__(self, path: str):
+        self._file = open(path, "rb")
+        try:
+            reader = _Reader(self._file)
         except ValueError as e:
+            self._file.close()
             raise ValueError(f"{path}: {e}") from None
+        super().__init__(reader, reader.root, "/")
+
+    def close(self) -> None:
+        self._file.close()
+
+    def __enter__(self) -> "File":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def is_hdf5(path: str) -> bool:
+    """Whether ``path`` is a file with the HDF5 signature at its start or
+    after a user block of 512, 1024, 2048, ... bytes (as ``h5py.is_hdf5``
+    finds it)."""
+    if not os.path.isfile(path):
+        return False
+    with open(path, "rb") as f:
+        return _superblock_offset(f) is not None
+
+
+def read_datasets(path: str, names) -> dict[str, np.ndarray]:
+    """The datasets ``names`` (paths from the root group: "box",
+    "model_weights/dense/kernel:0") of the HDF5 file at ``path``, each equal
+    bit for bit to ``h5py.File(path)[name][()]`` (dtype and shape too). A
+    missing name raises ``KeyError``; a file, layout or type this module
+    does not read raises ``ValueError`` naming it."""
+    out: dict[str, np.ndarray] = {}
+    with File(path) as f:
         for name in names:
-            if name not in links:
-                raise KeyError(f"{path}: no dataset {name!r} in the root group")
-            target = links[name]
             try:
-                if isinstance(target, str):
-                    raise ValueError(f"{target} is not followed")
-                data = reader.dataset(target)
-                out[name] = data if data.ndim else data.astype(data.dtype.newbyteorder("="))
+                node = f[name]
+                if isinstance(node, Group):
+                    raise ValueError("a group, not a dataset")
+                out[name] = node[()]
+            except KeyError:
+                raise KeyError(f"{path}: no dataset {name!r}") from None
             except ValueError as e:
                 raise ValueError(f"{path}: dataset {name!r}: {e}") from None
     return out
+
+
 # -- the writer ----------------------------------------------------------------
 _UNDEFINED = (1 << 64) - 1  # an address never written, with 8-byte addresses
 _LEAF_K, _INTERNAL_K = 4, 16  # the superblock's group K values, h5py's defaults
 _BTREE_NODE = 24 + (2 * _INTERNAL_K + 1) * 8 + 2 * _INTERNAL_K * 8
 _SNOD_ENTRY = 40
+_SUPERBLOCK = 96
+_GCOL_MIN = 4096  # the least global heap collection HDF5 makes
+_MAX_MESSAGE = 0xFFFF  # an object header message's size is 16 bits
 
 
 def _message(mtype: int, body: bytes, flags: int = 0) -> bytes:
@@ -378,8 +591,15 @@ def _object_header(messages: list[bytes]) -> bytes:
     return struct.pack("<BBHII4x", 1, 0, len(messages), 1, len(body)) + body
 
 
+def _numeric(dtype: np.dtype) -> bool:
+    return (dtype.kind in "iu" and dtype.itemsize in (1, 2, 4, 8)
+            or dtype.kind == "f" and dtype.itemsize in _IEEE)
+
+
 def _datatype_message(dtype: np.dtype) -> bytes:
     big = dtype.byteorder == ">" or (dtype.byteorder == "=" and not np.little_endian)
+    if dtype.kind == "S":  # fixed-length, null-padded ASCII, as h5py writes numpy S
+        return struct.pack("<B3BI", 0x13, 1, 0, 0, dtype.itemsize)
     if dtype.kind in "iu":
         bits = (1 if big else 0) | (0x08 if dtype.kind == "i" else 0)
         props = struct.pack("<HH", 0, 8 * dtype.itemsize)
@@ -392,85 +612,225 @@ def _datatype_message(dtype: np.dtype) -> bytes:
                        dtype.itemsize) + props
 
 
+def _vlen_string_type(utf8: bool) -> bytes:
+    """A variable-length string (class 9, null-terminated, ASCII or UTF-8)
+    of 1-byte unsigned characters, as h5py writes ``str`` and ``bytes``."""
+    return (struct.pack("<B3BI", 0x19, 0x01, int(utf8), 0, 16)
+            + struct.pack("<B3BIHH", 0x10, 0, 0, 0, 1, 0, 8))
+
+
+def _dataspace_message(shape: tuple[int, ...]) -> bytes:
+    dims = struct.pack(f"<{len(shape)}Q", *shape)
+    return struct.pack("<BBB5x", 1, len(shape), 1 if shape else 0) + dims + dims
+
+
 def _dataset_header(array: np.ndarray, data_addr: int) -> bytes:
-    rank = array.ndim
-    dims = struct.pack(f"<{rank}Q", *array.shape)
-    space = struct.pack("<BBB5x", 1, rank, 1 if rank else 0) + (dims + dims if rank else b"")
     fill = struct.pack("<BBBBI", 2, 2, 2, 1, 0)  # late allocation, default (zero) fill
     layout = struct.pack("<BBQQ", 3, 1, data_addr, array.nbytes)
     return _object_header([
-        _message(_DATASPACE, space),
+        _message(_DATASPACE, _dataspace_message(array.shape)),
         _message(_DATATYPE, _datatype_message(array.dtype), flags=1),
         _message(_FILL, fill, flags=1),
         _message(_LAYOUT, layout),
     ])
 
 
-def write_datasets(path: str, arrays: Mapping[str, np.ndarray]) -> str:
-    """Write ``arrays`` as root-level contiguous datasets of a new HDF5 file
-    at ``path``, laid out as ``h5py``'s defaults lay them out: superblock
-    version 0 with 8-byte addresses, a root group held by a symbol table (a
-    version-1 B-tree over symbol-table nodes of at most eight names, names
-    in a local heap), version-1 object headers. Numeric dtypes only (1- to
-    8-byte integers, 4- and 8-byte floats); ``h5py`` reads the file back
+def _attribute_message(name: str, value: Any, strings: list[bytes], heap: int) -> bytes:
+    """A version-1 attribute message holding ``value`` as h5py 3 writes
+    it. Variable-length strings are appended to ``strings``, the objects
+    of the global heap collection at ``heap`` (object ``i`` is
+    ``strings[i - 1]``); each element of the data is a 4-byte length and
+    the heap ID (collection address, 4-byte index)."""
+    if type(value) in (list, tuple) and not value:
+        value = np.zeros(0)  # h5py writes [] as an empty float64 array
+    texts = [value] if type(value) in (str, bytes) else value
+    kinds = {type(t) for t in texts} if type(texts) in (list, tuple) else set()
+    if kinds in ({str}, {bytes}):
+        shape: tuple[int, ...] = () if texts is not value else (len(texts),)
+        dtype = _vlen_string_type(type(texts[0]) is str)
+        data = b""
+        for t in texts:
+            strings.append(t.encode("utf-8") if type(t) is str else t)
+            data += struct.pack("<IQI", len(strings[-1]), heap, len(strings))
+    else:
+        a = np.asarray(value)
+        if type(value) is bool or not (a.dtype.kind == "S" or _numeric(a.dtype)):
+            raise ValueError(f"attribute {name!r}: a {type(value).__name__} of {a.dtype} is"
+                             " not written (only strings, numpy S arrays and numbers)")
+        shape, dtype, data = a.shape, _datatype_message(a.dtype), a.tobytes()
+    raw = name.encode("utf-8") + b"\0"
+    space = _dataspace_message(shape)
+    body = struct.pack("<BBHHH", 1, 0, len(raw), len(dtype), len(space))
+    for part in (raw, dtype, space):
+        body += part + b"\0" * (-len(part) % 8)
+    body += data
+    if _pad8(len(body)) > _MAX_MESSAGE:
+        raise ValueError(f"attribute {name!r} of {len(body)} bytes: a header message holds"
+                         f" at most {_MAX_MESSAGE}")
+    return _message(_ATTRIBUTE, body)
+
+
+def _global_heap(strings: list[bytes]) -> bytes:
+    """One global heap collection holding ``strings`` as objects 1, 2, ...
+    (reference count 0, as h5py leaves attribute strings), at least
+    :data:`_GCOL_MIN` bytes, the rest one free-space object (index 0)."""
+    body = b"".join(struct.pack("<HHIQ", i, 0, 0, len(t)) + t + b"\0" * (-len(t) % 8)
+                    for i, t in enumerate(strings, start=1))
+    size = max(_GCOL_MIN, 16 + len(body))
+    free = size - 16 - len(body)
+    if free >= 16:
+        body += struct.pack("<HHIQ", 0, 0, 0, free)
+    return (b"GCOL" + struct.pack("<B3xQ", 1, size) + body).ljust(size, b"\0")
+
+
+class _GroupSpec:
+    """A group to write: its links (name -> group or array) and attributes."""
+
+    def __init__(self):
+        self.links: dict[str, _GroupSpec | np.ndarray] = {}
+        self.attrs: dict[str, Any] = {}
+        self.messages: list[bytes] = []  # its attribute messages, once encoded
+
+    def group(self, path: str) -> "_GroupSpec":
+        """The group at ``path`` below this one, made (with the groups on
+        the way) where absent."""
+        g = self
+        for part in _path_parts(path):
+            child = g.links.setdefault(part, _GroupSpec())
+            if not isinstance(child, _GroupSpec):
+                raise ValueError(f"{path!r}: {part!r} is a dataset, not a group")
+            g = child
+        return g
+
+    def walk(self) -> Iterator["_GroupSpec"]:
+        yield self
+        for child in self.links.values():
+            if isinstance(child, _GroupSpec):
+                yield from child.walk()
+
+
+def _path_parts(path: str) -> list[str]:
+    parts = path.strip("/").split("/") if path.strip("/") else []
+    if any(not p or "\0" in p or p in (".", "..") for p in parts):
+        raise ValueError(f"the path {path!r} has an empty, '.', '..' or NUL name")
+    return parts
+
+
+class _Out:
+    """The file's layout: the metadata from ``start`` on, each block at the
+    next free address, then the datasets' data from ``data_start`` on, in
+    the order their headers were laid out."""
+
+    def __init__(self, start: int, data_start: int):
+        self.start, self.meta = start, bytearray()
+        self.data_start, self.data_end, self.arrays = data_start, data_start, []
+
+    @property
+    def end(self) -> int:
+        """The next free metadata address."""
+        return self.start + len(self.meta)
+
+    def put(self, block: bytes) -> int:
+        self.meta += block
+        return self.end - len(block)
+
+    def data(self, a: np.ndarray) -> int:
+        if not a.nbytes:
+            return _UNDEFINED
+        self.arrays.append(a)
+        self.data_end += a.nbytes
+        return self.data_end - a.nbytes
+
+    def group(self, g: _GroupSpec) -> tuple[int, int, int]:
+        """Write ``g``'s links (arrays as their data, then their header),
+        then its local heap ("" at 0, each name 8-aligned), symbol-table
+        nodes of at most eight names, one B-tree leaf over those nodes
+        (key i bounds the names of node i - 1 from above; key 0 is the empty
+        name) and its object header. Its (header, B-tree, heap) addresses."""
+        entries = []
+        for name in sorted(g.links):  # HDF5's order: bytewise, as Python sorts str
+            child = g.links[name]
+            if isinstance(child, _GroupSpec):
+                entries.append((name, self.group(child)[0]))
+            else:
+                entries.append((name, self.put(_dataset_header(child, self.data(child)))))
+        nodes = [entries[i:i + 2 * _LEAF_K] for i in range(0, len(entries), 2 * _LEAF_K)]
+        if len(nodes) > 2 * _INTERNAL_K:
+            raise ValueError(f"{len(entries)} links in one group: at most"
+                             f" {2 * _INTERNAL_K * 2 * _LEAF_K}")
+        heap_data, offset = bytearray(8), {}
+        for name, _ in entries:
+            offset[name] = len(heap_data)
+            raw = name.encode("utf-8") + b"\0"
+            heap_data += raw + b"\0" * (-len(raw) % 8)
+        heap = self.put(b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, self.end + 32)
+                        + bytes(heap_data))
+        snod_size = 8 + 2 * _LEAF_K * _SNOD_ENTRY
+        snods = self.end
+        for node in nodes:
+            block = b"SNOD" + struct.pack("<BBH", 1, 0, len(node))
+            for name, header in node:
+                block += struct.pack("<QQII16x", offset[name], header, 0, 0)
+            self.put(block.ljust(snod_size, b"\0"))
+        btree = b"TREE" + struct.pack("<BBHQQQ", 0, 0, len(nodes), _UNDEFINED, _UNDEFINED, 0)
+        for i, node in enumerate(nodes):
+            btree += struct.pack("<QQ", snods + i * snod_size, offset[node[-1][0]])
+        btree_addr = self.put(btree.ljust(_BTREE_NODE, b"\0"))
+        table = _message(_SYMBOL_TABLE, struct.pack("<QQ", btree_addr, heap))
+        return self.put(_object_header([table, *g.messages])), btree_addr, heap
+
+
+def write_datasets(path: str, arrays: Mapping[str, np.ndarray],
+                   attrs: Mapping[str, Mapping[str, Any]] | None = None) -> str:
+    """Write ``arrays`` as contiguous datasets of a new HDF5 file at
+    ``path``, each at its path from the root group ("box",
+    "model_weights/dense/dense/kernel:0", the groups on the way made as
+    h5py makes them), and ``attrs`` (group path, "" for the root -> {name:
+    value}) as attributes of those groups, a group named only there made
+    empty. Laid out as ``h5py``'s defaults lay them out: superblock version
+    0 with 8-byte addresses, groups held by symbol tables (a version-1
+    B-tree over symbol-table nodes of at most eight names, names in a local
+    heap), version-1 object headers and attribute messages; the metadata
+    first, then each dataset's data in path order.
+
+    Datasets are numeric (1- to 8-byte integers, 4- and 8-byte floats).
+    Attribute values are written as h5py 3 writes the same Python value: a
+    ``str`` or ``bytes``, or a list of either, as variable-length UTF-8 or
+    ASCII strings (in one global heap collection), a numpy ``S`` array as
+    fixed-length strings, ``[]`` as an empty float64 array, a number or a
+    numeric array as it is. ``h5py`` reads every dataset and attribute back
     bit for bit."""
-    items = [(name, np.asarray(arrays[name])) for name in sorted(arrays)]
-    for name, a in items:
-        if not name or "/" in name or "\0" in name:
-            raise ValueError(f"dataset name {name!r}: root-level names only")
-        if not (a.dtype.kind in "iu" and a.dtype.itemsize in (1, 2, 4, 8)
-                or a.dtype.kind == "f" and a.dtype.itemsize in _IEEE):
+    root = _GroupSpec()
+    for name, a in arrays.items():
+        a, parts = np.asarray(a), _path_parts(name)
+        if not parts:
+            raise ValueError(f"dataset name {name!r}: empty")
+        if not _numeric(a.dtype):
             raise ValueError(f"dataset {name!r}: dtype {a.dtype} is not written")
-    nodes = [items[i:i + 2 * _LEAF_K] for i in range(0, len(items), 2 * _LEAF_K)]
-    if len(nodes) > 2 * _INTERNAL_K:
-        raise ValueError(f"{len(items)} datasets: at most {2 * _INTERNAL_K * 2 * _LEAF_K}")
+        parent = root.group("/".join(parts[:-1]))
+        if parts[-1] in parent.links:
+            raise ValueError(f"dataset {name!r}: the name is taken")
+        parent.links[parts[-1]] = a
+    for group, values in (attrs or {}).items():
+        root.group(group).attrs.update(values)
+    strings: list[bytes] = []
+    for g in root.walk():  # the heap goes first, after the superblock
+        g.messages = [_attribute_message(k, v, strings, _SUPERBLOCK) for k, v in g.attrs.items()]
 
-    # the local heap: "" at 0 (the root's own name), then each name, 8-aligned
-    heap_data, name_offset = bytearray(8), {}
-    for name, _ in items:
-        name_offset[name] = len(heap_data)
-        raw = name.encode("utf-8") + b"\0"
-        heap_data += raw + b"\0" * (-len(raw) % 8)
+    def layout(data_start: int) -> tuple[_Out, tuple[int, int, int]]:
+        out = _Out(_SUPERBLOCK, data_start)
+        if strings:
+            out.put(_global_heap(strings))
+        return out, out.group(root)
 
-    superblock_size, root_size = 96, 16 + 24
-    btree_addr = superblock_size + root_size
-    heap_addr = btree_addr + _BTREE_NODE
-    heap_data_addr = heap_addr + 32
-    snod_addr = heap_data_addr + len(heap_data)
-    snod_size = 8 + 2 * _LEAF_K * _SNOD_ENTRY
-    cursor = snod_addr + len(nodes) * snod_size
-    header_of = {}  # each dataset's object header, then its data, in name order
-    for name, a in items:
-        header_of[name] = cursor
-        cursor += len(_dataset_header(a, 0))
-    data_of = {}
-    for name, a in items:
-        data_of[name] = cursor if a.nbytes else _UNDEFINED
-        cursor += a.nbytes
-
-    sb = SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K, _INTERNAL_K, 0)
-    sb += struct.pack("<QQQQ", 0, _UNDEFINED, cursor, _UNDEFINED)
-    sb += struct.pack("<QQII", 0, superblock_size, 1, 0) + struct.pack("<QQ", btree_addr, heap_addr)
-    root = _object_header([_message(_SYMBOL_TABLE, struct.pack("<QQ", btree_addr, heap_addr))])
-
-    # one B-tree leaf over the symbol-table nodes; key i bounds the names
-    # of node i - 1 from above (key 0 is the empty name)
-    btree = b"TREE" + struct.pack("<BBHQQQ", 0, 0, len(nodes), _UNDEFINED, _UNDEFINED, 0)
-    for i, node in enumerate(nodes):
-        btree += struct.pack("<QQ", snod_addr + i * snod_size, name_offset[node[-1][0]])
-    btree = btree.ljust(_BTREE_NODE, b"\0")
-    heap = b"HEAP" + struct.pack("<B3xQQQ", 0, len(heap_data), 1, heap_data_addr)
-    snods = bytearray()
-    for node in nodes:
-        block = b"SNOD" + struct.pack("<BBH", 1, 0, len(node))
-        for name, _ in node:
-            block += struct.pack("<QQII16x", name_offset[name], header_of[name], 0, 0)
-        snods += block.ljust(snod_size, b"\0")
-
+    # the metadata's size does not depend on where the data goes: lay it out
+    # once to size it, then with the data right behind it
+    out, (header, btree, heap) = layout(_SUPERBLOCK + len(layout(0)[0].meta))
     with open(path, "wb") as f:
-        f.write(sb + root + btree + heap + bytes(heap_data) + bytes(snods))
-        for name, a in items:
-            f.write(_dataset_header(a, data_of[name]))
-        for _, a in items:
+        f.write(SIGNATURE + struct.pack("<8BHHI", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K, _INTERNAL_K, 0)
+                + struct.pack("<QQQQ", 0, _UNDEFINED, out.data_end, _UNDEFINED)
+                + struct.pack("<QQII", 0, header, 1, 0) + struct.pack("<QQ", btree, heap))
+        f.write(out.meta)
+        for a in out.arrays:
             np.ascontiguousarray(a).tofile(f)  # C order: the transposed dialect too
     return path

@@ -33,10 +33,10 @@ the bridge every model family already goes through, with the model passed
   is the port's ``ViTPoseNet(ref_token_grid=True)``.
 
 Files are told apart by what they hold, never by a failed read: HDF5 by its
-8-byte signature (``h5py`` is imported only to read a keras file: a keras
-save keeps its layer and weight names in HDF5 attributes of nested groups,
-which the port's own reader, data/h5.py, does not read; the card's machine
-has no ``h5py``), a TorchScript archive by its ``code/`` entries and
+8-byte signature, at the start or after a user block as ``h5py.is_hdf5``
+finds it (a keras save, with its layer and weight names in attributes of
+nested groups, is read by the port's own HDF5 reader, data/h5.py, so no
+``h5py`` is needed), a TorchScript archive by its ``code/`` entries and
 ``constants.pkl``, a ``torch.save`` archive by the keys of its state dict.
 The port's own ``.pt`` files are ``torch.save`` archives too; their keys are
 the port's module names, which match no reference layout. Snapshots of
@@ -57,7 +57,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .data.h5 import SIGNATURE as HDF5_SIGNATURE
+from .data import h5
 
 __all__ = [
     "ImportedModel",
@@ -69,14 +69,6 @@ __all__ = [
     "load_imported_snapshot",
     "adapt_stem_in_channels",
 ]
-
-
-def is_hdf5(path: str) -> bool:
-    """True for a file that starts with the HDF5 signature."""
-    if not os.path.isfile(path):
-        return False
-    with open(path, "rb") as f:
-        return f.read(len(HDF5_SIGNATURE)) == HDF5_SIGNATURE
 
 
 def archive_kind(path: str) -> str | None:
@@ -143,10 +135,8 @@ def is_reference_checkpoint(path: str) -> bool:
     reference layout (:func:`reference_torch_kind`). The port's own
     checkpoints, snapshots and run directories are none of these, nor are
     the JAX package's msgpack files."""
-    if is_hdf5(path):
-        import h5py
-
-        with h5py.File(path, "r") as f:
+    if h5.is_hdf5(path):
+        with h5.File(path) as f:
             return "model_weights" in f
     kind = archive_kind(path)
     if kind == "torchscript":
@@ -643,12 +633,13 @@ def _keras_weight_list(path: str) -> list[tuple[str, np.ndarray]]:
     Handles both ``model.save`` files (weights under ``model_weights``) and
     ``save_weights`` files (layers at the root), including nested
     sub-models (the reference's basic_nn nests Encoder2DAtrous/Decoder2D
-    Models — tensorflow/Network.py:478-489).
+    Models — tensorflow/Network.py:478-489). Read by the port's own HDF5
+    reader (data/h5.py), walked as JAX's walk goes over ``h5py``: where
+    keras split ``layer_names`` (``layer_names0``, ``layer_names1``, ...),
+    the group's links in name order.
     """
-    import h5py
-
     out: list[tuple[str, np.ndarray]] = []
-    with h5py.File(path, "r") as f:
+    with h5.File(path) as f:
         root = f["model_weights"] if "model_weights" in f else f
 
         def layer_names(g):
@@ -669,7 +660,7 @@ def _keras_weight_list(path: str) -> list[tuple[str, np.ndarray]]:
                         w = w.decode() if isinstance(w, bytes) else w
                         ds = sub[w] if w in sub else root[w]
                         out.append((w, np.asarray(ds, np.float32)))
-                elif isinstance(sub, h5py.Group):
+                elif isinstance(sub, h5.Group):
                     visit(sub)
 
         visit(root)
@@ -1102,32 +1093,19 @@ SNAPSHOT_MARKER = "pose-estimation-amitai-torch/imported-snapshot-v1"
 
 
 def _first_msgpack_map_key(head: bytes) -> str | None:
-    """Decode the first map key of a msgpack buffer, or ``None`` when the
-    buffer does not start with a map whose first key is a short string
-    (the JAX package's magic-less legacy snapshots start with "format")."""
-    if not head:
+    """The first key of a msgpack buffer that starts with a map, decoded
+    by the port's msgpack reader, or ``None`` when the buffer does not
+    start with a map whose first key is a string (the JAX package's
+    magic-less legacy snapshots start with "format")."""
+    from .weights import _MsgpackReader
+
+    r = _MsgpackReader(head)
+    try:
+        kind, n = r.head()
+        key = r.value() if kind == "map" and n else None
+    except ValueError:  # the head ends inside the key
         return None
-    b0 = head[0]
-    if 0x80 <= b0 <= 0x8F:          # fixmap
-        i = 1
-    elif b0 == 0xDE:                # map 16
-        i = 3
-    elif b0 == 0xDF:                # map 32
-        i = 5
-    else:
-        return None
-    if i >= len(head):
-        return None
-    k0 = head[i]
-    if 0xA0 <= k0 <= 0xBF:          # fixstr
-        n, j = k0 - 0xA0, i + 1
-    elif k0 == 0xD9 and i + 1 < len(head):  # str 8
-        n, j = head[i + 1], i + 2
-    else:
-        return None
-    if j + n > len(head):
-        return None
-    return head[j:j + n].decode("utf-8", errors="replace")
+    return key if isinstance(key, str) else None
 
 
 def _to_tensors(tree):
@@ -1183,10 +1161,11 @@ def _from_payload(restored) -> ImportedModel | None:
 def load_imported_snapshot(path: str) -> ImportedModel | None:
     """Load a snapshot of an imported checkpoint: the port's
     (:func:`save_imported_snapshot`) or the JAX package's (its magic, or a
-    legacy magic-less payload whose first msgpack key is "format", read
-    with ``msgpack`` and no jax). ``None`` when ``path`` is neither (a run
-    directory, another checkpoint, a reference file), decided from the
-    file's first bytes and, for a ``torch.save`` archive, its marker."""
+    legacy magic-less payload whose first msgpack key is "format", read by
+    the port's own msgpack reader, ``weights.unpack_flax_msgpack``).
+    ``None`` when ``path`` is neither (a run directory, another checkpoint,
+    a reference file), decided from the file's first bytes and, for a
+    ``torch.save`` archive, its marker."""
     if not os.path.isfile(path):
         return None
     if archive_kind(path) == "torch_save":
@@ -1222,6 +1201,6 @@ def import_reference_checkpoint(
     """
     if not os.path.isfile(path):
         raise FileNotFoundError(f"{path}: no such checkpoint file")
-    if is_hdf5(path):
+    if h5.is_hdf5(path):
         return import_keras_h5(path)
     return import_torch_checkpoint(path, dim_head=dim_head)

@@ -35,15 +35,18 @@ takes), the layout the JAX package trains and checkpoints.
   dict to tensors and back (:func:`moe_params_to_torch`).
 
 :func:`load_checkpoint` reads a checkpoint by what is on disk: the port's
-``torch.save`` files (train/checkpoint.py) or, with a lazy ``import
-msgpack`` and no jax, the flax msgpack files of the JAX package
-(:func:`load_flax_checkpoint`). :func:`init_basicnet_params` and
+``torch.save`` files (train/checkpoint.py) or the flax msgpack files of the
+JAX package (:func:`load_flax_checkpoint`), decoded by this module's own
+msgpack reader (:func:`unpack_flax_msgpack`; its inverse,
+:func:`pack_flax_msgpack`, writes flax's bytes) with neither ``msgpack``
+nor jax. :func:`init_basicnet_params` and
 :func:`init_vit_params` make seeded flax-layout trees with numpy.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from typing import Any, Mapping
 
 import numpy as np
@@ -490,23 +493,214 @@ def init_basicnet_params(
     return {"encoder": enc, "decoder": dec}
 
 
-def _ndarray_from_bytes(data: bytes) -> np.ndarray:
-    import msgpack
+# -- flax msgpack, without msgpack ---------------------------------------------
+# The subset of msgpack (github.com/msgpack/msgpack/blob/master/spec.md) that
+# flax's ``msgpack_serialize`` writes: nil, bools, ints, floats, str, bin,
+# arrays, maps and ext, where ext 1 holds an ndarray and ext 3 a numpy
+# scalar, each a packed (shape, dtype name, raw C-order bytes).
+_MSGPACK_FIXED = {  # type byte -> (payload kind, bytes of its length or value)
+    0xC4: ("bin", 1), 0xC5: ("bin", 2), 0xC6: ("bin", 4),
+    0xC7: ("ext", 1), 0xC8: ("ext", 2), 0xC9: ("ext", 4),
+    0xCA: ("float", 4), 0xCB: ("float", 8),
+    0xCC: ("uint", 1), 0xCD: ("uint", 2), 0xCE: ("uint", 4), 0xCF: ("uint", 8),
+    0xD0: ("int", 1), 0xD1: ("int", 2), 0xD2: ("int", 4), 0xD3: ("int", 8),
+    0xD9: ("str", 1), 0xDA: ("str", 2), 0xDB: ("str", 4),
+    0xDC: ("array", 2), 0xDD: ("array", 4), 0xDE: ("map", 2), 0xDF: ("map", 4),
+}
+_MSGPACK_FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+_MSGPACK_CONST = {0xC0: None, 0xC2: False, 0xC3: True}
+_MAX_LEAF_BYTES = 2 ** 30  # flax splits larger leaves into chunks
 
-    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    if dtype_name == b"bfloat16":
-        # numpy has no bfloat16: widen the raw 16-bit patterns to float32
+
+class _MsgpackReader:
+    """Values decoded in order from one buffer. Inside an ndarray ext the
+    raw bytes come back as a ``memoryview`` (``views``), so an array is one
+    ``np.frombuffer`` on the file's bytes and no copy."""
+
+    def __init__(self, data, views: bool = False):
+        self.data, self.pos, self.views = memoryview(data), 0, views
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError(f"msgpack data ends early: {n} bytes wanted at {self.pos},"
+                             f" {len(self.data)} in all")
+        self.pos += n
+        return self.data[self.pos - n:self.pos]
+
+    def head(self) -> tuple[str, Any]:
+        """The next value's kind and its length (a container, str, bin or
+        ext: ``(code, length)``) or its value (every other kind)."""
+        b = self.take(1)[0]
+        if b < 0x80 or b >= 0xE0:
+            return "value", b if b < 0x80 else b - 0x100
+        if b < 0xC0:
+            return ("map", "array", "str", "str")[(b >> 4) - 8], b & (0x1F if b >= 0xA0 else 0x0F)
+        if b in _MSGPACK_CONST:
+            return "value", _MSGPACK_CONST[b]
+        if b in _MSGPACK_FIXEXT:
+            return "ext", (int.from_bytes(self.take(1), "big", signed=True), _MSGPACK_FIXEXT[b])
+        if b not in _MSGPACK_FIXED:
+            raise ValueError(f"msgpack type byte 0x{b:02X} at {self.pos - 1} is not read")
+        kind, n = _MSGPACK_FIXED[b]
+        raw = self.take(n)
+        if kind == "float":
+            return "value", struct.unpack(">f" if n == 4 else ">d", raw)[0]
+        v = int.from_bytes(raw, "big", signed=kind == "int")
+        if kind in ("int", "uint"):
+            return "value", v
+        if kind == "ext":
+            return "ext", (int.from_bytes(self.take(1), "big", signed=True), v)
+        return kind, v
+
+    def value(self):
+        kind, arg = self.head()
+        if kind == "value":
+            return arg
+        if kind == "map":
+            out = {}
+            for _ in range(arg):
+                key = self.value()
+                if not isinstance(key, (str, bytes)):
+                    raise ValueError(f"a msgpack map key of type {type(key).__name__}")
+                out[key] = self.value()
+            if "__msgpack_chunked_array__" in out:
+                raise ValueError("a leaf flax split into chunks (over 1 GiB) is not read")
+            return out
+        if kind == "array":
+            return [self.value() for _ in range(arg)]
+        if kind == "str":
+            return str(self.take(arg), "utf-8")
+        if kind == "bin":
+            return self.take(arg) if self.views else bytes(self.take(arg))
+        code, n = arg
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"flax msgpack ext type {code} is not an array")
+        array = _ndarray_from_bytes(self.take(n))
+        return array if code == _EXT_NDARRAY else array[()]
+
+
+def _ndarray_from_bytes(data) -> np.ndarray:
+    """flax's ``_ndarray_from_bytes``: a packed (shape, dtype name, buffer);
+    bfloat16 widened to float32 (numpy has no bfloat16)."""
+    r = _MsgpackReader(data, views=True)
+    shape, name, buffer = r.value()
+    if r.pos != len(r.data):
+        raise ValueError("bytes after an ndarray's (shape, dtype, buffer)")
+    name = name if isinstance(name, str) else str(name, "utf-8")
+    if name == "bfloat16":
         bits = np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16
         return bits.view(np.float32).reshape(shape)
-    return np.frombuffer(buffer, np.dtype(dtype_name.decode())).reshape(shape)
+    return np.frombuffer(buffer, np.dtype(name)).reshape(shape)
 
 
-def _ext_hook(code: int, data: bytes):
-    if code == _EXT_NDARRAY:
-        return _ndarray_from_bytes(data)
-    if code == _EXT_NPSCALAR:
-        return _ndarray_from_bytes(data)[()]
-    raise ValueError(f"flax msgpack ext type {code} is not an array")
+def unpack_flax_msgpack(blob) -> Any:
+    """A flax msgpack payload -> nested dicts (and lists) of numpy arrays,
+    numpy scalars and Python values, as ``flax.serialization.msgpack_restore``
+    gives them, with neither ``msgpack`` nor jax (bfloat16 leaves widened to
+    float32). A type byte or ext code outside what flax writes, or bytes
+    that end early or run on, raise ``ValueError``."""
+    r = _MsgpackReader(blob)
+    tree = r.value()
+    if r.pos != len(r.data):
+        raise ValueError(f"{len(r.data) - r.pos} bytes after the msgpack payload")
+    return tree
+
+
+def _pack_length(out: bytearray, n: int, fix: int | None, fix_max: int, codes) -> None:
+    """A str, bin, array, map or ext length in its shortest form: the
+    ``fix`` byte's low bits below ``fix_max``, else 1-, 2- or 4-byte forms
+    (``codes``, ``None`` where the form does not exist)."""
+    if fix is not None and n < fix_max:
+        out.append(fix | n)
+        return
+    for code, width in zip(codes, (1, 2, 4)):
+        if code is not None and n < 1 << (8 * width):
+            out.append(code)
+            out += n.to_bytes(width, "big")
+            return
+    raise ValueError(f"a msgpack length of {n}")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if -32 <= v < 128:
+        out += (v & 0xFF).to_bytes(1, "big")
+        return
+    for code, width in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)) if v > 0 else (
+            (0xD0, 1), (0xD1, 2), (0xD2, 4), (0xD3, 8)):
+        if (v < 1 << (8 * width)) if v > 0 else (v >= -(1 << (8 * width - 1))):
+            out.append(code)
+            out += v.to_bytes(width, "big", signed=v < 0)
+            return
+    raise OverflowError(f"{v} does not fit a msgpack integer")
+
+
+def _pack_array_ext(out: bytearray, code: int, a: np.ndarray) -> None:
+    """flax's ``_ndarray_to_bytes`` inside an ext of type ``code``."""
+    if a.dtype.hasobject or a.dtype.fields is not None:
+        raise ValueError(f"a {a.dtype} array is not serialised (flax refuses it)")
+    if a.nbytes > _MAX_LEAF_BYTES:
+        raise ValueError(f"a leaf of {a.nbytes} bytes: flax writes it in chunks, not written")
+    body = bytearray()
+    _pack_length(body, 3, 0x90, 16, (None, 0xDC, 0xDD))
+    _pack_length(body, len(a.shape), 0x90, 16, (None, 0xDC, 0xDD))
+    for d in a.shape:
+        _pack_int(body, int(d))
+    _pack_value(body, a.dtype.name)
+    raw = a.tobytes("C")
+    _pack_length(body, len(raw), None, 0, (0xC4, 0xC5, 0xC6))
+    body += raw
+    n = len(body)
+    if n in (1, 2, 4, 8, 16):
+        out.append({1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}[n])
+    else:
+        _pack_length(out, n, None, 0, (0xC7, 0xC8, 0xC9))
+    out.append(code)
+    out += body
+
+
+def _pack_value(out: bytearray, x) -> None:
+    t = type(x)
+    if x is None or t is bool:
+        out.append({None: 0xC0, False: 0xC2, True: 0xC3}[x])
+    elif t is int:
+        _pack_int(out, x)
+    elif t is float:
+        out.append(0xCB)
+        out += struct.pack(">d", x)
+    elif t is str:
+        raw = x.encode("utf-8")
+        _pack_length(out, len(raw), 0xA0, 32, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif t is bytes:
+        _pack_length(out, len(x), None, 0, (0xC4, 0xC5, 0xC6))
+        out += x
+    elif t is dict:
+        _pack_length(out, len(x), 0x80, 16, (None, 0xDE, 0xDF))
+        for k, v in x.items():
+            _pack_value(out, k)
+            _pack_value(out, v)
+    elif t is list:
+        _pack_length(out, len(x), 0x90, 16, (None, 0xDC, 0xDD))
+        for v in x:
+            _pack_value(out, v)
+    elif isinstance(x, np.ndarray):
+        _pack_array_ext(out, _EXT_NDARRAY, x)
+    elif isinstance(x, np.generic):
+        _pack_array_ext(out, _EXT_NPSCALAR, np.asarray(x))
+    else:
+        raise TypeError(f"can not serialize {t.__name__!r} object")
+
+
+def pack_flax_msgpack(tree) -> bytes:
+    """``tree`` (nested dicts and lists of numpy arrays, numpy scalars and
+    Python values) as flax's ``serialization.to_bytes`` writes its state
+    dict, byte for byte: the shortest encoding of every int and length,
+    maps in their insertion order, arrays as ext 1 and numpy scalars as ext
+    3, with neither ``msgpack`` nor jax. A tuple, or any other type, raises
+    ``TypeError`` as msgpack's strict packer does."""
+    out = bytearray()
+    _pack_value(out, tree)
+    return bytes(out)
 
 
 # what a run directory may hold, in the order they are read
@@ -546,14 +740,6 @@ def load_checkpoint(path: str, model: torch.nn.Module | None = None) -> tuple[di
             params = pipeline_state_dict_to_vit(params)
         return state_dict_to_flax(params, model), batch_stats_to_flax(stats)
     return load_flax_checkpoint(path)
-
-
-def unpack_flax_msgpack(blob: bytes):
-    """A flax msgpack payload -> nested dicts of numpy arrays, with
-    ``msgpack`` and no jax (bfloat16 leaves widened to float32)."""
-    import msgpack
-
-    return msgpack.unpackb(blob, ext_hook=_ext_hook, raw=False)
 
 
 def load_flax_checkpoint(path: str) -> tuple[dict, dict]:

@@ -1439,3 +1439,64 @@ def test_trainer_main_trains_on_the_card_by_default(cuda, tmp_path, capsys):
     (run,) = os.listdir(tmp_path / "runs")
     files = set(os.listdir(tmp_path / "runs" / run))
     assert {"checkpoint.pt", "best_model.pt", "final_confmaps_model.pt"} <= files, files
+
+
+def test_jax_run_directory_serves_on_fused(cuda, tmp_path):
+    """chip_smoke.py's import phase (a) at filters 16: a JAX run directory
+    (best_model.msgpack as flax writes it, by the port's packer) through
+    Predictor.from_checkpoint on "fused", B1 and B2 launched, its maps and
+    peaks bit-equal to a Predictor of the tree in memory."""
+    from pose_estimation_amitai_torch import weights
+
+    params = init_basicnet_params(np.random.default_rng(4), 4, 6, filters=16)
+    (tmp_path / "best_model.msgpack").write_bytes(weights.pack_flax_msgpack(params))
+    cfg = Config(num_base_filters=16)
+    kw = dict(use_fused=True, device="cuda", chunk_size=8, return_heatmaps=True)
+    pred = Predictor.from_checkpoint(cfg, str(tmp_path), (48, 48, 4), 6, **kw)
+    assert pred.serving_path == "fused"
+    frames = np.random.default_rng(5).random((10, 48, 48, 4), dtype=np.float32)
+    enc, dec = hc.fused_encoder_stage.launches, hd.fused_decoder.launches
+    maps, pts = pred(frames)
+    assert (hc.fused_encoder_stage.launches - enc, hd.fused_decoder.launches - dec) == (6, 2)
+    want_maps, want_pts = Predictor(cfg, params, (48, 48, 4), 6, **kw)(frames)
+    np.testing.assert_array_equal(maps, want_maps)
+    np.testing.assert_array_equal(pts, want_pts)
+
+
+def test_keras_saves_import_and_serve_on_card(cuda, tmp_path):
+    """chip_smoke.py's import phase (b) at small widths: keras saves written
+    by the port's HDF5 writer and read back name for name and bit for bit;
+    the basic_nn on "module", card vs CPU in float32; the ViT through ``cli
+    import``, on "fused" from the .h5 (S1 launched) and on "module" from the
+    snapshot, within summation order of each other in float32."""
+    import chip_smoke
+
+    from pose_estimation_amitai_torch import cli, importers
+
+    rng = np.random.default_rng(6)
+    frames = np.random.default_rng(7).random((5, 48, 48, 4), dtype=np.float32)
+    cfg = Config(compute_dtype="float32")
+    path = str(tmp_path / "basic_nn.h5")
+    written = chip_smoke.keras_save(path, chip_smoke.keras_basicnet_layers(rng, 8, 4, 6, 2))
+    assert chip_smoke.same_weights(importers._keras_weight_list(path), written)
+    got = [Predictor.from_checkpoint(cfg, path, (48, 48, 4), 6, device=d, chunk_size=2,
+                                     return_heatmaps=True)(frames)[0] for d in ("cuda", "cpu")]
+    np.testing.assert_allclose(got[0], got[1], atol=1e-4 * np.abs(got[1]).max())
+
+    vcfg = Config(model_type=C.MODEL_18_POINTS_PER_WING_VIT, projection_dim=64, num_heads=2,
+                  transformer_layers=2, fully_connected_expand=2, compute_dtype="float32")
+    vpath, snap = str(tmp_path / "vit.h5"), str(tmp_path / "vit.pt")
+    written = chip_smoke.keras_save(vpath, chip_smoke.keras_vit_layers(rng, vcfg, 4, 6, 48))
+    assert chip_smoke.same_weights(importers._keras_weight_list(vpath), written)
+    assert cli.main(["import", vpath, snap]) == 0
+    before = ha.fused_attention.launches
+    fused = Predictor.from_checkpoint(vcfg, vpath, (48, 48, 4), 6, device="cuda", chunk_size=2,
+                                      return_heatmaps=True, use_fused=True,
+                                      import_reference=True)
+    assert fused.serving_path == "fused"
+    maps = fused(frames)[0]
+    assert ha.fused_attention.launches - before == 2 * 3  # depth x chunks
+    module = Predictor.from_checkpoint(vcfg, snap, (48, 48, 4), 6, device="cuda", chunk_size=2,
+                                       return_heatmaps=True)
+    assert module.serving_path == "module"
+    np.testing.assert_allclose(maps, module(frames)[0], atol=1e-4 * np.abs(maps).max())

@@ -108,6 +108,117 @@ def test_h5_paths_load_no_h5py(tmp_path):
     assert r.stdout.strip() == "ok"
 
 
+def test_keras_and_msgpack_paths_load_no_h5py_or_msgpack(tmp_path):
+    """A keras save and a JAX run directory load with ``h5py`` and
+    ``msgpack`` made unimportable, as on the card's machine: every
+    ``KERAS_CASES`` save through is_reference_checkpoint and
+    import_reference_checkpoint to a tree equal bit for bit to JAX's
+    importer, JAX's save_params and save_checkpoint files through
+    load_flax_checkpoint to msgpack_restore's trees, and a keras save and
+    the run directory through Predictor.from_checkpoint on the CPU as a
+    Predictor of the same tree in memory serves. Neither module is
+    loaded."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import optax
+    from flax import serialization
+
+    from pose_estimation_amitai_torch import importers, weights
+    from pose_estimation_amitai_torch.config import Config
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_tpu import importers as jimporters
+    from pose_estimation_amitai_tpu.train import checkpoint as jckpt
+    from pose_estimation_amitai_tpu.train.loop import TrainState
+    from test_torch_importers import KERAS_CASES, _keras_case
+
+    keras = {case: _keras_case(tmp_path, case)[0] for case in KERAS_CASES}
+    rng = np.random.default_rng(9)
+    params = weights.init_basicnet_params(rng, 4, 6, filters=8)
+    run = tmp_path / "run"
+    run.mkdir()
+    jckpt.save_params(str(run / "best_model.msgpack"), params)
+    state = TrainState(step=jnp.asarray(3, jnp.int32), params=params,
+                       opt_state=optax.adam(1e-3).init(params), batch_stats={},
+                       rng=jax.random.key(0))
+    full = jckpt.save_checkpoint(str(tmp_path), state, epoch=0, val_loss=1.0)
+    frames = rng.random((2, 48, 48, 4), dtype=np.float32)
+    np.save(tmp_path / "frames.npy", frames)
+    files = {"keras": keras, "msgpack": {"params": str(run / "best_model.msgpack"),
+                                         "full": full}, "run": str(run), "out": str(tmp_path)}
+    code = (
+        "import json, sys\n"
+        "sys.modules['h5py'] = sys.modules['msgpack'] = None  # their imports now raise\n"
+        "import numpy as np\n"
+        "from pose_estimation_amitai_torch import importers, weights\n"
+        "from pose_estimation_amitai_torch.config import Config\n"
+        "from pose_estimation_amitai_torch.infer import Predictor\n"
+        f"files = json.loads({json.dumps(files)!r})\n"
+        "def flat(tree, prefix):\n"
+        "    if isinstance(tree, dict):\n"
+        "        return {k: v for key, sub in tree.items()\n"
+        "                for k, v in flat(sub, f'{prefix}/{key}').items()}\n"
+        "    return {prefix: np.asarray(tree)}\n"
+        "out, arch = {}, {}\n"
+        "for case, path in files['keras'].items():\n"
+        "    assert importers.is_reference_checkpoint(path), case\n"
+        "    m = importers.import_reference_checkpoint(path)\n"
+        "    out.update(flat(m.params, f'{case}/params'))\n"
+        "    out.update(flat(m.batch_stats or {}, f'{case}/batch_stats'))\n"
+        "    arch[case] = [m.model_kind, m.arch_flavor, m.arch_kwargs]\n"
+        "for name, path in files['msgpack'].items():\n"
+        "    params, stats = weights.load_flax_checkpoint(path)\n"
+        "    assert stats == {}, stats\n"
+        "    out.update(flat(params, name))\n"
+        "frames = np.load(files['out'] + '/frames.npy')\n"
+        "cfg = Config(num_base_filters=8, compute_dtype='float32')\n"
+        "out['served/run'] = Predictor.from_checkpoint(cfg, files['run'], (48, 48, 4), 6,\n"
+        "                                            device='cpu')(frames)\n"
+        "out['served/keras'] = Predictor.from_checkpoint(cfg, files['keras']['keras_basic'],\n"
+        "                                              (48, 48, 4), 6, device='cpu')(frames)\n"
+        "np.savez(files['out'] + '/got.npz', **out)\n"
+        "json.dump(arch, open(files['out'] + '/arch.json', 'w'))\n"
+        "assert [m for m in sys.modules if m.split('.')[0] in ('h5py', 'msgpack')] == \\\n"
+        "    ['h5py', 'msgpack'], 'a reader module was loaded'\n"
+        "print('ok')\n"
+    )
+    r = _run(code, dict(os.environ))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    got = dict(np.load(tmp_path / "got.npz"))
+    arch = json.loads((tmp_path / "arch.json").read_text())
+
+    def flat(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: v for key, sub in tree.items()
+                    for k, v in flat(sub, f"{prefix}/{key}").items()}
+        return {prefix: np.asarray(tree)}
+
+    want = {}
+    for case, path in keras.items():
+        m = jimporters.import_reference_checkpoint(path)
+        want.update(flat(m.params, f"{case}/params"))
+        want.update(flat(m.batch_stats or {}, f"{case}/batch_stats"))
+        assert arch[case] == [m.model_kind, m.arch_flavor, json.loads(json.dumps(m.arch_kwargs))]
+    for name in files["msgpack"]:
+        with open(files["msgpack"][name], "rb") as f:
+            restored = serialization.msgpack_restore(f.read())
+        want.update(flat(restored["params"] if name == "full" else restored, name))
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].tobytes() == v.tobytes(), k
+    assert sorted(k for k in got if not k.startswith("served/")) == sorted(want)
+    cfg = Config(num_base_filters=8, compute_dtype="float32")
+    served = Predictor(cfg, params, (48, 48, 4), 6, device="cpu")(frames)
+    np.testing.assert_array_equal(got["served/run"], served)
+    j = jimporters.import_reference_checkpoint(keras["keras_basic"])
+    imported = importers.ImportedModel(j.params, j.model_kind, j.arch_flavor, j.arch_kwargs)
+    served = Predictor(cfg, j.params, (48, 48, 4), j.arch_kwargs["out_channels"], device="cpu",
+                       model=lambda **kw: imported.module(torch.float32, **kw))(frames)
+    np.testing.assert_array_equal(got["served/keras"], served)
+
+
 def test_kernel_modules_import_and_refuse_without_nvcc_or_cuda():
     env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
     env.update(PATH="/usr/bin:/bin", CUDA_VISIBLE_DEVICES="")
