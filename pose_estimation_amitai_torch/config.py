@@ -213,7 +213,7 @@ class Config:
     coarse_model_path: str = ""  # C2F: frozen coarse-stage checkpoint
     pretrained_encoder_path: str = ""  # fine-tune after self-supervision
     sigma: float = 3.0  # Gaussian confmap sigma (simple_data_generator.py:120)
-    profile: bool = False  # jax.profiler trace around the train loop
+    profile: bool = False  # torch.profiler trace around the train loop
     nan_debug: bool = False  # jax debug_nans (analog of detect_anomaly)
     host_resident_data: bool = False  # force the HostDataset streaming feed
     # auto-switch to HostDataset above this estimated dataset size

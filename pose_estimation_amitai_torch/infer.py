@@ -51,6 +51,7 @@ from .models.quantized_generic import (
 )
 from .ops import geometry, peaks
 from .parallel.mesh import DATA_AXIS, data_rows
+from .tracing import span
 
 DECODES = ("argmax", "soft", "refined")
 RING = 2  # pinned host buffers a stager fills in turn
@@ -90,7 +91,14 @@ class FrameStager:
     raises.
 
     On the CPU: ``torch.as_tensor`` and the zero pad. A tensor already on a
-    ``cuda`` device is used as it is (padded there)."""
+    ``cuda`` device is used as it is (padded there).
+
+    Counters, over every stager of the process (``tracing.counts``): the
+    ``frames`` staged, and the ``padded_rows`` of zeros that filled their
+    chunks up to ``rows``."""
+
+    frames = 0
+    padded_rows = 0
 
     def __init__(self, device: torch.device, rows: int):
         self.device = torch.device(device)
@@ -124,22 +132,32 @@ class FrameStager:
     def __call__(self, chunk) -> torch.Tensor:
         """``chunk`` (at most ``rows`` frames, numpy or tensor) on the
         device, its rows then zeros up to ``rows``."""
+        n = len(chunk)
+        FrameStager.frames += n
+        FrameStager.padded_rows += self.rows - n
+        with span("pe.stage"):
+            return self._stage(chunk, n)
+
+    def _stage(self, chunk, n: int) -> torch.Tensor:
+        """:meth:`__call__` of a chunk of ``n`` frames."""
         on_card = torch.is_tensor(chunk) and chunk.device.type == "cuda"
         if self.stream is None or on_card:
-            t = torch.as_tensor(chunk).to(self.device, non_blocking=True)
-            pad = self.rows - t.shape[0]
+            with span("pe.stage.fill"):
+                t = torch.as_tensor(chunk).to(self.device, non_blocking=True)
+            pad = self.rows - n
             return torch.cat([t, t.new_zeros((pad, *t.shape[1:]))]) if pad else t
         if not torch.is_tensor(chunk):
             chunk = np.asarray(chunk)
         dtype = chunk.dtype if torch.is_tensor(chunk) else _torch_dtype(chunk.dtype)
-        n = chunk.shape[0]
         ring = self.buffers(dtype, chunk.shape[1:])
         i = self._next
         buf = ring[i]
         self._next = (i + 1) % RING
         if self._copied[i] is not None:
-            self._copied[i].synchronize()  # the last copy out of it has run
-        fill_pinned(buf[:n], chunk)
+            with span("pe.stage.wait"):
+                self._copied[i].synchronize()  # the last copy out of it has run
+        with span("pe.stage.fill"):
+            fill_pinned(buf[:n], chunk)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.stream):
             out = torch.empty(buf.shape, dtype=dtype, device=self.device)
@@ -451,8 +469,9 @@ class Predictor:
         return _gather_rows(res, group)
 
     def _run_rows(self, frames: torch.Tensor, *cameras: torch.Tensor):
-        maps = self.forward(frames, *cameras)
-        with torch.inference_mode():
+        with span("pe.forward"):
+            maps = self.forward(frames, *cameras)
+        with span("pe.decode"), torch.inference_mode():
             if self.decode == "soft":
                 xy = peaks.find_peaks_soft_argmax(maps)  # (B, K, 2)
                 vals = maps.amax(dim=(1, 2))
@@ -509,15 +528,17 @@ class Predictor:
                 f"{self.cfg.model_type} takes camera matrices: construct the "
                 "Predictor with cameras=(P, P_inv), one row per sample")
         outs, maps = [], []
-        for i in range(0, n, cs):
-            keep = min(cs, n - i)
-            res = self._run(self._stage(frames, i), *self._stage_cameras(i, i + keep))
-            if self.return_heatmaps:
-                m, p = res
-                maps.append(m[:keep].cpu().numpy())
-                outs.append(p[:keep].cpu().numpy())
-            else:
-                outs.append(res[:keep].cpu().numpy())
+        with span("pe.call"):
+            for i in range(0, n, cs):
+                keep = min(cs, n - i)
+                res = self._run(self._stage(frames, i), *self._stage_cameras(i, i + keep))
+                with span("pe.fetch"):
+                    if self.return_heatmaps:
+                        m, p = res
+                        maps.append(m[:keep].cpu().numpy())
+                        outs.append(p[:keep].cpu().numpy())
+                    else:
+                        outs.append(res[:keep].cpu().numpy())
         pts = np.concatenate(outs)
         if self.return_heatmaps:
             return np.concatenate(maps), pts
@@ -559,13 +580,14 @@ class Predictor:
         n_full = n // cs
         out: list[np.ndarray] = []
         in_flight: list[tuple] = []  # (host peaks, their copy's event)
-        for i in range(n_full):
-            in_flight.append(self._fetch(self._run(self._stage(frames, i * cs))))
-            if len(in_flight) >= prefetch:
-                out.append(_fetched(in_flight.pop(0)))
-        out.extend(_fetched(r) for r in in_flight)
-        if n_full * cs < n:
-            out.append(self(frames[n_full * cs :]))
+        with span("pe.movie"):
+            for i in range(n_full):
+                in_flight.append(self._fetch(self._run(self._stage(frames, i * cs))))
+                if len(in_flight) >= prefetch:
+                    out.append(_fetched(in_flight.pop(0)))
+            out.extend(_fetched(r) for r in in_flight)
+            if n_full * cs < n:
+                out.append(self(frames[n_full * cs :]))
         if not out:
             return np.zeros((0, 3, self.num_output_channels), np.float32)
         return np.concatenate(out)
@@ -575,7 +597,8 @@ def _fetched(pending) -> np.ndarray:
     """The host array of a :meth:`Predictor._fetch`, once its copy has run."""
     host, done = pending
     if done is not None:
-        done.synchronize()
+        with span("pe.fetch"):
+            done.synchronize()
     return host.numpy()
 
 

@@ -47,6 +47,7 @@ from ..models.vit import PatchEmbed
 from ..ops import affine, geometry, peaks
 from ..ops.gaussian import confmaps_from_peaks
 from ..ops.morphology import random_mask_redilation
+from ..tracing import span
 
 # std of a unit normal truncated to [-2, 2]: flax's lecun_normal divides by it
 _TRUNCATED_STD = 0.87962566103423978
@@ -278,16 +279,19 @@ def _microbatch_fn(
 
     def micro(params: dict, batch_stats: dict, data: dict, ids, gen: torch.Generator):
         ids = torch.as_tensor(ids, device=data["box"].device).long()
-        args, confmaps = batch(data, ids, gen)
+        with span("pe.train.batch"):
+            args, confmaps = batch(data, ids, gen)
         frozen = frozen_names(model, params)
         live = {k: v.detach().requires_grad_(k not in frozen) for k, v in params.items()}
         model.train()
-        with collect_batch_stats() as updates:
-            full = live if expand is None else expand(live)
-            pred = functional_call(model, {**full, **batch_stats}, args, {"generator": gen})
-        loss = loss_fn(pred, confmaps)
-        trained = [k for k in live if k not in frozen]
-        g = torch.autograd.grad(loss, [live[k] for k in trained])
+        with span("pe.train.grads"):
+            with collect_batch_stats() as updates:
+                full = live if expand is None else expand(live)
+                pred = functional_call(model, {**full, **batch_stats}, args,
+                                       {"generator": gen})
+            loss = loss_fn(pred, confmaps)
+            trained = [k for k in live if k not in frozen]
+            g = torch.autograd.grad(loss, [live[k] for k in trained])
         new_stats = dict(batch_stats)
         for m, (mean, var) in updates.items():
             new_stats[f"{bn_names[m]}.running_mean"] = mean
@@ -343,6 +347,10 @@ def make_train_step(model: nn.Module, cfg: Config) -> Callable:
     micro = _microbatch_fn(model, cfg)
 
     def train_step(state: TrainState, data: dict, idx, lr_scale: float = 1.0):
+        with span("pe.train.step"):
+            return _step(state, data, idx, lr_scale)
+
+    def _step(state: TrainState, data: dict, idx, lr_scale: float):
         idx = torch.as_tensor(idx, device=data["box"].device)
         accum = idx.shape[0]
         loss_sum, grad_sum = None, None
@@ -381,17 +389,18 @@ def adam_step(
     """(params, opt_state) after one ``torch.optim.Adam`` update at ``lr``
     of the parameters in ``grads``; new tensors, the arguments left as they
     were."""
-    params = {k: v.detach().clone() if k in grads else v for k, v in params.items()}
-    opt = torch.optim.Adam([params[k] for k in grads], lr=lr)
-    opt.load_state_dict(_copy_opt_state(opt_state))
-    for group in opt.param_groups:
-        group["lr"] = lr
-    for k, g in grads.items():
-        params[k].grad = g
-    opt.step()
-    for k in grads:
-        params[k].grad = None
-    return params, opt.state_dict()
+    with span("pe.train.adam"):
+        params = {k: v.detach().clone() if k in grads else v for k, v in params.items()}
+        opt = torch.optim.Adam([params[k] for k in grads], lr=lr)
+        opt.load_state_dict(_copy_opt_state(opt_state))
+        for group in opt.param_groups:
+            group["lr"] = lr
+        for k, g in grads.items():
+            params[k].grad = g
+        opt.step()
+        for k in grads:
+            params[k].grad = None
+        return params, opt.state_dict()
 
 
 def make_eval_step(model: nn.Module, cfg: Config) -> Callable:
