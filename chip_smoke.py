@@ -325,7 +325,12 @@ imported reference checkpoints' 612 frames); B1 and B2
 were redesigned for the tensor cores (all five that compute) also carry
 ``previous_ms``, the time in this run of the CUDA-core kernel they replace,
 on the same tensors, and ``kernel``, which of the wrapper's kernels the
-served shape took. The two probe rows carry the same two fields (the
+served shape took; B1 and B2 instead carry ``fma_ms``, the CUDA-core
+kernels' time in this run, ``stage_ms`` and ``stage_bound_ms``, each
+served call's time and bound, and ``conv_lib``: each conv kernel's
+``-Xptxas -v`` registers and spills and the counts of ``HGMMA``,
+``UTMALDG`` and ``HMMA`` in ``cuobjdump -sass`` of the library. The two
+probe rows carry the same two fields (the
 byte-wise kernels, and for full_epilogue its im2col weights packed at every
 call; ``kernel`` lists each probe's), beside ``device_ms``,
 ``previous_device_ms`` and ``library_device_ms``, the device times from
@@ -338,6 +343,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -372,6 +378,11 @@ VIT4_FRAMES = 64  # one chunk of the 4-camera model each way
 VIT4_FOLD_RTOL = 2e-2  # folded vs unfolded bf16 maps, of their range
 PEAK_BYTES = 3.35e12
 PREVIOUS_REPS = 2  # timed runs of a CUDA-core kernel on a served shape
+# bytes of spill stores and loads each wgmma conv kernel may have (-Xptxas -v):
+# at 112 registers a consumer thread the N = 128 tile's epilogue spills some
+# address arithmetic; more than this is a regression
+WGMMA_SPILL_BUDGET = {"conv3x3_wgmma_kernelILi64E": (0, 0),
+                      "conv3x3_wgmma_kernelILi128E": (40, 92)}
 # the train phase: synthetic frames x 4 cameras x 2 wings = 128 per-wing
 # samples of 192x192x4; 32 wing points = 16 a wing + head and tail = 18 maps
 TRAIN_FRAMES = 16
@@ -568,7 +579,27 @@ def phase_device(torch) -> tuple[str, str]:
     return name, smi
 
 
-def phase_build() -> None:
+def ptxas_by_function(log: str) -> dict:
+    """{kernel: {"registers": n, "spill_stores": b, "spill_loads": b}} from
+    a library's ``-Xptxas -v`` output, by mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "bytes spill stores" in line:
+            words = line.replace(",", "").split()
+            out.setdefault(name, {})["spill_stores"] = int(words[words.index("spill") - 2])
+            out[name]["spill_loads"] = int(words[-4])
+        elif name and "Used" in line and "registers" in line:
+            out.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def phase_build() -> dict:
+    """Builds the kernels; returns, for the two libraries of the conv
+    kernels, each kernel's registers and spills and the counts of the
+    `wgmma` (HGMMA), TMA load (UTMALDG) and `mma.sync` (HMMA) instructions
+    in their SASS."""
     from pose_estimation_amitai_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -580,13 +611,36 @@ def phase_build() -> None:
             line.split(":", 1)[1].strip() for line in log.read_text().splitlines()
             if "registers" in line
         ]
+    conv_libs = {}
+    for lib in ("encoder_stage", "decoder"):
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump"), "-sass",
+             str(out_dir / f"lib{lib}.so")],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        kernels = ptxas_by_function((out_dir / f"lib{lib}.log").read_text())
+        conv_libs[lib] = {
+            "sass": {op: sum(line.split()[1:2] == [op] or f" {op}." in line
+                             or f" {op} " in line for line in sass.splitlines())
+                     for op in ("HGMMA", "UTMALDG", "HMMA")},
+            "ptxas": {k: v for k, v in kernels.items() if "conv3x3" in k},
+        }
+        check(conv_libs[lib]["sass"]["HGMMA"] > 0 and conv_libs[lib]["sass"]["UTMALDG"] > 0,
+              f"lib{lib}.so: no wgmma or TMA load in its SASS")
+        for kernel, (stores, loads) in WGMMA_SPILL_BUDGET.items():
+            got = [v for k, v in kernels.items() if kernel in k]
+            check(len(got) == 1 and got[0]["spill_stores"] <= stores
+                  and got[0]["spill_loads"] <= loads,
+                  f"lib{lib}.so: {kernel} spills {got}, budget {stores} / {loads} bytes")
     emit({"phase": "build", "seconds": seconds,
           "dir": str(out_dir.relative_to(_build.BUILD_ROOT.parents[1])),
-          "ptxas": regs})
+          "ptxas": regs, "conv_libs": conv_libs})
+    return conv_libs
 
 
-def phase_kernels(torch, params) -> list[dict]:
-    """Each kernel vs its plain version at the main path's shapes."""
+def phase_kernels(torch, params, conv_libs: dict) -> list[dict]:
+    """Each kernel vs its plain version at the main path's shapes;
+    ``conv_libs``, phase_build's registers, spills and SASS counts of the
+    conv kernels' libraries, go on the B1 and B2 rows."""
     from pose_estimation_amitai_torch.models import quantized
     from pose_estimation_amitai_torch.models.fast_infer import kernel_params
     from pose_estimation_amitai_torch.ops import hopper_attention as ha
@@ -596,11 +650,8 @@ def phase_kernels(torch, params) -> list[dict]:
     from pose_estimation_amitai_torch.ops.int8_conv import max_pool_2x2
 
     # the shared-memory figures of the dispatch rules are the libraries' own
-    for dil in (1, 2, hc.MAX_DILATION):
-        for packed in (False, True):
-            check(hc.conv_mma_smem_bytes(dil, packed)
-                  == hc.conv_mma_smem_bytes_built(dil, packed),
-                  f"conv shared memory at dilation {dil}, packed {packed}")
+    check(hc.conv_c4_smem_bytes() == hc.conv_c4_smem_bytes_built(),
+          "packed conv shared memory")
     check(ha.attention_mma_smem_bytes(VIT_TOKENS, VIT_DIM_HEAD)
           == ha.attention_mma_smem_bytes_built(VIT_TOKENS, VIT_DIM_HEAD),
           "attention shared memory at the served shape")
@@ -625,7 +676,7 @@ def phase_kernels(torch, params) -> list[dict]:
                             lambda: hc.fused_encoder_stage(*args, **kw))
             want = hc.fused_encoder_stage_plain(*args, **kw)
             expect = "fma+fma+fma" if dt == torch.float32 else (
-                "mma+mma+mma_c4" if k == 0 else "mma+mma+mma")
+                "mma_c4+wgmma+wgmma" if k == 0 else "wgmma+wgmma+wgmma")
             check(ran == expect, f"stage {k} {dt}: kernels {ran}, expected {expect}")
             cases["fused_encoder_stage"].append(_case(
                 torch, f"{tuple(x.shape)}->{tuple(want.shape)}", dt, got, want,
@@ -637,7 +688,7 @@ def phase_kernels(torch, params) -> list[dict]:
             cases["fused_encoder_stage"][-1]["kernel"] = ran
             if dt == torch.bfloat16:
                 cases["fused_encoder_stage"][-1].update(
-                    previous_ms=time_ms(torch, lambda: hc.fused_encoder_stage_on(
+                    fma_ms=time_ms(torch, lambda: hc.fused_encoder_stage_on(
                         ("fma",) * 3, *args, **kw), PREVIOUS_REPS),
                     **rounding_flips(torch, got, want, args, kw))
             x = want  # the next stage's input: this stage's plain output
@@ -646,7 +697,7 @@ def phase_kernels(torch, params) -> list[dict]:
             hd.fused_decoder.convs_by_kernel, lambda: hd.fused_decoder(x, **d)))
         want = hd.fused_decoder_plain(x, **d)
         expect = "fma+fma" if dt == torch.float32 else "mma+mma"
-        check(ran == expect and up2 == expect,
+        check(ran == expect.replace("mma", "wgmma") and up2 == expect,
               f"decoder {dt}: stride-1 convs on {ran}, stride-2 layers on {up2}")
         pix = x.shape[0] * x.shape[1] * x.shape[2]
         mid, k = d["w1"].shape[-1], d["w4"].shape[-1]
@@ -659,10 +710,9 @@ def phase_kernels(torch, params) -> list[dict]:
         ))
         cases["fused_decoder"][-1]["kernel"] = decoder_kernels(ran, up2)
         if dt == torch.bfloat16:
-            # the kernel before: the stride-2 layers on the CUDA cores, the
-            # stride-1 convs on the tensor cores as they have been
-            cases["fused_decoder"][-1]["previous_ms"] = time_ms(
-                torch, lambda: hd.fused_decoder_on("mma", ("fma", "fma"), x, **d),
+            # the CUDA-core kernels on the same tensors
+            cases["fused_decoder"][-1]["fma_ms"] = time_ms(
+                torch, lambda: hd.fused_decoder_on("fma", ("fma", "fma"), x, **d),
                 PREVIOUS_REPS)
         del got, want
 
@@ -898,6 +948,12 @@ def phase_kernels(torch, params) -> list[dict]:
         if "previous_ms" in served[0]:
             row.update(previous_ms=sum(c["previous_ms"] for c in served),
                        kernel=[c["kernel"] for c in served])
+        if "fma_ms" in served[0]:  # B1 and B2: the wgmma conv kernel's rows
+            row.update(fma_ms=sum(c["fma_ms"] for c in served),
+                       kernel=[c["kernel"] for c in served],
+                       stage_ms=[c["ms"] for c in served],
+                       stage_bound_ms=[c["bound_ms"] for c in served],
+                       conv_lib=conv_libs[source.rsplit("/", 1)[1][:-3]])
         if name in general:
             row["general_cases"] = general[name]
         rows.append(row)
@@ -1121,8 +1177,8 @@ def phase_slice(torch, cfg, params, frames, movie, device_name: str, smi: str) -
     decoder_up2 = dict(hd.fused_decoder.up2_by_kernel)
     # ---------------------------------------------------------------------
     chunks = sum(-(-r // CHUNK) for r in REQUESTS) + -(-n // CHUNK)
-    check(convs == {"fma": 0, "mma": 8 * chunks, "mma_c4": chunks}
-          and decoder_convs == {"fma": 0, "mma": 2 * chunks}
+    check(convs == {"fma": 0, "mma_c4": chunks, "wgmma": 8 * chunks}
+          and decoder_convs == {"fma": 0, "wgmma": 2 * chunks}
           and decoder_up2 == {"fma": 0, "mma": 2 * chunks},
           f"the served convs took {convs}, the decoder's {decoder_convs}, its "
           f"stride-2 layers {decoder_up2}: not all on the tensor cores")
@@ -1958,8 +2014,8 @@ def phase_train(torch, device_name: str, smi: str) -> dict:
     decoder_up2 = dict(hd.fused_decoder.up2_by_kernel)
     # -----------------------------------------------------------------------
     check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1}
-          and convs == {"fma": 0, "mma": 8, "mma_c4": 1}
-          and decoder_convs == {"fma": 0, "mma": 2} and decoder_up2 == {"fma": 0, "mma": 2},
+          and convs == {"fma": 0, "mma_c4": 1, "wgmma": 8}
+          and decoder_convs == {"fma": 0, "wgmma": 2} and decoder_up2 == {"fma": 0, "mma": 2},
           f"the trained weights' chunk took {launches}, {convs}, {decoder_convs}, "
           f"{decoder_up2}: not every conv on the tensor cores")
     check(maps.shape == (CHUNK, 192, 192, k) and pts.shape == (CHUNK, 3, k)
@@ -2195,7 +2251,7 @@ def phase_trainer(torch, device_name: str, smi: str, step_ms: float) -> dict:
         up2 = dict(hd.fused_decoder.up2_by_kernel)
         # -----------------------------------------------------------------------
         check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1}
-              and convs == {"fma": 0, "mma": 8, "mma_c4": 1} and up2 == {"fma": 0, "mma": 2},
+              and convs == {"fma": 0, "mma_c4": 1, "wgmma": 8} and up2 == {"fma": 0, "mma": 2},
               f"the run directory's chunk took {launches}, {convs}, {up2}")
         check(maps.shape == (len(frames), 192, 192, k) == (CHUNK, 192, 192, k)
               and bool(np.isfinite(pts).all()), f"served {maps.shape}")
@@ -2399,7 +2455,7 @@ def phase_entry(torch, device_name: str, smi: str) -> dict:
         up2 = dict(hd.fused_decoder.up2_by_kernel)
         # -----------------------------------------------------------------------
         check(launches == {"fused_encoder_stage": 3, "fused_decoder": 1}
-              and convs == {"fma": 0, "mma": 8, "mma_c4": 1} and up2 == {"fma": 0, "mma": 2},
+              and convs == {"fma": 0, "mma_c4": 1, "wgmma": 8} and up2 == {"fma": 0, "mma": 2},
               f"the entry point's run directory took {launches}, {convs}, {up2}")
         check(maps.shape == (CHUNK, 192, 192, k) and bool(np.isfinite(peaks).all()),
               f"served {maps.shape}")
@@ -4320,7 +4376,7 @@ def main() -> int:
     name, smi = phase_device(torch)
     torch.backends.cudnn.allow_tf32 = False  # cuDNN f32 convs default to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_build()
+    conv_libs = phase_build()
     cfg = Config()
     params = weights.init_basicnet_params(
         np.random.default_rng(SEED), in_channels=4, out_channels=18,
@@ -4329,7 +4385,7 @@ def main() -> int:
     frames = np.random.default_rng(SEED).random(
         (sum(REQUESTS), 192, 192, 4), dtype=np.float32)
     movie = movie_frames(frames)
-    rows = phase_kernels(torch, params)
+    rows = phase_kernels(torch, params, conv_libs)
     sl = phase_slice(torch, cfg, params, frames, movie, name, smi)
     q8 = phase_int8(torch, cfg, params, frames, name, smi)
     im = phase_im2col(torch, name, smi)

@@ -12,7 +12,7 @@
 // Weights are flax ConvTranspose HWIO kernels, used as they are. A stride-1
 // flax ConvTranspose(SAME) is an unflipped SAME correlation, so t2 and t3
 // are the encoder's conv3x3 at dilation 1 (conv_tile.cuh, or in bf16 the
-// tensor-core conv3x3_mma_kernel of conv_mma.cuh, as the wrapper says). The
+// tensor-core conv3x3_wgmma_kernel of conv_mma.cuh, as the wrapper says). The
 // torch-flavour stride-2 layer (ConvTranspose2d p=1, op=1) is, per axis,
 //   y[2j] = x[j] . W[1],   y[2j+1] = x[j] . W[0] + x[j+1] . W[2]
 // (x beyond the edge is zero), so one input position (j, l) and its three
@@ -198,8 +198,8 @@ int decoder(const void* x, const void* w1, const void* b1, const void* w2,
 
 // dtype: 0 = float32, 1 = bfloat16 (latent, weights, workspace and out;
 // biases are always float32). ws1, ws2: (B, 2R, 2Wd, Mid) each. conv_kind:
-// the kernel of the two stride-1 convs, 0 = conv3x3_kernel, 1 =
-// conv3x3_mma_kernel (bf16, Mid a multiple of 16). up2_kind1, up2_kind4: the
+// the kernel of the two stride-1 convs, 0 = conv3x3_kernel, 3 =
+// conv3x3_wgmma_kernel (bf16, Mid a multiple of 16). up2_kind1, up2_kind4: the
 // kernel of the two stride-2 layers, 0 = up2_kernel, 1 = up2_mma_kernel (bf16,
 // the layer's input channels a multiple of 16). Returns the first nonzero
 // cudaGetLastError().

@@ -27,7 +27,7 @@
 // phases would hold as many accumulators but needs 22 `ldmatrix.x4` for its
 // 36 `mma` a k-step where m32 x n16 needs 17, and 128 accumulators leave no
 // room for fragments. K is walked in chunks of 16 input channels through a
-// ring of three `cp.async` stages, as conv3x3_mma_kernel does: the input
+// ring of three `cp.async` stages, as the int8 conv does: the input
 // patch (tile + the row below + the column to the right, zero beyond the
 // image, 32 bytes a pixel, swizzled halves) and the chunk's 9 x 16 x 32
 // weight slab, HWIO as it lies (64-byte rows, their 16-byte pieces swizzled

@@ -24,18 +24,34 @@
 // workspace the wrapper allocates, and each launch fuses its whole epilogue:
 // bias, LReLU, the residual add and, on the last, the 2x2 max-pool with the
 // post-pool LReLU, so nothing else touches device memory. In bf16 each conv
-// is an implicit GEMM on the tensor cores (conv_mma.cuh: `mma.sync` fed by
-// `ldmatrix` from a three-stage `cp.async` ring of input patch and weight
-// slab; the Cin = 4 first conv with its nine taps packed into one K of 48);
-// in float32, and for bf16 channel counts off the tensor-core tiles, the
-// register-tiled direct convolution of conv_tile.cuh. The wrapper names the
-// kernel of each conv (`kinds`); nothing here falls from one to the other.
-// Per-conv zero padding at staging time replaces the TPU kernel's halo
-// masking (_mask_outside_image) and its row tiles; none of the Mosaic
+// is an implicit GEMM on the tensor cores (conv_mma.cuh): the stride-1 convs
+// with Cin a multiple of 16 on conv3x3_wgmma_kernel, persistent and
+// warp-specialised (a producer thread's TMA loads of the input patch and the
+// per-tap weight tiles into `mbarrier` rings, four consumer warpgroups on
+// `wgmma` with the 16 x 16 pixel tile's 64 or 128 output channels at once,
+// the epilogue from registers); the Cin = 4 first conv on
+// conv3x3_c4_mma_kernel, its nine taps packed into one K of 48. In float32,
+// and for bf16 channel counts off the tensor-core tiles, the register-tiled
+// direct convolution of conv_tile.cuh. What bounds each flagship conv on the
+// card: stage 1's 64 -> 64 convs (192 x 192, dilation 2) sit near the ridge,
+// their N = 64 tiles also at shared memory's rate (a k-step of a block reads
+// 8 KB of A by `ldmatrix` and 8 KB of B for 128 tensor-core clocks: 128
+// bytes a clock); stages 2 and 3 (and the decoder's 128 -> 128) are bound by
+// operations, their tiles N = 128. Measured (H100 80GB HBM3, 700 W, batch
+// 256): the multiply alone reaches 80% to 88% of the tensor cores' rate at
+// N = 128 and 61% at N = 64; the epilogue, which does not overlap it, adds
+// 3 to 6 us a tile (the skip's loads about half of it).
+// The wrapper names the kernel of each conv (`kinds`); nothing here falls
+// from one to the other. SAME padding is TMA's zero fill of the patch box
+// (staging-time zeros in the other kernels), which replaces the TPU kernel's
+// halo masking (_mask_outside_image) and its row tiles; none of the Mosaic
 // workarounds (128-lane chunks, the 8-aligned COL_ORG, the batch-<=8 map)
-// carry over. Not done yet: the skip of conv2 and conv3 is that conv's own
-// input and could come from the staged patch's centre instead of a second
-// read; x1/x2 row bands resident in shared memory; `wgmma` in the main loop.
+// carry over. Not done yet: an epilogue that overlaps the next tile's
+// multiply (warpgroups in ping-pong, or results staged in shared memory and
+// written by TMA stores); the skip of conv2 and conv3 is that conv's own
+// input and could come from the staged patch instead of a second read;
+// weight tiles multicast to a cluster of two blocks; x1/x2 row bands
+// resident in shared memory.
 
 #include "conv_mma.cuh"
 
@@ -68,8 +84,8 @@ int encoder_stage(const void* x, const void* w1, const void* b1,
 
 // dtype: 0 = float32, 1 = bfloat16 (x, weights, workspace and out; biases
 // are always float32). k1, k2, k3: the kernel of each conv, 0 =
-// conv3x3_kernel, 1 = conv3x3_mma_kernel, 2 = conv3x3_c4_mma_kernel (1 and 2
-// bf16 only). Returns the first nonzero cudaGetLastError().
+// conv3x3_kernel, 2 = conv3x3_c4_mma_kernel, 3 = conv3x3_wgmma_kernel (2 and
+// 3 bf16 only). Returns the first nonzero cudaGetLastError().
 extern "C" int pe_fused_encoder_stage(
     int dtype, const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* w3, const void* b3, void* ws1, void* ws2,
@@ -87,8 +103,7 @@ extern "C" int pe_fused_encoder_stage(
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block of conv3x3_mma_kernel (packed = 0) or
-// conv3x3_c4_mma_kernel (packed = 1) is launched with at dilation `dil`.
-extern "C" long long pe_conv_mma_smem_bytes(int dil, int packed) {
-  return (long long)pe::conv3x3_mma_smem_bytes(dil, packed);
+// Dynamic shared memory a block of conv3x3_c4_mma_kernel is launched with.
+extern "C" long long pe_conv_c4_smem_bytes() {
+  return (long long)pe::conv3x3_c4_smem_bytes();
 }

@@ -1,10 +1,12 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
 // tensor-core kernels (attention.cu, conv_mma.cuh, deconv_mma.cuh,
 // qconv_stage.cu): 16-, 8- and 4-byte `cp.async` with zero fill, bulk
-// asynchronous copies that report to an `mbarrier`, `ldmatrix` (plain and
-// transposed), the bf16 `mma.sync.m16n8k16` with f32 accumulation, the int8
-// `mma.sync.m16n8k32` with int32 accumulation, and the swizzled input patch
-// of 32-byte pixels that the convolution kernels stage.
+// asynchronous copies and TMA tensor loads that report to an `mbarrier`,
+// `ldmatrix` (plain and transposed), the bf16 `mma.sync.m16n8k16` and
+// `wgmma.mma_async` m64n64k16 / m64n128k16 with f32 accumulation, the int8
+// `mma.sync.m16n8k32` with int32 accumulation, `setmaxnreg`, and the
+// swizzled input patch of 32-byte pixels that the `mma.sync` convolution
+// kernels stage.
 //
 // Fragment layout of m16n8k16 (lane = 4 * gid + tig, gid 0..7, tig 0..3):
 //   A (16 x 16, row major)  a0 (gid, 2tig..+1)   a1 (gid+8, 2tig..+1)
@@ -114,6 +116,31 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that gives up after about 2^34 clock cycles (some 10 s) with a
+// trap, which the launch's stream then reports as an error: a pipeline that
+// can no longer make progress fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar,
+                                                  uint32_t parity) {
+  long long t0 = -1;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 < 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1LL << 34))
+      __trap();
+  }
+}
+
 // `bytes` (a multiple of 16; src and dst 16-byte aligned) global -> shared by
 // the copy engine; completion is counted on `bar` as transferred bytes.
 __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
@@ -123,6 +150,140 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// TMA: the box of a tiled tensor map at coordinates (c0 innermost, ...)
+// -> shared memory at `dst`, counted on `bar` as transferred bytes. Parts of
+// the box outside the tensor arrive as zeros (the map's fill), and the whole
+// box counts. `map` is the map's generic address (a `__grid_constant__`
+// kernel parameter).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Register budget of the calling warpgroup (all 128 threads, together).
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+template <int REGS>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
+}
+
+// ---- wgmma: a warpgroup's asynchronous 64 x N x 16 product ----
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most PENDING of the warpgroup's newest groups run.
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile laid out as TMA's 128-byte
+// swizzle leaves it (rows of 128 bytes, their 16-byte pieces XORed with the
+// row's index mod 8, from a 1024-byte aligned start): `lbo`, the bytes from
+// one 64-element column block to the next (MN-major), `sbo`, from one group
+// of 8 rows to the next.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr,
+                                                     uint32_t lbo,
+                                                     uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d += a b (`accumulate` 0: d = a b), bf16 operands, f32 sums. A (64 x 16)
+// from the warpgroup's registers, warp w holding rows 16 w .. 16 w + 15 in
+// the A fragment layout of mma.sync.m16n8k16; B (16 x N) by descriptor,
+// MN-major (trans-b). d[4 i + e] is element e of the m16n8 C fragment of
+// columns 8 i .. 8 i + 7 of the warp's 16 rows.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {

@@ -37,10 +37,9 @@
 //
 // qconv3x3_mma_kernel (Cin a multiple of 32, Cout of 8) is an implicit GEMM
 // on the int8 tensor cores, `mma.sync.m16n8k32` with int32 accumulation:
-// M = output pixels, N = output channels, K = 9 taps x Cin. It is
-// conv3x3_mma_kernel's tiling and staging (conv_mma.cuh) with 32 int8
-// channels where that has 16 bf16 ones: a block of 8 warps owns 16 x 16
-// pixels x 64 channels, a warp two tile rows x 64 channels in 64 int32
+// M = output pixels, N = output channels, K = 9 taps x Cin, in chunks of
+// 32 int8 channels: a block of 8 warps owns 16 x 16 pixels x 64 channels, a
+// warp two tile rows x 64 channels in 64 int32
 // accumulators; the input patch (tile + `dil` halo, 32 bytes a pixel, zero
 // outside the image, swizzled halves) and the chunk's weights go through a
 // ring of three `cp.async` stages; a tap is an address offset into the patch

@@ -14,12 +14,14 @@ of ``csrc/encoder_stage.cu``; on a CPU tensor it runs
 :func:`fused_encoder_stage_plain`. Nothing falls back from one to the other.
 
 Each of the three convs runs one of three kernels, and
-:func:`conv_kernel_for` chooses from dtype and shape alone: ``"mma"``, an
-implicit GEMM on the bf16 tensor cores (bfloat16, Cin a multiple of 16, Cout
-a multiple of 8); ``"mma_c4"``, the same with the nine taps of a 4-channel
-input packed into one K of 48 (bfloat16, Cin 4: the encoder's first conv);
-``"fma"``, the direct convolution in f32 on the CUDA cores (float32, where
-TF32 would break the 1e-4 limit, and every other bfloat16 shape).
+:func:`conv_kernel_for` chooses from dtype and shape alone: ``"wgmma"``, a
+persistent, warp-specialised implicit GEMM on the bf16 tensor cores (TMA
+loads into ``mbarrier`` rings, ``wgmma`` in four consumer warpgroups;
+bfloat16, Cin a multiple of 16, Cout a multiple of 8); ``"mma_c4"``, an
+implicit GEMM on ``mma.sync`` with the nine taps of a 4-channel input packed
+into one K of 48 (bfloat16, Cin 4: the encoder's first conv); ``"fma"``, the
+direct convolution in f32 on the CUDA cores (float32, where TF32 would break
+the 1e-4 limit, and every other bfloat16 shape).
 
 Tensors keep the JAX contracts: x NHWC (B, H, W, Cin), weights HWIO
 (3, 3, Cin, Cout) in x's dtype, biases (Cout,) float32.
@@ -37,43 +39,35 @@ from . import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DILATION = 8  # the kernels' shared-memory patch is sized for <= 8
 SMEM_MAX = 232448  # bytes of shared memory a block may use on sm_90
-CONV_KERNEL_CODES = {"fma": 0, "mma": 1, "mma_c4": 2}
+CONV_KERNEL_CODES = {"fma": 0, "mma_c4": 2, "wgmma": 3}
 # the tensor-core kernels' tiling (csrc/conv_mma.cuh)
-MMA_TILE = 16  # output rows and columns of a block
-MMA_COUT = 64  # output channels of a block
-MMA_CIN = 16  # input channels of a staged chunk
-MMA_STAGES = 3  # ring depth
-MMA_C4_K = 48  # 9 taps x 4 channels, padded to three k-steps of 16
+MMA_TILE = 16  # "mma_c4": output rows and columns of a block
+MMA_COUT = 64  # "mma_c4": output channels of a block
+MMA_C4_K = 48  # "mma_c4": 9 taps x 4 channels, padded to three k-steps of 16
+WGMMA_CIN = 64  # "wgmma": input channels of a staged chunk (a 128-byte row)
 
 
-def conv_mma_smem_bytes(dilation: int, packed: bool = False) -> int:
-    """Shared memory a block of the ``"mma"`` (or, ``packed``, the
-    ``"mma_c4"``) kernel asks for: the larger of its staging buffers and the
-    f32 epilogue tile. Staging is bf16: a ring of :data:`MMA_STAGES` x (the
-    halo'd patch, 16 channels a pixel, + the 9 x 16 x 64 weight slab, both
-    swizzled, not padded) and a 4-byte table entry a patch pixel, or the 256
-    packed pixel rows of 48 padded to 56 + 48 weight rows padded to 72.
-    The rule needs the figure where nothing is built; the kernels' own is
-    :func:`conv_mma_smem_bytes_built`, and the card's tests hold the two
-    equal."""
-    side = MMA_TILE + 2 * dilation
-    ring = (MMA_STAGES * 2 * (side * side * MMA_CIN + 9 * MMA_CIN * MMA_COUT)
-            + 4 * side * side)
+def conv_c4_smem_bytes() -> int:
+    """Shared memory a block of the ``"mma_c4"`` kernel asks for: the larger
+    of its staging (the 256 packed pixel rows of 48 padded to 56 and 48
+    weight rows padded to 72, bf16) and the f32 epilogue tile (256 pixels x
+    72). The kernel's own figure is :func:`conv_c4_smem_bytes_built`."""
     c4 = 2 * (MMA_TILE * MMA_TILE * (MMA_C4_K + 8) + MMA_C4_K * (MMA_COUT + 8))
     epilogue = 4 * MMA_TILE * MMA_TILE * (MMA_COUT + 8)
-    return max(c4 if packed else ring, epilogue)
+    return max(c4, epilogue)
 
 
 def conv_kernel_for(dtype: torch.dtype, cin: int, cout: int, dilation: int) -> str:
     """Which kernel a CUDA 3x3 conv of this dtype and shape launches:
-    ``"mma"``, ``"mma_c4"`` or ``"fma"``. A rule on dtype and shape only."""
+    ``"wgmma"``, ``"mma_c4"`` or ``"fma"``. A rule on dtype and shape only."""
     if dtype != torch.bfloat16 or cout < 8 or cout % 8:
         return "fma"
-    if cin == 4 and conv_mma_smem_bytes(dilation, True) <= SMEM_MAX:
+    if cin == 4:
         return "mma_c4"
-    if (cin >= MMA_CIN and cin % MMA_CIN == 0
-            and conv_mma_smem_bytes(dilation) <= SMEM_MAX):
-        return "mma"
+    # every dilation up to MAX_DILATION fits the kernel's rings (a static
+    # check in csrc/conv_mma.cuh), so shared memory needs no figure here
+    if cin >= 16 and cin % 16 == 0 and 1 <= dilation <= MAX_DILATION:
+        return "wgmma"
     return "fma"
 
 
@@ -124,14 +118,15 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [i] + [p] * 10 + [i] * 6 + [ctypes.c_float, i, i, i, i, p]
         fn.restype = ctypes.c_int
-        lib.pe_conv_mma_smem_bytes.argtypes = [i, i]
-        lib.pe_conv_mma_smem_bytes.restype = ctypes.c_longlong
+        lib.pe_conv_c4_smem_bytes.argtypes = []
+        lib.pe_conv_c4_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def conv_mma_smem_bytes_built(dilation: int, packed: bool = False) -> int:
-    """The same figure from the built library: what the launch asks for."""
-    return _lib().pe_conv_mma_smem_bytes(dilation, int(packed))
+def conv_c4_smem_bytes_built() -> int:
+    """:func:`conv_c4_smem_bytes` from the built library: what the launch
+    asks for."""
+    return _lib().pe_conv_c4_smem_bytes()
 
 
 def check_operand(
@@ -252,7 +247,7 @@ def fused_encoder_stage_on(
 
 
 fused_encoder_stage.launches = 0
-fused_encoder_stage.convs_by_kernel = {"fma": 0, "mma": 0, "mma_c4": 0}
+fused_encoder_stage.convs_by_kernel = dict.fromkeys(CONV_KERNEL_CODES, 0)
 
 
 def encoder_forward_fused(

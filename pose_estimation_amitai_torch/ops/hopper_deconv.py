@@ -157,8 +157,8 @@ def fused_decoder(
     launches writing the interleaved output directly, intermediates in a
     workspace the wrapper allocates); CPU tensors run the plain version. The
     two stride-1 convs run the kernel ``hopper_conv.conv_kernel_for`` names
-    for (mid -> mid, dilation 1): the tensor-core one in bfloat16 when mid is
-    a multiple of 16. The two stride-2 layers run the kernel
+    for (mid -> mid, dilation 1): ``"wgmma"`` on the tensor cores in bfloat16
+    when mid is a multiple of 16. The two stride-2 layers run the kernel
     :func:`up2_kernel_for` names for (cin -> mid) and (mid -> K). Each kernel
     run adds one to ``fused_decoder.launches``, its two convs to
     ``fused_decoder.convs_by_kernel`` and its two stride-2 layers to
@@ -231,5 +231,5 @@ def fused_decoder_on(
 
 
 fused_decoder.launches = 0
-fused_decoder.convs_by_kernel = {"fma": 0, "mma": 0}
+fused_decoder.convs_by_kernel = {"fma": 0, "wgmma": 0}
 fused_decoder.up2_by_kernel = dict.fromkeys(UP2_KERNEL_CODES, 0)

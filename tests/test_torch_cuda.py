@@ -122,6 +122,28 @@ def test_predictor_fused_matches_module_on_card(cuda):
     np.testing.assert_allclose(out[1][1], out[0][1], atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype, convs", [
+    ("bfloat16", {"fma": 0, "mma_c4": 1, "wgmma": 8}),
+    ("float32", {"fma": 9, "mma_c4": 0, "wgmma": 0}),
+])
+def test_flagship_forward_counts_its_convs_by_kernel(cuda, dtype, convs):
+    """One chunk of the flagship BasicNet (filters 64, 192 x 192 x 4 -> 18)
+    through the fused Predictor: in bf16 the first conv on the packed kernel
+    and the 10 other stride-1 convs (8 of the encoder, 2 of the decoder) on
+    the wgmma kernel; in float32 all 11 on the CUDA cores."""
+    params = init_basicnet_params(np.random.default_rng(0), 4, 18, filters=64)
+    pred = Predictor(Config(compute_dtype=dtype), params, (192, 192, 4), 18, device="cuda",
+                     chunk_size=2, use_fused=True)
+    frames = np.random.default_rng(1).random((2, 192, 192, 4), dtype=np.float32)
+    enc = dict(hc.fused_encoder_stage.convs_by_kernel)
+    dec = dict(hd.fused_decoder.convs_by_kernel)
+    pred(frames)
+    torch.cuda.synchronize()
+    assert {k: v - enc[k] for k, v in hc.fused_encoder_stage.convs_by_kernel.items()} == convs
+    assert {k: v - dec[k] for k, v in hd.fused_decoder.convs_by_kernel.items()} == {
+        "fma": 2 * (dtype == "float32"), "wgmma": 2 * (dtype == "bfloat16")}
+
+
 def _fused_predictor(chunk_size: int, hw: int = 48) -> Predictor:
     params = init_basicnet_params(np.random.default_rng(0), 4, 6, filters=16)
     pred = Predictor(Config(num_base_filters=16), params, (hw, hw, 4), 6, device="cuda",
@@ -580,13 +602,18 @@ def _took(counter, fn):
 
 
 @pytest.mark.parametrize("h, cin, cout, pool, kernels", [
-    (192, 4, 64, True, ("mma_c4", "mma", "mma")),
-    (96, 64, 128, True, ("mma", "mma", "mma")),
-    (48, 128, 256, False, ("mma", "mma", "mma")),
+    (192, 4, 64, True, ("mma_c4", "wgmma", "wgmma")),
+    (96, 64, 128, True, ("wgmma", "wgmma", "wgmma")),
+    (48, 128, 256, False, ("wgmma", "wgmma", "wgmma")),
+    (192, 4, 64, False, ("mma_c4", "wgmma", "wgmma")),
+    (96, 64, 128, False, ("wgmma", "wgmma", "wgmma")),
+    (48, 128, 256, True, ("wgmma", "wgmma", "wgmma")),
 ])
 def test_encoder_stage_flagship_shapes_on_tensor_cores(cuda, h, cin, cout, pool, kernels):
-    """The three flagship stages at batch 2 in bf16: every conv on a
-    tensor-core kernel; the same call in float32 stays on the CUDA cores."""
+    """The three flagship stages at batch 2 in bf16, as served and with the
+    pool the other way: every conv on a tensor-core kernel (the five
+    distinct stride-1 shapes of the encoder on the wgmma kernel); the same
+    call in float32 stays on the CUDA cores."""
     gen = torch.Generator(device="cuda").manual_seed(h)
     args = _stage_args(gen, 2, h, h, cin, cout, torch.bfloat16)
     by_kernel = hc.fused_encoder_stage.convs_by_kernel
@@ -610,14 +637,19 @@ def test_encoder_stage_bf16_error_holds_over_seeds(cuda, seed):
 
 
 @pytest.mark.parametrize("b, h, w, cin, cout, dil, pool, kernels", [
-    (2, 32, 32, 16, 64, 2, False, ("mma", "mma", "mma")),
-    (1, 13, 17, 32, 72, 1, False, ("mma", "fma", "fma")),    # odd H x W, ragged Cout tile
-    (2, 22, 38, 32, 32, 2, True, ("mma", "mma", "mma")),     # pooled, tile remainders 6 x 6
-    (1, 40, 24, 48, 16, 8, True, ("mma", "mma", "mma")),     # the widest halo
-    (3, 24, 24, 16, 136, 3, True, ("mma", "fma", "fma")),    # three Cout tiles, the last ragged
+    (2, 32, 32, 16, 64, 2, False, ("wgmma", "wgmma", "wgmma")),
+    (1, 13, 17, 32, 72, 1, False, ("wgmma", "fma", "fma")),  # odd H x W, ragged Cout tile
+    (2, 22, 38, 32, 32, 2, True, ("wgmma", "wgmma", "wgmma")),  # pooled, tile remainders 6 x 6
+    (1, 40, 24, 48, 16, 8, True, ("wgmma", "wgmma", "wgmma")),  # the widest halo
+    (3, 24, 24, 16, 136, 3, True, ("wgmma", "fma", "fma")),  # two Cout tiles, the last ragged
     (2, 20, 36, 4, 24, 2, False, ("mma_c4", "fma", "fma")),  # the packed first conv alone
     (2, 10, 50, 4, 8, 2, True, ("mma_c4", "fma", "fma")),    # pooled, remainders 10 x 2
-    (2, 18, 34, 4, 32, 1, True, ("mma_c4", "mma", "mma")),   # dilation 1, remainders 2 x 2
+    (2, 18, 34, 4, 32, 1, True, ("mma_c4", "wgmma", "wgmma")),  # dilation 1, remainders 2 x 2
+    (1, 20, 44, 128, 256, 4, True, ("wgmma", "wgmma", "wgmma")),  # N 128, two patch slots
+    (2, 30, 26, 80, 200, 5, False, ("wgmma", "fma", "fma")),  # one patch slot, Cin 80 of 128
+    (2, 34, 18, 64, 64, 6, True, ("wgmma", "wgmma", "wgmma")),  # N 64, one patch slot
+    (1, 17, 9, 16, 8, 7, False, ("wgmma", "fma", "fma")),    # one n8 block, a single tile
+    (1, 24, 40, 128, 128, 7, True, ("wgmma", "wgmma", "wgmma")),  # N 128 at dilation 7
 ])
 def test_encoder_stage_tensor_core_kernels_match_plain(cuda, b, h, w, cin, cout, dil, pool,
                                                        kernels):
@@ -645,7 +677,7 @@ def test_nan_input_reaches_the_pooled_output(cuda, cin, cout):
 
 def test_decoder_stride1_convs_on_tensor_cores(cuda):
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for mid, kernel in ((128, "mma"), (40, "fma")):
+    for mid, kernel in ((128, "wgmma"), (40, "fma")):
         args = [_rand(gen, 2, 12, 12, 256).abs().bfloat16()]
         for ci, co in ((256, mid), (mid, mid), (mid, mid), (mid, 18)):
             args += [_rand(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5).bfloat16(),
@@ -694,9 +726,7 @@ def test_attention_tensor_core_kernel_matches_plain(cuda, g, n, d):
 def test_shared_memory_figures_are_the_kernels_own(cuda):
     """The byte counts the dispatch rules reckon with are the ones the built
     libraries launch with."""
-    for dil in range(1, hc.MAX_DILATION + 1):
-        for packed in (False, True):
-            assert hc.conv_mma_smem_bytes(dil, packed) == hc.conv_mma_smem_bytes_built(dil, packed)
+    assert hc.conv_c4_smem_bytes() == hc.conv_c4_smem_bytes_built()
     for n, d in [(144, 256), (129, 256), (1, 16), (100, 80), (144, 272)]:
         assert ha.attention_mma_smem_bytes(n, d) == ha.attention_mma_smem_bytes_built(n, d)
     assert hd.up2_mma_smem_bytes() == hd.up2_mma_smem_bytes_built()
@@ -715,7 +745,7 @@ def test_named_kernel_runs_and_a_wrong_name_is_refused(cuda):
     assert took == ("fma",) * 3
     _close(got, hc.fused_encoder_stage_plain(*args, pool=True), torch.bfloat16)
     with pytest.raises(ValueError, match="does not take"):
-        hc.fused_encoder_stage_on(("mma_c4", "mma", "mma"), *args, pool=True)
+        hc.fused_encoder_stage_on(("mma_c4", "wgmma", "wgmma"), *args, pool=True)
     q, k, v = (_rand(gen, 4, 144, 64).bfloat16() for _ in range(3))
     got, took = _took(ha.fused_attention.launches_by_kernel,
                       lambda: ha.fused_attention_on("fma", q, k, v))
@@ -780,7 +810,7 @@ def test_decoder_named_kernels_run_and_a_wrong_name_is_refused(cuda):
     want = hd.fused_decoder_plain(*args)
     for up2 in (("fma", "fma"), ("mma", "fma"), ("fma", "mma"), ("mma", "mma")):
         got, took = _took(hd.fused_decoder.up2_by_kernel,
-                          lambda: hd.fused_decoder_on("mma", up2, *args))
+                          lambda: hd.fused_decoder_on("wgmma", up2, *args))
         assert took == tuple(sorted(up2))
         _close(got, want, torch.bfloat16)
     f32 = [a.float() if a.dtype == torch.bfloat16 else a for a in args]

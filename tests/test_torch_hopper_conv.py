@@ -98,16 +98,20 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("dtype, cin, cout, dil, kernel", [
     (BF16, 4, 64, 2, "mma_c4"),     # the encoder's first conv
-    (BF16, 64, 64, 2, "mma"), (BF16, 64, 128, 2, "mma"), (BF16, 128, 128, 2, "mma"),
-    (BF16, 128, 256, 2, "mma"), (BF16, 256, 256, 2, "mma"),
-    (BF16, 128, 128, 1, "mma"),     # the decoder's two stride-1 convs
-    (BF16, 16, 8, 8, "mma"), (BF16, 4, 8, 8, "mma_c4"), (BF16, 32, 72, 1, "mma"),
+    (BF16, 64, 64, 2, "wgmma"), (BF16, 64, 128, 2, "wgmma"), (BF16, 128, 128, 2, "wgmma"),
+    (BF16, 128, 256, 2, "wgmma"), (BF16, 256, 256, 2, "wgmma"),
+    (BF16, 128, 128, 1, "wgmma"),   # the decoder's two stride-1 convs
+    (BF16, 16, 8, 8, "wgmma"), (BF16, 4, 8, 8, "mma_c4"), (BF16, 32, 72, 1, "wgmma"),
+    (BF16, 64, 64, 1, "wgmma"), (BF16, 64, 64, 8, "wgmma"),    # N = 64 tiles, both ends
+    (BF16, 128, 256, 1, "wgmma"), (BF16, 256, 256, 8, "wgmma"),  # N = 128, one patch slot
+    (BF16, 16, 72, 8, "wgmma"), (BF16, 48, 136, 5, "wgmma"),   # ragged Cout, Cin off 64
     (F32, 4, 64, 2, "fma"), (F32, 64, 64, 2, "fma"), (F32, 128, 128, 1, "fma"),
     (BF16, 3, 24, 2, "fma"), (BF16, 9, 70, 1, "fma"), (BF16, 5, 8, 2, "fma"),
-    (BF16, 24, 24, 2, "fma"),       # Cin off the chunk of 16
+    (BF16, 24, 24, 2, "fma"),       # Cin off the multiple of 16
     (BF16, 8, 8, 2, "fma"),
     (BF16, 16, 130, 3, "fma"), (BF16, 130, 130, 3, "fma"), (BF16, 70, 70, 1, "fma"),
     (BF16, 4, 70, 2, "fma"),        # Cout off the 16-byte store
+    (BF16, 64, 64, 9, "fma"),       # past the widest halo
 ])
 def test_conv_kernel_rule(dtype, cin, cout, dil, kernel):
     assert hc.conv_kernel_for(dtype, cin, cout, dil) == kernel
@@ -123,47 +127,51 @@ def test_every_cuda_test_stage_gets_kernels():
             assert set(kernels) <= set(hc.CONV_KERNEL_CODES)
             if dtype == F32 or cout % 8:
                 assert kernels == ["fma"] * 3
-    # flagship: every conv of the three stages and of the decoder on the tensor cores
+    # flagship: the first conv on the packed kernel, the 8 other convs of the
+    # three stages and the decoder's 2 stride-1 convs on the wgmma kernel
+    kernels = []
     for cin, cout in [(4, 64), (64, 128), (128, 256)]:
-        assert [hc.conv_kernel_for(BF16, c, cout, 2) for c in (cin, cout, cout)] == [
-            "mma_c4" if cin == 4 else "mma", "mma", "mma"]
-    assert hc.conv_kernel_for(BF16, 128, 128, 1) == "mma"
+        kernels += [hc.conv_kernel_for(BF16, c, cout, 2) for c in (cin, cout, cout)]
+    kernels += [hc.conv_kernel_for(BF16, 128, 128, 1)] * 2
+    assert kernels == ["mma_c4"] + ["wgmma"] * 10
 
 
 def test_conv_shared_memory_budget():
-    """A ring of three stages of (halo'd 16 x 16 patch x 16 bf16 + 9 x 16 x 64
-    bf16 of weights) and a 4-byte table entry a patch pixel, or the f32
-    epilogue tile where that is larger: two blocks fit an SM's 227 KB at the
-    served dilations, one at every dilation the wrapper takes."""
-    assert hc.conv_mma_smem_bytes(2) == 3 * (20 * 20 * 32 + 18432) + 1600 == 95296
-    assert hc.conv_mma_smem_bytes(1) == 3 * (18 * 18 * 32 + 18432) + 1296 == 87696
-    assert hc.conv_mma_smem_bytes(8) == 3 * (32 * 32 * 32 + 18432) + 4096 == 157696
-    assert 4 * 256 * 72 == 73728 < hc.conv_mma_smem_bytes(1)  # the epilogue tile fits
-    assert hc.conv_mma_smem_bytes(2, packed=True) == 73728
+    """The wgmma kernel's rings fit at every dilation the rule gives it
+    (csrc/conv_mma.cuh checks that when it compiles): at the widest halo,
+    dilation 8, one patch slot of 32 x 32 pixels of 64 bf16 channels, two
+    64 x 128 bf16 weight slots, 1 KB to align and 256 bytes of barriers stay
+    within SMEM_MAX; the rule takes dilations 1..MAX_DILATION and no more.
+    The packed first conv's f32 epilogue tile."""
+    side = 16 + 2 * hc.MAX_DILATION
+    patch, weights = side * side * 2 * hc.WGMMA_CIN, 128 * hc.WGMMA_CIN * 2
+    assert 1280 + patch + 2 * weights == 165120 <= hc.SMEM_MAX
+    assert [hc.conv_kernel_for(BF16, 64, cout, dil)
+            for dil in range(1, hc.MAX_DILATION + 2) for cout in (64, 128)] == (
+        ["wgmma"] * 2 * hc.MAX_DILATION + ["fma"] * 2)
+    assert hc.conv_c4_smem_bytes() == 4 * 256 * 72 == 73728
     assert 2 * (256 * 56 + 48 * 72) == 35584 < 73728  # the packed staging itself
-    for dil in range(1, hc.MAX_DILATION + 1):
-        assert hc.conv_mma_smem_bytes(dil) <= hc.SMEM_MAX
-        assert hc.conv_mma_smem_bytes(dil, packed=True) <= hc.SMEM_MAX
-    for dil in (1, 2):  # two blocks an SM, 1 KB reserved a block
-        assert 2 * (hc.conv_mma_smem_bytes(dil) + 1024) <= hc.SMEM_MAX
-    # 64 f32 accumulators a thread: 2 m16 tiles x 8 n8 tiles x 4
+    # 64 f32 accumulators a thread of the packed kernel: 2 m16 tiles x 8 n8 tiles x 4
     assert 2 * (hc.MMA_COUT // 8) * 4 == 64
 
 
 def _implicit_gemm_conv(x, w, dil):
-    """SAME 3x3 dilated conv of NHWC ``x`` with HWIO ``w`` as the tensor-core
-    kernel multiplies it out: zero padding at staging, a tap as a pixel
-    offset into the padded patch, K = 9 taps x Cin walked in chunks of 16
-    input channels (taps inside a chunk), f32 sums."""
+    """SAME 3x3 dilated conv of NHWC ``x`` with HWIO ``w`` as the wgmma
+    kernel multiplies it out: zero padding at staging (TMA's fill), a tap as
+    a pixel offset into the padded patch, K = 9 taps x Cin walked in chunks
+    of 64 input channels (zero past Cin; taps inside a chunk), f32 sums."""
     b, h, wd, cin = x.shape
-    patch = torch.nn.functional.pad(x, (0, 0, dil, dil, dil, dil))
+    chunks = -(-cin // hc.WGMMA_CIN)
+    patch = torch.nn.functional.pad(
+        x, (0, chunks * hc.WGMMA_CIN - cin, dil, dil, dil, dil))
+    wpad = torch.nn.functional.pad(w, (0, 0, 0, chunks * hc.WGMMA_CIN - cin))
     acc = torch.zeros(b, h, wd, w.shape[-1])
-    for c0 in range(0, cin, hc.MMA_CIN):
+    for c0 in range(0, chunks * hc.WGMMA_CIN, hc.WGMMA_CIN):
         for ky in range(3):
             for kx in range(3):
                 a = patch[:, ky * dil:ky * dil + h, kx * dil:kx * dil + wd,
-                          c0:c0 + hc.MMA_CIN]                       # A: pixels x 16
-                acc += a @ w[ky, kx, c0:c0 + hc.MMA_CIN]            # B: 16 x Cout
+                          c0:c0 + hc.WGMMA_CIN]                     # A: pixels x 64
+                acc += a @ wpad[ky, kx, c0:c0 + hc.WGMMA_CIN]       # B: 64 x Cout
     return acc
 
 
@@ -197,7 +205,7 @@ def test_implicit_gemm_equals_plain_and_pallas(cin, cout, dil, pool):
     t = {k: torch.from_numpy(v) for k, v in w.items()}
 
     def conv(inp, wk):
-        form = {"mma_c4": _packed_c4_conv, "mma": _implicit_gemm_conv}[
+        form = {"mma_c4": _packed_c4_conv, "wgmma": _implicit_gemm_conv}[
             hc.conv_kernel_for(BF16, inp.shape[-1], cout, dil)]
         return form(inp, wk, dil)
 
