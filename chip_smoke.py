@@ -35,7 +35,10 @@ Phases, each printing one JSON line ({"phase": ...}):
              (5, 100, 72), the decoder at ragged sizes on either stride-2
              kernel, the int8 stage at ragged tiles on each of its kernels)
              are held against the plain versions too; the int8 weight
-             packing equals its plain version;
+             packing equals its plain version; B1's three stages and B2 in
+             bfloat16 at 1,024 rows, the batch a 4-camera chunk of 256
+             samples gives them with its views folded in, each held to its
+             plain version 256 rows at a time;
 4. slice   - Predictor(Config(), use_fused=True) at full width (filters 64,
              192x192x4 frames -> 18 maps, bf16) on seeded random weights made
              by the weight bridge: three requests (256, 256, 100 frames) and
@@ -187,7 +190,11 @@ Phases, each printing one JSON line ({"phase": ...}):
              float32 card-vs-CPU step, then served through
              Predictor(cameras=...) on the 32 tiled to 356 with their camera
              rows (256 + a padded 100), the padded tail's peaks equal to the
-             same samples' inside the full chunk;
+             same samples' inside the full chunk; then on the "fused" route:
+             its rate, launches (B1 3, ftl_fusion 1, B2 1 a chunk),
+             predict_movie equal to __call__, and a whole chunk's maps
+             (1,024 view-rows) within 3% of max from the module route's in
+             float32 (TF32 off), the bf16 module route's gap beside it;
 16. vit_train - the ViT at full width (patch 16, dim 256, depth 8, heads 8,
              dim_head 256, MLP 1024, bf16 compute over float32 parameters,
              batch 8) on the train phase's 16 synthetic frames: (a)
@@ -351,7 +358,8 @@ import time
 import numpy as np
 
 SEED = 0
-CHUNK = 256  # Predictor chunk: the batch of every kernel call on the main path
+CHUNK = 256  # Predictor chunk: the batch of every flagship kernel call on the main path
+FOLDED_VIEWS = 4  # a 4-camera chunk folds its views into B1's and B2's batch: 4 x CHUNK rows
 REQUESTS = (256, 256, 100)  # slice-phase request sizes (ragged tail)
 MOVIE_CHUNKS = 16  # the staging movie of the slice and vit phases: 4,096 frames
 MOVIE_STRIDE = 37  # its chunk j starts at frame 37 j of the 612, wrapping
@@ -428,6 +436,8 @@ ZOO_UPDATES = 5
 ZOO_WARMUP = 3  # bare steps before the ZOO_STEPS timed ones
 ZOO_STEPS = 10
 ZOO_SERVED = 356  # camera-model samples served: a full chunk and a padded 100
+ZOO_FTL_MAPS = CHUNK  # camera-model samples whose maps are compared: a chunk, 1,024 view-rows
+ZOO_FTL_SHARE = 3e-2  # the fused route's bf16 maps' gap from float32's, of the largest value
 ZOO_STATS_RTOL = 1e-4  # card vs CPU running averages, of each tensor's largest
 # the vit_train phase: the ViT at full width on the train phase's frames
 VIT_TRAIN_EPOCHS = 2
@@ -957,9 +967,74 @@ def phase_kernels(torch, params, conv_libs: dict) -> list[dict]:
         if name in general:
             row["general_cases"] = general[name]
         rows.append(row)
+    folded = folded_cases(torch, kernel_params(params, torch.bfloat16, "cuda"))
     emit({"phase": "kernels", "batch": CHUNK, "tf32": False,
-          "cases": {r["name"]: r["cases"] for r in rows}, "general_cases": general})
+          "cases": {r["name"]: r["cases"] for r in rows}, "general_cases": general,
+          "folded_rows": FOLDED_VIEWS * CHUNK, "folded_cases": folded})
     return rows
+
+
+def folded_cases(torch, kp: dict) -> dict:
+    """B1's three stages and B2 in bf16 at FOLDED_VIEWS x CHUNK rows, the
+    batch of a 4-camera chunk with its views folded in (stage 1's x1 and x2
+    then hold 2.4e9 elements, past 2^31), each on the kernels the CHUNK-row
+    cases take and within BF16_RTOL of the plain version's largest value.
+    The plain version runs CHUNK rows at a time (its rows are independent);
+    each such slice's error is reported, so a fault in the upper rows shows
+    by where it lies. Each stage takes the plain output of the one before."""
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+
+    rows = FOLDED_VIEWS * CHUNK
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    x = torch.rand((rows, 192, 192, 4), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def case(run, plain, expect: str, kernel_fn) -> tuple[dict, object]:
+        """(the case's numbers, the plain output of all rows)."""
+        got, ran = run()
+        torch.cuda.synchronize()
+        check(ran == expect, f"{rows} rows: kernels {ran}, expected {expect}")
+        check(bool(torch.isfinite(got.float()).all()), f"{rows} rows: non-finite output")
+        parts, errs, scale = [], [], 0.0
+        for i in range(0, rows, CHUNK):
+            want = plain(slice(i, i + CHUNK))
+            check(want.shape[1:] == got.shape[1:] and want.dtype == got.dtype,
+                  f"{rows} rows: kernel gave {tuple(got.shape)} {got.dtype}")
+            errs.append((got[i : i + CHUNK].float() - want.float()).abs().max().item())
+            scale = max(scale, want.float().abs().max().item())
+            parts.append(want)
+        err = max(errs)
+        shape = f"{tuple(x.shape)}->{tuple(got.shape)}"
+        check(err <= BF16_RTOL * scale, f"{shape} bf16: max err {err} > {BF16_RTOL} * {scale}"
+              f" (by {CHUNK} rows: {errs})")
+        del got
+        return {"shape": shape, "dtype": "bfloat16", "kernel": ran, "max_abs_err": err,
+                f"max_abs_err_by_{CHUNK}_rows": errs, "max_abs_plain": scale,
+                "ms": time_ms(torch, kernel_fn, 3)}, torch.cat(parts)
+
+    out = {"fused_encoder_stage": [], "fused_decoder": []}
+    for k, st in enumerate(kp["stages"]):
+        w = tuple(st[n] for n in ("w1", "b1", "w2", "b2", "w3", "b3"))
+        kw = dict(dilation=2, alpha=0.1, pool=k < 2)
+        row, nxt = case(
+            lambda: took(hc.fused_encoder_stage.convs_by_kernel,
+                         lambda: hc.fused_encoder_stage(x, *w, **kw)),
+            lambda s: hc.fused_encoder_stage_plain(x[s], *w, **kw),
+            "mma_c4+wgmma+wgmma" if k == 0 else "wgmma+wgmma+wgmma",
+            lambda: hc.fused_encoder_stage(x, *w, **kw))
+        out["fused_encoder_stage"].append(row)
+        x = nxt
+    d = kp["decoder"]
+
+    def decoder_run():
+        (got, ran), up2 = took(hd.fused_decoder.up2_by_kernel, lambda: took(
+            hd.fused_decoder.convs_by_kernel, lambda: hd.fused_decoder(x, **d)))
+        return got, decoder_kernels(ran, up2)
+
+    row, _ = case(decoder_run, lambda s: hd.fused_decoder_plain(x[s], **d),
+                  decoder_kernels("wgmma+wgmma", "mma+mma"), lambda: hd.fused_decoder(x, **d))
+    out["fused_decoder"].append(row)
+    return out
 
 
 IM2COL_BATCH = 8  # the experiment's batch
@@ -2722,6 +2797,63 @@ def zoo_serve(pred, frames) -> dict:
             "movie_frames_per_s": len(frames) / t_movie, "movie_equals_requests": True}
 
 
+def zoo_serve_ftl_fused(torch, cfg, run_path: str, kc: int, samples, cams, module_pts) -> dict:
+    """The trained disentanglement model on the ``fused`` route: its rate
+    beside the module's, the launches a chunk (B1 three, ``ftl_fusion``
+    one, B2 one), predict_movie equal to the requests, the share of peaks
+    where the module's are, and the maps of ZOO_FTL_MAPS samples (a whole
+    chunk: every row of its kernel calls) within ZOO_FTL_SHARE of the
+    largest value from the module route's in float32 (TF32 off), beside
+    the bf16 module route's gap from them."""
+    import dataclasses
+
+    from pose_estimation_amitai_torch.infer import Predictor
+    from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+    from pose_estimation_amitai_torch.ops import hopper_conv as hc
+    from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+
+    def build(c=cfg, chunk=CHUNK, **kw):
+        return Predictor.from_checkpoint(c, run_path, (192, 192, 16), kc, device="cuda",
+                                         chunk_size=chunk, cameras=cams, **kw)
+
+    pred = build(use_fused=True)
+    check(pred.serving_path == "fused", f"camera model on {pred.serving_path!r}")
+    pred(samples[:1])  # warm-up
+    torch.cuda.synchronize()
+    counters = (lambda: (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
+                         hd.fused_decoder.launches))
+    before = counters()
+    t_serve = time.perf_counter()
+    pts = pred(samples)
+    t_serve = time.perf_counter() - t_serve
+    chunks = -(-len(samples) // CHUNK)
+    launches = dict(zip(("B1", "ftl_fusion", "B2"), (a - b for a, b in zip(counters(), before))))
+    check(launches == {"B1": 3 * chunks, "ftl_fusion": chunks, "B2": chunks},
+          f"fused camera model launches {launches} for {chunks} chunks")
+    movie = pred.predict_movie(samples)
+    check(np.array_equal(movie, pts), "fused camera model: predict_movie disagrees with __call__")
+    same = float(np.mean(np.all(pts[:, :2] == module_pts[:, :2], axis=1)))
+    del pred
+    n = ZOO_FTL_MAPS
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # the float32 reference a quarter chunk at a time (its rows are independent)
+    want = build(f32, CHUNK // 4, return_heatmaps=True)(samples[:n])[0]
+    scale = float(np.abs(want).max())
+    gaps = {}
+    for route, f in (("module", False), ("fused", True)):
+        got = build(use_fused=f, return_heatmaps=True)(samples[:n])[0]
+        gaps[route] = float(np.abs(got - want).max()) / scale
+        del got
+    check(gaps["fused"] <= ZOO_FTL_SHARE,
+          f"fused camera model's maps {gaps['fused']:.4f} of max from float32's")
+    del want
+    return {"serving_path": "fused", "samples": len(samples),
+            "samples_per_s": len(samples) / t_serve,
+            "view_frames_per_s": 4 * len(samples) / t_serve, "launches": launches,
+            "movie_equals_requests": True, "peaks_where_module_share": same,
+            "maps_compared": n, "maps_gap_of_max_from_float32": gaps}
+
+
 def phase_zoo(torch, device_name: str, smi: str) -> dict:
     """ResNetHeatmapNet and FourCamDisentangled through the Trainer,
     GPTResNet through the bare step, all at full width on the card, each
@@ -2819,6 +2951,8 @@ def phase_zoo(torch, device_name: str, smi: str) -> dict:
                          "samples_per_s": ZOO_SERVED / t_serve,
                          "view_frames_per_s": 4 * ZOO_SERVED / t_serve,
                          "tail_samples_differing": differ}
+        res["served_fused"] = zoo_serve_ftl_fused(torch, cfg, tr.run_path, kc, samples, cams,
+                                                  pts)
         res["seconds"] = time.perf_counter() - t0
         models["FourCamDisentangled"] = res
         del tr, pred

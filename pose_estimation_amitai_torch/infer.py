@@ -12,13 +12,16 @@ family: the CNN family (the flagship per-wing ``BasicNet``, coarse and C2F,
   (``serving_path``): ``"module"``, the ``nn.Module`` forward (the port's
   counterpart of JAX's ``"flax"`` route), for every family; ``"fused"``, the hand-written Hopper kernels:
   for the flagship ``BasicNet`` the encoder-stage and decoder kernels
-  (models/fast_infer.py), for a ViT the same module with every attention
-  core on the attention kernel (ops/hopper_attention.py);
+  (models/fast_infer.py), for the disentangled model at the flagship's
+  geometry the same kernels on its views folded into the batch with its
+  middle as one op (ops/ftl_fusion.py), for a ViT the same module with
+  every attention core on the attention kernel (ops/hopper_attention.py);
   ``"int8_resident"`` and ``"int8_fused"``, the calibrated int8 forwards of
   the flagship (models/quantized.py), the second through the int8 stage
   kernel; ``"int8_generic"``, every other model with its linear and conv
   layers on int8 (models/quantized_generic.py);
-* ``predict_movie`` — keeps up to ``prefetch`` chunks in flight;
+* ``predict_movie`` — keeps up to ``prefetch`` chunks in flight (a camera
+  model's camera rows beside its frames);
 * ``FrameStager`` — a chunk's frames onto the device: on a ``cuda`` device
   from pinned host buffers on a copy stream of its own, so the copy of one
   chunk overlaps the compute of the ones before it;
@@ -41,7 +44,10 @@ from . import weights
 from .config import Config
 from .models import build_model, needs_camera_matrices
 from .models.cnn import BasicNet
-from .models.fast_infer import basicnet_apply_fused, kernel_params
+from .models.disentangled import NUM_CAMS, FourCamDisentangled
+from .models.fast_infer import (
+    basicnet_apply_fused, disentangled_apply_fused, disentangled_kernel_params, kernel_params,
+)
 from .models.vit import ViT4Cameras, ViTPoseNet
 from .models.quantized import (
     calibrate, make_quantized_fused_forward, make_quantized_resident_forward,
@@ -254,9 +260,14 @@ class Predictor:
         families (their running averages). ``cameras``: ``(P, P_inv)``,
         (N, 4, 3, 4) and (N, 4, 4, 3), one row per sample of the frames the
         predictor will be called on, which the disentangled model needs
-        (its call raises ``ValueError`` without them). These families serve
-        on the ``"module"`` route; ``use_fused`` is ignored for them, as
-        JAX ignores it."""
+        (its call raises ``ValueError`` without them); they go to the device
+        once, here. These families serve on the ``"module"`` route, except
+        the disentangled model at the flagship's geometry (torch flavour,
+        kernel 3, dilation 2, the per-pixel FTL layout), which ``use_fused``
+        serves on ``"fused"``: its views folded into the batch of the
+        encoder-stage and decoder kernels, its middle one ``ftl_fusion``
+        op, its peaks decoded per view-row and put back in the module's
+        channel order."""
         if decode not in DECODES:
             raise ValueError(f"decode={decode!r}; expected one of {DECODES}")
         if chunk_size < 1:
@@ -277,6 +288,8 @@ class Predictor:
         self._needs_cams = needs_camera_matrices(cfg.model_type)
         self.cameras = None if cameras is None else tuple(
             np.asarray(c, np.float32) for c in cameras)
+        self._cameras_dev = None if cameras is None else tuple(
+            torch.as_tensor(c, device=self.device) for c in self.cameras)
         if model is None:
             def model(**serving) -> nn.Module:
                 return build_model(cfg, image_shape, num_output_channels, **serving)
@@ -290,8 +303,14 @@ class Predictor:
             type(model) is BasicNet and model.flavor == "torch"
             and model.kernel_size == 3 and model.dilation == 2
         )
+        is_ftl = (
+            type(model) is FourCamDisentangled and model.flavor == "torch"
+            and model.kernel_size == 3 and model.dilation == 2 and not model.ref_ftl_layout
+        )
         is_vit = isinstance(model, (ViTPoseNet, ViT4Cameras))
-        fused_ok = use_fused and (is_basic or is_vit)
+        fused_ok = use_fused and (is_basic or is_vit or is_ftl)
+        # views a fused forward folds into its rows (its maps are view-rows)
+        self._views = NUM_CAMS if fused_ok and is_ftl and not use_quantized else 1
         # ViT argmax peaks-only serving: views whose raw maps' min and max
         # rescale the decoded vals (0: the maps come out as the model's)
         self._val_renorm_views = 0
@@ -342,6 +361,10 @@ class Predictor:
                     out_dtype=torch.bfloat16)
         elif fused_ok and is_basic:
             self._kparams = kernel_params(params, model.dtype, self.device)
+        elif fused_ok and is_ftl:
+            state_dict()  # the module's check of the variables' names and shapes
+            self._kparams = disentangled_kernel_params(
+                params, batch_stats, model.dtype, self.device)
         else:
             self.model = model.to_empty(device=self.device).eval()
             self.model.load_state_dict(state_dict())
@@ -448,10 +471,15 @@ class Predictor:
         """(B, H, W, C) frames on the device (and a camera model's (B, 4, 3,
         4) P and (B, 4, 4, 3) P_inv) -> (B, H, W, K) maps over this
         predictor's serving route: float32, except a ViT's raw maps in
-        argmax peaks-only serving, which stay in the compute dtype."""
+        argmax peaks-only serving, which stay in the compute dtype. The
+        disentangled model's ``fused`` route gives (4B, H, W, K / 4)
+        view-rows instead (models/fast_infer.py), which
+        :func:`maps_by_channel` lays out as the module's maps."""
         with torch.inference_mode():
             if self._quantized is not None:
                 return self._quantized(frames, *cameras).float()
+            if self._kparams is not None and self._views > 1:
+                return disentangled_apply_fused(self._kparams, frames, *cameras)
             if self._kparams is not None:
                 return basicnet_apply_fused(self._kparams, frames)
             return self.model(frames, *cameras)
@@ -482,8 +510,10 @@ class Predictor:
                 pts = peaks.find_peaks_with_vals(maps)
                 if self._val_renorm_views:
                     pts = _renorm_vals(pts, maps, self._val_renorm_views)
+            if self._views > 1:
+                pts = peaks_by_channel(pts, self._views)
         if self.return_heatmaps:
-            return maps, pts
+            return maps_by_channel(maps, self._views), pts
         return pts
 
     def _rows(self) -> slice:
@@ -500,15 +530,15 @@ class Predictor:
         return self._stager(frames[start : start + self.chunk_size][self._rows()])
 
     def _stage_cameras(self, start: int, stop: int) -> tuple[torch.Tensor, ...]:
-        """This process's camera rows of samples [start, stop) on the device
-        (issued on the compute stream after their chunk's frames), padded to
-        chunk_size with the last row (a zero camera would feed the FTL
-        nothing sensible; the padded rows' outputs are dropped)."""
+        """This process's camera rows of samples [start, stop), sliced from
+        the device copy the constructor made, padded to chunk_size with the
+        last row (a zero camera would feed the FTL nothing sensible; the
+        padded rows' outputs are dropped)."""
         if not self._needs_cams:
             return ()
         out = []
-        for c in self.cameras:
-            t = torch.from_numpy(c[start:stop]).to(self.device, non_blocking=True)
+        for c in self._cameras_dev:
+            t = c[start:stop]
             pad = self.chunk_size - t.shape[0]
             t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) if pad else t
             out.append(t[self._rows()])
@@ -521,15 +551,23 @@ class Predictor:
         Returns (N, 3, K) [x, y, val] float32 numpy (plus (N, H, W, K) maps
         first if ``return_heatmaps``).
         """
-        n = frames.shape[0]
-        cs = self.chunk_size
+        return self._call(frames, 0)
+
+    def _check_cameras(self) -> None:
         if self._needs_cams and self.cameras is None:
             raise ValueError(
                 f"{self.cfg.model_type} takes camera matrices: construct the "
                 "Predictor with cameras=(P, P_inv), one row per sample")
+
+    def _call(self, frames, first: int):
+        """:meth:`__call__` of samples ``first`` on of ``frames`` (their
+        camera rows the same samples')."""
+        n = frames.shape[0]
+        cs = self.chunk_size
+        self._check_cameras()
         outs, maps = [], []
         with span("pe.call"):
-            for i in range(0, n, cs):
+            for i in range(first, n, cs):
                 keep = min(cs, n - i)
                 res = self._run(self._stage(frames, i), *self._stage_cameras(i, i + keep))
                 with span("pe.fetch"):
@@ -567,27 +605,26 @@ class Predictor:
         i's small peak output (copied to pinned memory as its kernels end),
         so copies, compute and host work overlap, and device memory stays
         bounded at about ``prefetch`` chunks whatever the movie's length.
-        The ragged tail goes through ``__call__``, as does a camera model's
-        whole movie.
+        A camera model's chunk takes its camera rows from the device copy
+        beside its frames. The ragged tail goes through ``__call__``.
         """
         if self.return_heatmaps:
             raise ValueError("predict_movie decodes peaks only")
-        if self._needs_cams:
-            # the camera models take their per-sample rows chunk by chunk
-            return self(frames)
+        self._check_cameras()
         n = frames.shape[0]
         cs = self.chunk_size
         n_full = n // cs
         out: list[np.ndarray] = []
         in_flight: list[tuple] = []  # (host peaks, their copy's event)
         with span("pe.movie"):
-            for i in range(n_full):
-                in_flight.append(self._fetch(self._run(self._stage(frames, i * cs))))
+            for i in range(0, n_full * cs, cs):
+                res = self._run(self._stage(frames, i), *self._stage_cameras(i, i + cs))
+                in_flight.append(self._fetch(res))
                 if len(in_flight) >= prefetch:
                     out.append(_fetched(in_flight.pop(0)))
             out.extend(_fetched(r) for r in in_flight)
             if n_full * cs < n:
-                out.append(self(frames[n_full * cs :]))
+                out.append(self._call(frames, n_full * cs))
         if not out:
             return np.zeros((0, 3, self.num_output_channels), np.float32)
         return np.concatenate(out)
@@ -600,6 +637,23 @@ def _fetched(pending) -> np.ndarray:
         with span("pe.fetch"):
             done.synchronize()
     return host.numpy()
+
+
+def peaks_by_channel(pts: torch.Tensor, views: int) -> torch.Tensor:
+    """(V B, 3, K) peaks of view-rows (row V b + v) -> (B, 3, V K), view v's
+    in channels v K .. (v + 1) K, as the module's maps hold them."""
+    n, three, k = pts.shape
+    return pts.view(n // views, views, three, k).transpose(1, 2).reshape(
+        n // views, three, views * k)
+
+
+def maps_by_channel(maps: torch.Tensor, views: int) -> torch.Tensor:
+    """(V B, H, W, K) maps of view-rows -> the module's (B, H, W, V K)."""
+    if views == 1:
+        return maps
+    n, h, w, k = maps.shape
+    return maps.view(n // views, views, h, w, k).permute(0, 2, 3, 1, 4).reshape(
+        n // views, h, w, views * k)
 
 
 def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:

@@ -65,6 +65,9 @@ class FourCamDisentangled(nn.Module):
         self.out_channels = out_channels
         self.dtype = dtype
         self.ref_ftl_layout = ref_ftl_layout
+        self.flavor = flavor
+        self.kernel_size = kernel_size
+        self.dilation = dilation
         self.shared_encoder = EncoderAtrous(
             in_channels // NUM_CAMS, filters, kernel_size, dilation, flavor, dtype,
             dropout, num_blocks)

@@ -1,4 +1,5 @@
-"""The four serving kernels as ``torch.library`` custom operators.
+"""The serving kernels, and the disentanglement model's middle, as
+``torch.library`` custom operators.
 
 ``torch.export`` traces a program on fake tensors, which have no
 ``data_ptr``, so it cannot trace a ctypes launch; and a wrapper called on a
@@ -16,7 +17,11 @@ dtype and layout, the kernels stay one node each in an exported graph
 * ``pose_estimation::fused_attention`` -- ops/hopper_attention.py
   ``fused_attention`` (S1), in a functional form: the packed (B, N, 3, H, D)
   qkv tensor in, a fresh (B, N, H, D) output back, so no mutating op
-  reaches an exported graph.
+  reaches an exported graph;
+* ``pose_estimation::ftl_fusion`` -- ops/ftl_fusion.py ``ftl_fusion``, the
+  middle of the 4-camera disentanglement model (rearrange1, the inverse
+  FTL, the fusion with its BatchNorms, the FTL, bn3, rearrange2 and the
+  skip) on view-rows, with each sample's cameras.
 
 The real implementation of each op calls the wrapper: the CUDA kernel for
 CUDA tensors, the plain version for CPU tensors, by device as the wrapper
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from .ftl_fusion import ftl_fusion as _ftl_fusion
 from .hopper_attention import fused_attention as _attention
 from .hopper_conv import fused_encoder_stage as _encoder_stage
 from .hopper_deconv import fused_decoder as _decoder
@@ -120,3 +126,21 @@ def fused_attention(qkv: torch.Tensor) -> torch.Tensor:
 def _(qkv):
     b, n, _, h, d = qkv.shape
     return qkv.new_empty((b, n, h, d))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::ftl_fusion", mutates_args=())
+def ftl_fusion(
+    latent: torch.Tensor, P: torch.Tensor, P_inv: torch.Tensor,
+    w_r1: torch.Tensor, b_r1: torch.Tensor, w_f1: torch.Tensor, b_f1: torch.Tensor,
+    w_f2: torch.Tensor, b_f2: torch.Tensor, w_r2: torch.Tensor, b_r2: torch.Tensor,
+    bn1: torch.Tensor, bn2: torch.Tensor, bn3: torch.Tensor, eps: float,
+) -> torch.Tensor:
+    """The disentanglement model's middle: (4B, h, w, C) view-rows of the
+    encoder's output -> the decoder's (4B, h, w, C) input, in its dtype."""
+    return _ftl_fusion(latent, P, P_inv, w_r1, b_r1, w_f1, b_f1, w_f2, b_f2, w_r2, b_r2,
+                       bn1, bn2, bn3, eps)
+
+
+@ftl_fusion.register_fake
+def _(latent, P, P_inv, w_r1, b_r1, w_f1, b_f1, w_f2, b_f2, w_r2, b_r2, bn1, bn2, bn3, eps):
+    return latent.new_empty(latent.shape)

@@ -21,6 +21,8 @@ Spans nest by the host's call stack:
 * ``pe.stage.fill``: the host copy of the chunk's frames (into the pinned
   buffer; on the CPU path, ``torch.as_tensor(...).to(...)``);
 * ``pe.forward``: the host's enqueue of the route's forward;
+* ``pe.ftl``: inside ``pe.forward``, the host's enqueue of the
+  disentanglement model's ``ftl_fusion`` op (models/fast_infer.py);
 * ``pe.decode``: the host's enqueue of the peak decode;
 * ``pe.fetch``: the host blocked on a chunk's peaks;
 * ``pe.train.step``: one ``train.loop`` train step;
@@ -29,7 +31,10 @@ Spans nest by the host's call stack:
 * ``pe.train.adam``: the Adam update.
 
 Counters are attributes of the code that does the work, always on and never
-reset; a reader takes differences of :func:`counts`.
+reset; a reader takes differences of :func:`counts` (the stager's) or of
+the kernels' own: ``fused_encoder_stage.launches`` (B1),
+``fused_decoder.launches`` (B2), ``ftl_fusion.launches`` (the
+disentanglement model's middle on the card).
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import torch
 PREFIX = "pe."
 SPANS = (
     "pe.call", "pe.movie", "pe.stage", "pe.stage.wait", "pe.stage.fill", "pe.forward",
-    "pe.decode", "pe.fetch", "pe.train.step", "pe.train.batch", "pe.train.grads",
+    "pe.ftl", "pe.decode", "pe.fetch", "pe.train.step", "pe.train.batch", "pe.train.grads",
     "pe.train.adam",
 )
 _OFF = contextlib.nullcontext()

@@ -1530,3 +1530,96 @@ def test_keras_saves_import_and_serve_on_card(cuda, tmp_path):
                                        return_heatmaps=True)
     assert module.serving_path == "module"
     np.testing.assert_allclose(maps, module(frames)[0], atol=1e-4 * np.abs(maps).max())
+
+
+# ---------------------------------------------------------------------------
+# the 4-camera disentanglement model on the fused route (views folded into
+# B1 and B2, its middle on ftl_fusion)
+# ---------------------------------------------------------------------------
+def _ftl_predictors(dtype: str, chunk_size: int, filters: int = 64, hw: int = 192, n: int = 5):
+    """The module and fused Predictors of one seeded FourCamDisentangled
+    (its running averages moved off their initial values) with n samples'
+    crop-adjusted cameras, and the samples."""
+    from pose_estimation_amitai_torch import weights
+    from pose_estimation_amitai_torch.models import build_model
+    from pose_estimation_amitai_torch.ops import geometry
+    from pose_estimation_amitai_torch.train import loop
+
+    cfg = Config(model_type=C.ALL_CAMS_DISENTANGLED_PER_WING_CNN, num_base_filters=filters,
+                 compute_dtype=dtype)
+    shape, k = (hw, hw, 16), 72
+    model = build_model(cfg, shape, k)
+    state = loop.create_train_state(model, cfg, seed=5, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    params = weights.state_dict_to_flax(
+        {n_: v + 0.05 * torch.randn(v.shape, generator=gen) if v.dim() == 1 else v
+         for n_, v in state.params.items()}, model)
+    stats = weights.batch_stats_to_flax(
+        {n_: 0.5 + torch.rand(v.shape, generator=gen) if n_.endswith("var") else
+         torch.randn(v.shape, generator=gen) for n_, v in state.batch_stats.items()})
+    rng = np.random.default_rng(1)
+    frames = rng.random((n, *shape), dtype=np.float32)
+    Ks = torch.tensor([[7500.0, 0, 640], [0, 7500.0, 400], [0, 0, 1]]).expand(4, 3, 3)
+    Rs = torch.linalg.qr(torch.randn(4, 3, 3, generator=gen))[0]
+    ts = torch.tensor([[0.0], [0.0], [210.0]]).expand(4, 3, 1)
+    crops = torch.stack([torch.randint(0, 608, (n, 4), generator=gen),
+                         torch.randint(0, 1088, (n, 4), generator=gen)], -1)
+    cams = tuple(c.numpy() for c in geometry.crop_adjusted_matrices(Ks, Rs, ts, crops, hw))
+    preds = [Predictor(cfg, params, shape, k, device="cuda", chunk_size=chunk_size,
+                       return_heatmaps=True, batch_stats=stats, cameras=cams, use_fused=f)
+             for f in (False, True)]
+    assert [p.serving_path for p in preds] == ["module", "fused"]
+    return preds, frames
+
+
+@pytest.mark.parametrize("dtype, share", [("float32", 1e-4), ("bfloat16", 3e-2)])
+def test_ftl_fused_matches_module_on_card(cuda, dtype, share):
+    """Full width (filters 64, 192 x 192 x 16 -> 72), 5 samples in chunks of
+    2: the fused route's maps within ``share`` of the module's largest
+    (float32: summation order; bf16: each route rounds its convs, 1x1s and
+    sums apart, about 1% of max a layer) and each fused peak where the
+    module's map lies within that share of the range below its maximum."""
+    (module, fused), frames = _ftl_predictors(dtype, 2)
+    (want, _), (got, pts) = module(frames), fused(frames)
+    assert got.shape == want.shape == (5, 192, 192, 72)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= share * scale
+    flat = want.reshape(5, -1, 72)
+    at = np.take_along_axis(flat, (pts[:, 1] * 192 + pts[:, 0]).astype(np.int64)[:, None], 1)
+    rng = flat.max(axis=(1, 2)) - flat.min(axis=(1, 2))
+    assert ((flat.max(axis=1) - at[:, 0]) <= share * rng[:, None]).all()
+
+
+def test_ftl_fused_launches_a_chunk(cuda):
+    """A chunk of the fused disentanglement model runs B1 three times,
+    ftl_fusion once and B2 once, all on the card: 2 chunks, 6 / 2 / 2."""
+    from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+
+    (_, fused), frames = _ftl_predictors("bfloat16", 2, filters=16, hw=64, n=4)
+    before = (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
+              hd.fused_decoder.launches)
+    fused(frames)
+    torch.cuda.synchronize()
+    after = (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
+             hd.fused_decoder.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 2, 2)
+
+
+def test_ftl_predict_movie_is_pipelined(cuda, monkeypatch):
+    """A camera model's predict_movie keeps chunks in flight: at prefetch 4
+    four chunks are dispatched before the first is fetched; at prefetch 1,
+    2 and 4 the peaks, a ragged tail included, are __call__'s bit for bit."""
+    from pose_estimation_amitai_torch import infer
+
+    (_, fused), frames = _ftl_predictors("bfloat16", 2, filters=16, hw=64, n=11)
+    fused.return_heatmaps = False
+    want = fused(frames)
+    order = []
+    run, fetched = infer.Predictor._run, infer._fetched
+    monkeypatch.setattr(infer.Predictor, "_run",
+                        lambda self, *a: (order.append("run"), run(self, *a))[1])
+    monkeypatch.setattr(infer, "_fetched", lambda p: (order.append("fetch"), fetched(p))[1])
+    for prefetch in (1, 2, 4):
+        order.clear()
+        np.testing.assert_array_equal(fused.predict_movie(frames, prefetch=prefetch), want)
+        assert order[: prefetch + 1] == ["run"] * prefetch + ["fetch"], order

@@ -230,7 +230,8 @@ def test_augmented_views_reproject_through_their_composed_cameras():
 def test_predictor_pads_the_tail_with_the_last_camera(samples):
     """A 2-sample tail of a chunk of 3 (its third row the last sample's
     camera and zero frames) decodes what the same samples decode inside a
-    full chunk; without cameras the call raises."""
+    full chunk (the chunks of 3 on the fused route, the whole on the
+    module); without cameras the call raises."""
     _, tm = _models()
     params, stats = own_variables(tm, seed=5)
     x = np.concatenate([samples["box"]] * 2)[:5]
@@ -241,7 +242,7 @@ def test_predictor_pads_the_tail_with_the_last_camera(samples):
                       batch_stats=stats_tree, cameras=cams)
     padded = Predictor(cfg, tree, (48, 48, 16), K, device="cpu", chunk_size=3,
                        batch_stats=stats_tree, cameras=cams, use_fused=True)
-    assert padded.serving_path == whole.serving_path == "module"
+    assert (padded.serving_path, whole.serving_path) == ("fused", "module")
     np.testing.assert_array_equal(padded(x)[:, :2], whole(x)[:, :2])
     np.testing.assert_array_equal(padded.predict_movie(x), padded(x))
     with pytest.raises(ValueError, match="camera matrices"):

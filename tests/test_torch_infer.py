@@ -363,8 +363,9 @@ def test_batchnorm_and_camera_families_serve_as_jax(model_type, cin, k, one_thre
     """``batch_stats`` (a flax tree, as JAX's Predictor takes it) and, for
     the disentangled model, ``cameras`` one row per sample: the maps and
     peaks of JAX's Predictor on the same variables, 3 samples in chunks of
-    2 (the tail padded, its camera row repeated); on "module" whatever
-    use_fused says."""
+    2 (the tail padded, its camera row repeated); the BatchNorm families on
+    "module" whatever use_fused says, the disentangled model on "fused"
+    (its views folded into the encoder and decoder kernels' batch)."""
     from pose_estimation_amitai_torch.models import build_model
     from pose_estimation_amitai_torch.train import loop as tloop
 
@@ -392,7 +393,7 @@ def test_batchnorm_and_camera_families_serve_as_jax(model_type, cin, k, one_thre
         cameras=cams)(frames)
     pred = tinfer.Predictor(cfg, params, shape, k, device="cpu", chunk_size=2, use_fused=True,
                             return_heatmaps=True, batch_stats=stats, cameras=cams)
-    assert pred.serving_path == "module"
+    assert pred.serving_path == ("fused" if cin == 16 else "module")
     maps, pts = pred(frames)
     np.testing.assert_allclose(maps, np.asarray(want_maps), atol=2e-5)
     np.testing.assert_array_equal(pts[:, :2], np.asarray(want_pts)[:, :2])
