@@ -191,7 +191,8 @@ Phases, each printing one JSON line ({"phase": ...}):
              Predictor(cameras=...) on the 32 tiled to 356 with their camera
              rows (256 + a padded 100), the padded tail's peaks equal to the
              same samples' inside the full chunk; then on the "fused" route:
-             its rate, launches (B1 3, ftl_fusion 1, B2 1 a chunk),
+             its rate, launches (B1 3, the ftl_fusion kernel 1 and its
+             "gemm" composition 0, B2 1 a chunk),
              predict_movie equal to __call__, and a whole chunk's maps
              (1,024 view-rows) within 3% of max from the module route's in
              float32 (TF32 off), the bf16 module route's gap beside it;
@@ -341,7 +342,12 @@ probe rows carry the same two fields (the
 byte-wise kernels, and for full_epilogue its im2col weights packed at every
 call; ``kernel`` lists each probe's), beside ``device_ms``,
 ``previous_device_ms`` and ``library_device_ms``, the device times from
-CUDA-graph replays (``device_method``). Last
+CUDA-graph replays (``device_method``). The ``ftl_fusion`` row holds the
+disentanglement model's middle at ``ftl.movie``'s shapes (256 samples,
+1,024 view-rows of 48 x 48 x 256) on its kernel against the plain version,
+with ``previous_ms`` the "gemm" composition it replaced, timed in the same
+run, ``ptxas`` the kernel's registers and spills, and ``launches`` the zoo
+phase's fused camera model's. Last
 {"ok": true, "device": {...}}. Any failed check raises, and the script exits
 nonzero without the ok line.
 """
@@ -438,6 +444,12 @@ ZOO_STEPS = 10
 ZOO_SERVED = 356  # camera-model samples served: a full chunk and a padded 100
 ZOO_FTL_MAPS = CHUNK  # camera-model samples whose maps are compared: a chunk, 1,024 view-rows
 ZOO_FTL_SHARE = 3e-2  # the fused route's bf16 maps' gap from float32's, of the largest value
+FTL_SAMPLES = 256  # the ftl_fusion row: a chunk of ftl.movie, 1,024 view-rows of 48 x 48
+FTL_LATENT = (48, 48, 256)  # its latent: 192 x 192 frames after B1, encoder width 256
+FTL_RTOL = 2 ** -7  # kernel vs plain: one bf16 step of the output's largest value
+# bytes of spill stores and loads ftl_fusion_kernel may have (-Xptxas -v): as
+# built, <256> and <128> spill 76 / 80, <64> 296 / 300; more is a regression
+FTL_SPILL_BUDGET = (296, 300)
 ZOO_STATS_RTOL = 1e-4  # card vs CPU running averages, of each tensor's largest
 # the vit_train phase: the ViT at full width on the train phase's frames
 VIT_TRAIN_EPOCHS = 2
@@ -972,6 +984,74 @@ def phase_kernels(torch, params, conv_libs: dict) -> list[dict]:
           "cases": {r["name"]: r["cases"] for r in rows}, "general_cases": general,
           "folded_rows": FOLDED_VIEWS * CHUNK, "folded_cases": folded})
     return rows
+
+
+def ftl_fusion_row(torch) -> dict:
+    """The ``ftl_fusion`` row at ftl.movie's shapes (FTL_SAMPLES samples of
+    FTL_LATENT, seeded bf16 operands): the kernel against the plain version
+    (within FTL_RTOL of its largest value), the kernel's time, the plain
+    version's, the "gemm" composition's (the path it replaces, as
+    ``previous_ms``) timed in turns beside it, the bound, and the kernel's
+    registers and spills (within FTL_SPILL_BUDGET). ``launches`` is set from
+    the zoo phase's fused camera model."""
+    from pose_estimation_amitai_torch.ops import _build
+    from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+    from pose_estimation_amitai_torch.ops import hopper_ftl
+
+    b, (h, w, c) = FTL_SAMPLES, FTL_LATENT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    P = rand(b, 4, 3, 4)
+    P = P / P.norm(dim=(-2, -1), keepdim=True)
+    P_inv = torch.linalg.pinv(P.double()).float()
+    P_inv = (P_inv / P_inv.norm(dim=(-2, -1), keepdim=True)).contiguous()
+    args = [rand(4 * b, h, w, c, scale=0.5).to(torch.bfloat16), P, P_inv]
+    for cin, cout in ((c, 300), (1600, 400), (400, 400), (300, c)):
+        args += [rand(cin, cout, scale=cin ** -0.5).to(torch.bfloat16),
+                 rand(cout, scale=0.05).to(torch.bfloat16)]
+    for n in (400, 400, 300):
+        args.append(torch.stack([1 + rand(n, scale=0.1), rand(n, scale=0.1),
+                                 rand(n, scale=0.3), (1 + rand(n, scale=0.1)).abs()]))
+    args.append(1e-5)
+    check(ff.ftl_path_for(args[0].device, torch.bfloat16, c, 300) == "wgmma",
+          "ftl.movie's shapes do not take the ftl_fusion kernel")
+    before = hopper_ftl.ftl_fusion_kernel.launches
+    got = ff.ftl_fusion(*args)
+    torch.cuda.synchronize()
+    check(hopper_ftl.ftl_fusion_kernel.launches == before + 1, "ftl_fusion: no kernel launch")
+    want = ff.ftl_fusion_plain(*args).float()
+    scale = float(want.abs().max())
+    err = float((got.float() - want).abs().max())
+    check(err <= FTL_RTOL * scale, f"ftl_fusion kernel {err} from plain, max {scale}")
+    del got, want
+    kernel_ms, plain_ms, _ = compare_timed(
+        torch, lambda: hopper_ftl.ftl_fusion_kernel(*args),
+        lambda: ff.ftl_fusion_plain(*args), 3)
+    gemm_ms = (time_ms(torch, lambda: ff.ftl_fusion_gemm(*args), 3)
+               + time_ms(torch, lambda: ff.ftl_fusion_gemm(*args), 3)) / 2
+    pix = h * w
+    ops = b * (2.0 * pix * (4 * c * 300 + 1600 * 400 + 400 * 400 + 4 * 300 * c)
+               + 2 * 4 * 2.0 * pix * 100 * 12)
+    weights = 2 * (c * 300 + 1600 * 400 + 400 * 400 + 300 * c + 300 + 400 + 400 + c)
+    moved = 3 * 4 * b * pix * c * 2 + weights + 4 * 4 * 1100 + b * 4 * 2 * 12 * 4
+    bound_ms = max(ops / PEAK_OPS["bf16"], moved / PEAK_BYTES) * 1e3
+    log = (_build.build() / "libftl_fusion.log").read_text()
+    ptxas = {k: v for k, v in ptxas_by_function(log).items() if "ftl_fusion_kernel" in k}
+    stores, loads = FTL_SPILL_BUDGET
+    check(len(ptxas) == 3 and all(v["spill_stores"] <= stores and v["spill_loads"] <= loads
+                                  for v in ptxas.values()),
+          f"ftl_fusion_kernel spills {ptxas}, budget {stores} / {loads} bytes")
+    return {"name": "ftl_fusion", "route": "cuda", "source": "csrc/ftl_fusion.cu",
+            "replaces": "none: pose_estimation_amitai_tpu/models/disentangled.py runs it in XLA",
+            "launches": 0, "kernel": "wgmma", "samples": b, "view_rows": 4 * b,
+            "max_abs_err_bf16": err, "tolerance": {"bf16_rtol_of_max": FTL_RTOL},
+            "ms": kernel_ms, "plain_ms": plain_ms, "previous_ms": gemm_ms,
+            "previous": "gemm", "bound_ms": bound_ms,
+            "bound_by": "ops" if ops / PEAK_OPS["bf16"] >= moved / PEAK_BYTES else "bytes",
+            "library_ms": None, "ptxas": ptxas}
 
 
 def folded_cases(torch, kp: dict) -> dict:
@@ -2799,8 +2879,9 @@ def zoo_serve(pred, frames) -> dict:
 
 def zoo_serve_ftl_fused(torch, cfg, run_path: str, kc: int, samples, cams, module_pts) -> dict:
     """The trained disentanglement model on the ``fused`` route: its rate
-    beside the module's, the launches a chunk (B1 three, ``ftl_fusion``
-    one, B2 one), predict_movie equal to the requests, the share of peaks
+    beside the module's, the launches a chunk (B1 three, the ``ftl_fusion``
+    kernel one and its "gemm" composition none, B2 one; the kernel's weights
+    packed in the warm-up and not again), predict_movie equal to the requests, the share of peaks
     where the module's are, and the maps of ZOO_FTL_MAPS samples (a whole
     chunk: every row of its kernel calls) within ZOO_FTL_SHARE of the
     largest value from the module route's in float32 (TF32 off), beside
@@ -2811,6 +2892,7 @@ def zoo_serve_ftl_fused(torch, cfg, run_path: str, kc: int, samples, cams, modul
     from pose_estimation_amitai_torch.ops import ftl_fusion as ff
     from pose_estimation_amitai_torch.ops import hopper_conv as hc
     from pose_estimation_amitai_torch.ops import hopper_deconv as hd
+    from pose_estimation_amitai_torch.ops import hopper_ftl
 
     def build(c=cfg, chunk=CHUNK, **kw):
         return Predictor.from_checkpoint(c, run_path, (192, 192, 16), kc, device="cuda",
@@ -2821,14 +2903,17 @@ def zoo_serve_ftl_fused(torch, cfg, run_path: str, kc: int, samples, cams, modul
     pred(samples[:1])  # warm-up
     torch.cuda.synchronize()
     counters = (lambda: (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
-                         hd.fused_decoder.launches))
+                         hopper_ftl.ftl_fusion_kernel.launches, hd.fused_decoder.launches,
+                         hopper_ftl.packed_weights.launches))
     before = counters()
     t_serve = time.perf_counter()
     pts = pred(samples)
     t_serve = time.perf_counter() - t_serve
     chunks = -(-len(samples) // CHUNK)
-    launches = dict(zip(("B1", "ftl_fusion", "B2"), (a - b for a, b in zip(counters(), before))))
-    check(launches == {"B1": 3 * chunks, "ftl_fusion": chunks, "B2": chunks},
+    launches = dict(zip(("B1", "ftl_fusion_gemm", "ftl_fusion_kernel", "B2", "ftl_pack"),
+                        (a - b for a, b in zip(counters(), before))))
+    check(launches == {"B1": 3 * chunks, "ftl_fusion_gemm": 0, "ftl_fusion_kernel": chunks,
+                       "B2": chunks, "ftl_pack": 0},
           f"fused camera model launches {launches} for {chunks} chunks")
     movie = pred.predict_movie(samples)
     check(np.array_equal(movie, pts), "fused camera model: predict_movie disagrees with __call__")
@@ -4520,6 +4605,7 @@ def main() -> int:
         (sum(REQUESTS), 192, 192, 4), dtype=np.float32)
     movie = movie_frames(frames)
     rows = phase_kernels(torch, params, conv_libs)
+    rows.append(ftl_fusion_row(torch))
     sl = phase_slice(torch, cfg, params, frames, movie, name, smi)
     q8 = phase_int8(torch, cfg, params, frames, name, smi)
     im = phase_im2col(torch, name, smi)
@@ -4534,7 +4620,7 @@ def main() -> int:
     trn = phase_trainer(torch, name, smi, tr["step_ms"])
     ent = phase_entry(torch, name, smi)
     phase_multicam(torch, name, smi)
-    phase_zoo(torch, name, smi)
+    zoo = phase_zoo(torch, name, smi)
     vtr = phase_vit_train(torch, name, smi)
     phase_int8_generic(torch, frames, name, smi)
     ss = phase_selfsup(torch, name, smi)
@@ -4542,7 +4628,9 @@ def main() -> int:
     ex = phase_export(torch, params, frames, name, smi)
     par = phase_parallel(torch, params, frames, name, smi)
     launches = {**sl["launches"], **q8["launches"], **vt["launches"],
-                "quantized_conv3x3": im["launches"]}
+                "quantized_conv3x3": im["launches"],
+                "ftl_fusion": zoo["models"]["FourCamDisentangled"]["served_fused"]
+                ["launches"]["ftl_fusion_kernel"]}
     imported = {**{k: v for k, v in imp["launches"]["BasicNet"].items() if v},
                 **{k: v for k, v in imp["launches"]["ViT"].items() if v}}
     jax_run = imp["jax_run_directory"]["launches"]  # the JAX run directory (B1, B2)

@@ -70,10 +70,9 @@
 // the stage.
 #pragma once
 
-#include <cuda.h>
-
 #include "conv_tile.cuh"
 #include "mma_tile.cuh"
+#include "tensor_map.cuh"
 
 namespace pe {
 
@@ -572,47 +571,6 @@ conv3x3_c4_mma_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();  // every warp has read its fragments: the tile is free
   mma_epilogue(acc, reinterpret_cast<float*>(smem_raw), bias, skip, out, bi,
                oy0, ox0, co0, H, W, Cout, alpha, pool);
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda); null if the driver has none.
-typedef CUresult (*TensorMapEncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-static TensorMapEncodeTiled tensor_map_encoder() {
-  static const TensorMapEncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<TensorMapEncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tiled map with the 128-byte swizzle and zero fill: `rank` dims
-// (innermost first), their byte strides from the second on, the box.
-static bool encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
-  const TensorMapEncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return false;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Per host thread and device: the largest dynamic shared memory a kernel

@@ -20,15 +20,17 @@ layout and dtype. Numerics are the module route's: the 1x1s in the latent's
 dtype (float32 accumulation, rounded once with their bias), the FTLs and
 BatchNorms in float32, rounded to the latent's dtype where the module rounds.
 
-Two versions of the same arithmetic, picked by :func:`ftl_path_for`:
+Three versions of the same arithmetic, picked by :func:`ftl_path_for`:
 ``"plain"``, the module's ops in their order (a loop over the views, the
-FTLs as einsums over per-pixel groups), and ``"gemm"``, the same on
-channels-last rows with no NCHW permute: the 1x1s as GEMMs over every pixel
-of the chunk, each FTL as one batched per-sample product on a (rows,
-pixels x G, 3 or 4) view, the views brought side by side for ``fusion1`` by
-one cast-and-permute copy and apart for ``rearrange2`` by ``bn3``'s pass,
-which writes its output permuted. Each run of ``"gemm"`` adds one to
-``ftl_fusion.launches``.
+FTLs as einsums over per-pixel groups); ``"wgmma"``, one hand-written kernel
+(ops/hopper_ftl.py, csrc/ftl_fusion.cu) for bfloat16 latents on the card at
+the widths it takes, every intermediate in registers and shared memory; and
+``"gemm"``, for the other latents on the card (float32, other widths), the
+same on channels-last rows with no NCHW permute: the 1x1s as GEMMs over every
+pixel of the chunk, each FTL as one batched per-sample product on a (rows,
+pixels x G, 3 or 4) view. Each run of ``"gemm"`` adds one to
+``ftl_fusion.launches``, each of ``"wgmma"`` one to
+``hopper_ftl.ftl_fusion_kernel.launches``.
 
 Weights: each 1x1 as a (Cin, Cout) matrix and a (Cout,) bias in the
 latent's dtype (the module's bias is a parameter of that dtype); each
@@ -38,22 +40,24 @@ variance.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
+from . import hopper_ftl
+
 VIEWS = 4
 GEMM_DTYPES = (torch.bfloat16, torch.float32)
-ALIGN = 8  # "gemm": GEMM operand widths padded to a multiple of 8 elements
-INV_GROUPS = 8  # "gemm": groups of 3 a row of the inverse FTL's product (H100: 2.4x)
-FWD_GROUPS = 2  # "gemm": groups of 4 a row of the FTL's product (H100: 1.6x)
 
 
-def ftl_path_for(device: torch.device, dtype: torch.dtype) -> str:
-    """``"gemm"`` for CUDA latents of bfloat16 or float32; ``"plain"`` for
-    every other latent (CPU tensors, other dtypes)."""
-    return "gemm" if device.type == "cuda" and dtype in GEMM_DTYPES else "plain"
+def ftl_path_for(device: torch.device, dtype: torch.dtype, width: int, latent: int) -> str:
+    """The version a latent of this device, dtype, encoder width and latent
+    width (rearrange1's output) runs: ``"wgmma"`` for CUDA latents the
+    kernel takes (:func:`hopper_ftl.ftl_kernel_takes`: bfloat16 at its
+    widths), ``"gemm"`` for the other CUDA latents of bfloat16 or float32,
+    ``"plain"`` for every other latent (CPU tensors, other dtypes)."""
+    if device.type != "cuda" or dtype not in GEMM_DTYPES:
+        return "plain"
+    return "wgmma" if hopper_ftl.ftl_kernel_takes(dtype, width, latent) else "gemm"
 
 
 def _batch_norm(x: torch.Tensor, bn: torch.Tensor, eps: float) -> torch.Tensor:
@@ -110,64 +114,31 @@ def ftl_fusion_plain(
     return torch.stack(outs, dim=1).view(n4, h, w, c)
 
 
-def _scale_shift(bn: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """A BatchNorm stack as the product and sum of ``x * mul + shift``."""
-    scale, bias, mean, var = bn
-    mul = torch.rsqrt(var + eps) * scale
-    return mul, bias - mean * mul
-
-
-def _kron(cam: torch.Tensor, k: int) -> torch.Tensor:
-    """(n, i, j) cameras -> (n, k j, k i): each camera once for each of k
-    groups of a row, kron(I_k, cam^T), so that one product takes k groups;
-    the products it adds are exact zeros, and the sums are the same."""
-    n, i, j = cam.shape
-    eye = torch.eye(k, dtype=cam.dtype, device=cam.device)
-    return torch.einsum("qp,bij->bqjpi", eye, cam).reshape(n, k * j, k * i)
-
-
 def ftl_fusion_gemm(
     latent, P, P_inv, w_r1, b_r1, w_f1, b_f1, w_f2, b_f2, w_r2, b_r2, bn1, bn2, bn3, eps,
 ) -> torch.Tensor:
-    """The same arithmetic on channels-last rows: GEMMs over the chunk's
-    pixels (the 3G-wide operands padded with zero columns to a multiple of
-    ``ALIGN``, so that cuBLAS reads 16-byte rows), each FTL one batched
-    product per view-row or sample (``INV_GROUPS`` and ``FWD_GROUPS`` groups
-    a row of it), each BatchNorm one ``x * mul + shift`` pass in float32
-    (ReLU after it in place; rounded where it is stored in the latent's
-    dtype, which ReLU commutes with)."""
+    """The same arithmetic on channels-last rows: each 1x1 one GEMM over
+    every pixel of the chunk, each FTL one batched product per view-row or
+    sample on its (pixels x G, 3 or 4) groups, the views brought side by side
+    for ``fusion1`` and apart for ``rearrange2`` by one copy each."""
     n4, h, w, c = latent.shape
     b, pix = n4 // VIEWS, h * w
-    dt, dev = latent.dtype, latent.device
-    lat3 = w_r1.shape[1]
-    g, pad = lat3 // 3, -lat3 % ALIGN
+    dt = latent.dtype
+    g = w_r1.shape[1] // 3
     x = latent.reshape(n4 * pix, c)
-    r = torch.addmm(F.pad(b_r1, (0, pad)), x, F.pad(w_r1, (0, pad)))  # (4B pix, 3G + pad)
-    z = torch.empty((n4 * pix, lat3), dtype=torch.float32, device=dev)
-    z.copy_(r[:, :lat3])
+    r = torch.addmm(b_r1, x, w_r1).float()  # (4B pix, 3G)
     # FTL^-1: each view-row's groups of 3 through its (4, 3) P_inv, float32
-    k = math.gcd(pix * g, INV_GROUPS)
-    canon = torch.bmm(z.view(n4, pix * g // k, 3 * k), _kron(P_inv.reshape(n4, 4, 3), k))
+    canon = torch.bmm(r.view(n4, pix * g, 3), P_inv.reshape(n4, 4, 3).mT).to(dt)
     # the four views' canonical channels side by side, per sample and pixel
-    side = torch.empty((b, pix, VIEWS, 4 * g), dtype=dt, device=dev)
-    side.copy_(canon.view(b, VIEWS, pix, 4 * g).transpose(1, 2))
-    f = torch.addmm(b_f1, side.view(b * pix, -1), w_f1)
-    mul, shift = _scale_shift(bn1, eps)
-    f = torch.addcmul(shift, f, mul, out=torch.empty_like(f)).relu_()  # fusion2 takes dt
-    f = torch.addmm(b_f2, f, w_f2)
-    mul, shift = _scale_shift(bn2, eps)
-    f = torch.addcmul(shift, f, mul).relu_()  # float32, as the FTL takes it
+    side = canon.view(b, VIEWS, pix, 4 * g).transpose(1, 2).reshape(b * pix, VIEWS * 4 * g)
+    f = F.relu(_batch_norm(torch.addmm(b_f1, side, w_f1), bn1, eps)).to(dt)
+    f = F.relu(_batch_norm(torch.addmm(b_f2, f, w_f2), bn2, eps))  # float32, as the FTL takes it
     # FTL: each pixel's groups of 4 through the sample's four (3, 4) P at
     # once, (B, pix G, 4) @ (B, 4, 4 x 3): channel (g, v, i)
-    k = math.gcd(pix * g, FWD_GROUPS)
-    t = torch.bmm(f.view(b, pix * g // k, 4 * k), _kron(P.reshape(b, VIEWS * 3, 4), k))
-    mul, shift = (a.view(g, 1, 3) for a in _scale_shift(bn3, eps))
-    apart = torch.empty((b, VIEWS, pix, lat3 + pad), dtype=dt, device=dev)
-    apart[..., lat3:].zero_()
-    torch.addcmul(shift, t.view(b, pix, g, VIEWS, 3), mul,
-                  out=apart[..., :lat3].view(b, VIEWS, pix, g, 3).permute(0, 2, 3, 1, 4))
-    out = torch.addmm(b_r2, apart.relu_().view(n4 * pix, -1), F.pad(w_r2, (0, 0, 0, pad)))
-    return out.add_(x).view(n4, h, w, c)
+    t = torch.bmm(f.view(b, pix * g, 4), P.reshape(b, VIEWS * 3, 4).mT)
+    t = t.view(b, pix, g, VIEWS, 3).permute(0, 3, 1, 2, 4).reshape(n4 * pix, 3 * g)
+    t = F.relu(_batch_norm(t, bn3, eps)).to(dt)
+    return torch.addmm(b_r2, t, w_r2).add_(x).view(n4, h, w, c)
 
 
 def ftl_fusion(
@@ -181,8 +152,11 @@ def ftl_fusion(
     check_operands(latent, P, P_inv, w_r1, w_f1, w_f2, w_r2, bn1, bn2, bn3)
     args = (latent, P, P_inv, w_r1, b_r1, w_f1, b_f1, w_f2, b_f2, w_r2, b_r2, bn1, bn2, bn3,
             eps)
-    if ftl_path_for(latent.device, latent.dtype) == "plain":
+    path = ftl_path_for(latent.device, latent.dtype, latent.shape[-1], w_r1.shape[1])
+    if path == "plain":
         return ftl_fusion_plain(*args)
+    if path == "wgmma":
+        return hopper_ftl.ftl_fusion_kernel(*args)
     out = ftl_fusion_gemm(*args)
     ftl_fusion.launches += 1
     return out

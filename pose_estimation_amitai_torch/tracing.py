@@ -33,8 +33,11 @@ Spans nest by the host's call stack:
 Counters are attributes of the code that does the work, always on and never
 reset; a reader takes differences of :func:`counts` (the stager's) or of
 the kernels' own: ``fused_encoder_stage.launches`` (B1),
-``fused_decoder.launches`` (B2), ``ftl_fusion.launches`` (the
-disentanglement model's middle on the card).
+``fused_decoder.launches`` (B2), ``hopper_ftl.ftl_fusion_kernel.launches``
+(the disentanglement model's middle on its bf16 kernel),
+``hopper_ftl.packed_weights.launches`` (that kernel's weights packed, once
+for each set) and ``ftl_fusion.launches`` (the middle on the "gemm" composition: float32, or
+widths the kernel does not take).
 """
 
 from __future__ import annotations

@@ -1592,17 +1592,26 @@ def test_ftl_fused_matches_module_on_card(cuda, dtype, share):
 
 def test_ftl_fused_launches_a_chunk(cuda):
     """A chunk of the fused disentanglement model runs B1 three times,
-    ftl_fusion once and B2 once, all on the card: 2 chunks, 6 / 2 / 2."""
+    ftl_fusion once (in bf16 on its kernel, not on the "gemm" composition)
+    and B2 once, all on the card: 2 chunks, 6 / 0 / 2 / 2; the kernel's
+    weights are packed at most once for the predictor, and not again on its
+    next call."""
     from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+    from pose_estimation_amitai_torch.ops import hopper_ftl
 
     (_, fused), frames = _ftl_predictors("bfloat16", 2, filters=16, hw=64, n=4)
-    before = (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
-              hd.fused_decoder.launches)
+    counters = (lambda: (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
+                         hopper_ftl.ftl_fusion_kernel.launches, hd.fused_decoder.launches,
+                         hopper_ftl.packed_weights.launches))
+    before = counters()
     fused(frames)
     torch.cuda.synchronize()
-    after = (hc.fused_encoder_stage.launches, ff.ftl_fusion.launches,
-             hd.fused_decoder.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (6, 2, 2)
+    # B1 6, the "gemm" composition none, the ftl_fusion kernel 2, B2 2
+    moved = tuple(a - b for a, b in zip(counters(), before))
+    assert moved[:4] == (6, 0, 2, 2) and moved[4] <= 1
+    before = counters()
+    fused(frames)
+    assert tuple(a - b for a, b in zip(counters(), before)) == (6, 0, 2, 2, 0)
 
 
 def test_ftl_predict_movie_is_pipelined(cuda, monkeypatch):
@@ -1623,3 +1632,133 @@ def test_ftl_predict_movie_is_pipelined(cuda, monkeypatch):
         order.clear()
         np.testing.assert_array_equal(fused.predict_movie(frames, prefetch=prefetch), want)
         assert order[: prefetch + 1] == ["run"] * prefetch + ["fetch"], order
+
+
+def _ftl_operands(b: int, hw: int, c: int, seed: int = 0) -> list:
+    """ftl_fusion's operands for b samples of hw x hw latent pixels at
+    encoder width c on the card, bf16 where the fused route has bf16: the
+    latent and 1x1s (lecun-normal, biases 0.05), BatchNorms off their
+    initial values, cameras at unit Frobenius norm, P_inv P's
+    pseudo-inverse."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    P = n(b, 4, 3, 4)
+    P = P / P.norm(dim=(-2, -1), keepdim=True)
+    P_inv = torch.linalg.pinv(P.double()).float()
+    P_inv = P_inv / P_inv.norm(dim=(-2, -1), keepdim=True)
+    args = [(n(4 * b, hw, hw, c) * 0.5).to(torch.bfloat16), P, P_inv]
+    for cin, cout in ((c, 300), (1600, 400), (400, 400), (300, c)):
+        args += [(n(cin, cout) / cin ** 0.5).to(torch.bfloat16),
+                 (n(cout) * 0.05).to(torch.bfloat16)]
+    for w in (400, 400, 300):
+        args.append(torch.stack([1 + 0.1 * n(w), 0.1 * n(w), 0.3 * n(w),
+                                 (1 + 0.1 * n(w)).abs()]))
+    return [a.to("cuda").contiguous() for a in args] + [1e-5]
+
+
+@pytest.mark.parametrize("b, hw, c", [
+    (256, 48, 256),  # the flagship chunk: 1,024 view-rows of 48 x 48
+    (5, 48, 64),     # filters 16
+    (3, 18, 256),    # 324 pixels: a ragged last tile
+    (1, 18, 128),
+    (1, 48, 256),
+    (5, 24, 64),
+])
+def test_ftl_fusion_kernel_matches_plain(cuda, b, hw, c):
+    """The "wgmma" kernel against the plain version on the same bf16
+    operands: within one bf16 step of the output's largest value, as the
+    "gemm" composition is held; one launch; swapping two samples' P_inv
+    moves the output far beyond that."""
+    from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+    from pose_estimation_amitai_torch.ops import hopper_ftl
+
+    args = _ftl_operands(b, hw, c, seed=b * hw + c)
+    assert ff.ftl_path_for(args[0].device, args[0].dtype, c, 300) == "wgmma"
+    want = ff.ftl_fusion_plain(*args).float()
+    before = hopper_ftl.ftl_fusion_kernel.launches, ff.ftl_fusion.launches
+    got = ff.ftl_fusion(*args)
+    torch.cuda.synchronize()
+    assert (hopper_ftl.ftl_fusion_kernel.launches, ff.ftl_fusion.launches) == \
+        (before[0] + 1, before[1])
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    scale = want.abs().max().item()
+    assert (got.float() - want).abs().max().item() <= 2 ** -7 * scale
+    if b > 1:
+        swapped = list(args)
+        swapped[2] = args[2][[1, 0, *range(2, b)]].contiguous()
+        moved = (hopper_ftl.ftl_fusion_kernel(*swapped).float() - want).abs().max().item()
+        assert moved > 1e-2 * scale
+
+
+def test_ftl_fusion_kernel_packs_its_weights_once(cuda):
+    """The kernel packs a set of 1x1 weights on its first call and reuses
+    the stages while those tensors live unchanged; a weight changed in
+    place, or another set, is packed again, and the output follows it."""
+    from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+    from pose_estimation_amitai_torch.ops import hopper_ftl
+
+    args = _ftl_operands(2, 18, 128, seed=11)
+    packs = hopper_ftl.packed_weights.launches
+    first = hopper_ftl.ftl_fusion_kernel(*args)
+    assert torch.equal(hopper_ftl.ftl_fusion_kernel(*args), first)
+    assert hopper_ftl.packed_weights.launches == packs + 1
+    args[7].mul_(-1)  # w_f2 in place
+    got = hopper_ftl.ftl_fusion_kernel(*args).float()
+    assert hopper_ftl.packed_weights.launches == packs + 2
+    want = ff.ftl_fusion_plain(*args).float()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2 ** -7 * scale
+    assert (first.float() - want).abs().max().item() > 1e-2 * scale
+    other = _ftl_operands(2, 18, 128, seed=12)
+    hopper_ftl.ftl_fusion_kernel(*other)
+    assert hopper_ftl.packed_weights.launches == packs + 3
+
+
+def test_ftl_fusion_paths_round_where_the_module_rounds(cuda):
+    """On operands whose every sum is exact in float32 (integer latents,
+    sparse weights and cameras of -1, 0, 1, integer biases and running
+    means, BatchNorm factors of 1 or 2) the three versions differ only
+    where they round, and they round at the same places: "wgmma", "gemm"
+    and "plain" on the card and "plain" on the CPU are bit-equal."""
+    from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+    from pose_estimation_amitai_torch.ops import hopper_ftl
+
+    gen = torch.Generator().manual_seed(7)
+    b, hw, c = 3, 18, 256
+
+    def ints(*shape, lo=-1, hi=1, density=1.0):
+        v = torch.randint(lo, hi + 1, shape, generator=gen).float()
+        return v * (torch.rand(shape, generator=gen) < density)
+
+    var = np.float32(1) - np.float32(1e-5)  # var + eps == 1: rsqrt exact
+    assert np.float32(var + np.float32(1e-5)) == 1
+
+    def bn(w):
+        scale = torch.randint(1, 3, (w,), generator=gen).float()
+        return torch.stack([scale, ints(w, lo=-2, hi=2), ints(w, lo=-2, hi=2),
+                            torch.full((w,), float(var))])
+
+    bf = torch.bfloat16
+    args = [ints(4 * b, hw, hw, c, density=0.5).to(bf), ints(b, 4, 3, 4), ints(b, 4, 4, 3)]
+    for cin, cout, density in ((c, 300, 1 / 16), (1600, 400, 1 / 16), (400, 400, 1 / 32),
+                               (300, c, 1 / 32)):
+        args += [ints(cin, cout, density=density).to(bf), ints(cout).to(bf)]
+    args += [bn(400), bn(400), bn(300), 1e-5]
+    on_card = [a.to("cuda") if torch.is_tensor(a) else a for a in args]
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        outs = {"plain_cpu": ff.ftl_fusion_plain(*args),
+                "plain": ff.ftl_fusion_plain(*on_card).cpu(),
+                "gemm": ff.ftl_fusion_gemm(*on_card).cpu(),
+                "wgmma": hopper_ftl.ftl_fusion_kernel(*on_card).cpu()}
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    want = outs.pop("plain_cpu")
+    assert want.abs().max() > 256  # the roundings to bf16 lose bits
+    for name, got in outs.items():
+        assert torch.equal(got, want), name
+

@@ -15,6 +15,7 @@ range, the gap its float32 convolutions leave.
 """
 
 import json
+import re
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +31,7 @@ from pose_estimation_amitai_torch.models import fast_infer
 from pose_estimation_amitai_torch.models.norm import EPSILON
 from pose_estimation_amitai_torch.ops import custom_ops, geometry
 from pose_estimation_amitai_torch.ops import ftl_fusion as ff
+from pose_estimation_amitai_torch.ops import hopper_ftl
 from pose_estimation_amitai_torch.train import loop
 
 from test_torch_resnet import one_thread  # noqa: F401 (fixture)
@@ -238,21 +240,49 @@ def test_ftl_fusion_gemm_rounds_as_the_plain_version_bf16(variables):
 
 
 def test_ftl_fusion_path_rule_and_checks(variables):
-    assert ff.ftl_path_for(torch.device("cpu"), torch.bfloat16) == "plain"
-    assert ff.ftl_path_for(torch.device("cuda"), torch.bfloat16) == "gemm"
-    assert ff.ftl_path_for(torch.device("cuda"), torch.float32) == "gemm"
-    assert ff.ftl_path_for(torch.device("cuda"), torch.float16) == "plain"
+    """bf16 on the card at the kernel's widths (encoder 64, 128, 256 into a
+    latent of 300) names "wgmma"; float32, and bf16 at other widths, "gemm";
+    the CPU and other dtypes "plain", which launches nothing."""
+    cuda, cpu, bf16, f32 = torch.device("cuda"), torch.device("cpu"), torch.bfloat16, torch.float32
+    for width in (64, 128, 256):
+        assert ff.ftl_path_for(cuda, bf16, width, 300) == "wgmma"
+        assert ff.ftl_path_for(cuda, f32, width, 300) == "gemm"
+        assert ff.ftl_path_for(cpu, bf16, width, 300) == "plain"
+        assert ff.ftl_path_for(cpu, f32, width, 300) == "plain"
+        assert ff.ftl_path_for(cuda, torch.float16, width, 300) == "plain"
+    for width, latent in ((32, 300), (96, 300), (512, 300), (256, 150), (256, 303)):
+        assert ff.ftl_path_for(cuda, bf16, width, latent) == "gemm"
     args = _op_args(variables)
-    before = ff.ftl_fusion.launches
+    before = ff.ftl_fusion.launches, hopper_ftl.ftl_fusion_kernel.launches
     torch.testing.assert_close(custom_ops.ftl_fusion(*args), ff.ftl_fusion_plain(*args),
                                rtol=0, atol=0)
-    assert ff.ftl_fusion.launches == before  # the plain version launches nothing
+    # the plain version launches nothing
+    assert (ff.ftl_fusion.launches, hopper_ftl.ftl_fusion_kernel.launches) == before
     bad = list(args)
     bad[2] = args[1]  # P where P_inv belongs
     with pytest.raises(ValueError, match="P_inv"):
         ff.ftl_fusion(*bad)
     with pytest.raises(ValueError, match="view-rows"):
         ff.ftl_fusion(args[0][:3], *args[1:])
+
+
+def test_ftl_fusion_kernel_refuses_what_it_does_not_take(variables):
+    """The kernel's wrapper raises before any launch: CPU tensors, float32,
+    an encoder width it is not built for; its rule names exactly the
+    bfloat16 widths it is built for, the instances pe_ftl_fusion
+    dispatches to."""
+    args = _op_args(variables, torch.bfloat16)
+    before = hopper_ftl.ftl_fusion_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_ftl.ftl_fusion_kernel(*args)
+    assert hopper_ftl.ftl_fusion_kernel.launches == before
+    assert [hopper_ftl.ftl_kernel_takes(torch.bfloat16, c, 300) for c in (32, 64, 128, 256)] == \
+        [False, True, True, True]
+    assert not hopper_ftl.ftl_kernel_takes(torch.float32, 256, 300)
+    assert not hopper_ftl.ftl_kernel_takes(torch.bfloat16, 256, 299)
+    source = (Path(hopper_ftl.__file__).parents[1] / "csrc" / "ftl_fusion.cu").read_text()
+    entry = source[source.index('extern "C" int pe_ftl_fusion('):]
+    assert tuple(int(c) for c in re.findall(r"case (\d+):", entry)) == hopper_ftl.WIDTHS
 
 
 def test_ftl_fusion_opcheck(variables):

@@ -266,16 +266,17 @@ def test_find_nvcc_raises_without_toolkit(monkeypatch, tmp_path):
 
 def test_build_sources_and_hash():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["attention.cu", "decoder.cu", "encoder_stage.cu", "probes.cu",
-                     "qconv_stage.cu"]
+    assert names == ["attention.cu", "decoder.cu", "encoder_stage.cu", "ftl_fusion.cu",
+                     "probes.cu", "qconv_stage.cu"]
     assert _build._source_hash() == _build._source_hash()
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_ROOT.relative_to(ROOT).as_posix() == "build/kernels"
-    for p in _build._sources():  # each kernel names the Pallas function it replaces
-        text = p.read_text()
+    for p in _build._sources():  # each kernel names the Pallas function it replaces,
+        text = p.read_text()     # or says that it replaces none
         assert ("Replaces pose_estimation_amitai_tpu/ops/pallas_" in text
-                or "Replaces scripts/exp_" in text), p.name
+                or "Replaces scripts/exp_" in text
+                or "It replaces no TPU kernel" in text), p.name
 
 
 def test_load_refuses_without_cuda():
